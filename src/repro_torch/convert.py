@@ -1,0 +1,73 @@
+"""Carry fitted state from the JAX package into the port.
+
+The converters take numpy arrays and plain scalars — what
+``np.asarray`` of the JAX package's state gives — so this module imports
+nothing of JAX:
+
+  * ``sdkde_from_state`` — a fitted ``repro.core.estimator.SDKDE``
+    (``x_train``, ``x_sd``, ``h``, ``score_h``) becomes a fitted port
+    ``SDKDE`` without running the score pass again;
+  * ``prepared_from_state`` — a ``repro.serve.registry.PreparedEstimator``
+    (``points``, ``h``, ``n_true``, ``d``, ``norm``, block sizes) becomes
+    the port's ``PreparedEstimator``, ready to be adopted by a registry.
+
+With these the KDE pass can be held against JAX's on a debiased set that
+JAX computed, apart from the score pass.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.core.estimator import SDKDE, EstimatorConfig
+from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.registry import PreparedEstimator
+
+
+def sdkde_from_state(x_train: np.ndarray, x_sd: np.ndarray, h: float,
+                     score_h: Optional[float] = None,
+                     config: EstimatorConfig | None = None) -> SDKDE:
+    """A fitted port ``SDKDE`` holding the given train and debiased sets."""
+    cfg = config or EstimatorConfig()
+    if score_h is not None:
+        cfg = dataclasses.replace(cfg, score_h=float(score_h))
+    est = SDKDE(float(h), cfg)
+    est.x_train = est._as_points(np.array(x_train, np.float32))
+    est.x_sd = est._as_points(np.array(x_sd, np.float32))
+    return est
+
+
+def prepared_from_state(key: str, points: np.ndarray, h: float, n_true: int,
+                        d: int, norm: float, *, block_m: int = 128,
+                        block_n: int = 128,
+                        config: ServeConfig | None = None
+                        ) -> PreparedEstimator:
+    """The port's ``PreparedEstimator`` for a JAX-prepared one.
+
+    ``points`` are the (debiased) train points the JAX estimator serves;
+    the port prepares its own column layout from them at the config's
+    tier.  Register the result with ``EstimatorRegistry.adopt``.
+    """
+    cfg = config or ServeConfig()
+    cfg = dataclasses.replace(cfg, block_m=int(block_m), block_n=int(block_n))
+    dev = device_mod.resolve(cfg.device)
+    pts = torch.as_tensor(np.array(points, np.float32), device=dev)
+    if tuple(pts.shape) != (int(n_true), int(d)):
+        raise ValueError(f"points {tuple(pts.shape)} do not match "
+                         f"(n_true={n_true}, d={d})")
+    prep = PreparedEstimator(
+        key=key, config=cfg, h=float(h), n_true=int(n_true), d=int(d),
+        generation=0, points=pts, norm=float(norm),
+    )
+    if cfg.backend == "flash":
+        prep.block_m, prep.block_n = cfg.block_m, cfg.block_n
+        prep.columns_for(cfg.precision)
+    return prep
+
+
+__all__ = ["sdkde_from_state", "prepared_from_state"]

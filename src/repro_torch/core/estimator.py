@@ -1,0 +1,144 @@
+"""High-level estimator API: KDE / SDKDE with backend dispatch.
+
+The counterpart of ``repro.core.estimator``.  Backends:
+
+  * ``flash`` — the hand-written kernels (``repro_torch.kernels.ops``):
+                B1 for the fit's score pass, B2 for every evaluation.
+                The default.  On CPU tensors the kernels' plain PyTorch
+                versions run instead.
+  * ``torch`` — the streaming plain math of ``core/kde.py``.
+  * ``ring``  — multi-device ring sharding: not ported yet (ROADMAP A13).
+
+Estimators run on ``config.device`` ("cuda" by default; asking for the
+card where there is none raises).  ``SDKDE.append``/``evict`` wait for the
+streaming delta pass (ROADMAP A8) and ``LaplaceKDE`` for the Laplace
+kernels (ROADMAP A5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, Optional
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.core import bandwidth as bw
+from repro_torch.core import kde as ref
+from repro_torch.kernels import ops
+from repro_torch.kernels import precision as prec
+
+Backend = Literal["flash", "torch"]
+BACKENDS = ("flash", "torch")
+
+
+def check_backend(backend: str) -> None:
+    if backend == "ring":
+        raise NotImplementedError(
+            "backend='ring' (torch.distributed ring sharding) is not ported "
+            "yet (ROADMAP A13)")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (choose from "
+                         f"{BACKENDS})")
+
+
+def check_prune(prune) -> None:
+    if prune != "off":
+        raise NotImplementedError(
+            f"prune={prune!r}: cluster pruning (kernels B3/B4) is not ported "
+            "yet (ROADMAP A4); use prune='off'")
+
+
+@dataclasses.dataclass
+class EstimatorConfig:
+    backend: Backend = "flash"
+    block: int = 1024            # streaming column-block size (torch backend)
+    block_m: int = 128           # kernel row tile (threads per block)
+    block_n: int = 128           # kernel column tile (points per stage)
+    score_h: Optional[float] = None  # score-estimation bandwidth (None = h)
+    precision: str = "f32"       # GEMM-operand tier (kernels/precision)
+    prune: str = "off"           # only "off" until ROADMAP A4
+    device: str = "cuda"         # "cuda" (raises without a card) or "cpu"
+
+    def __post_init__(self):
+        check_backend(self.backend)
+        check_prune(self.prune)
+        ops.check_blocks(self.block_m, self.block_n)
+        prec.validate(self.precision)
+        if self.block < 1:
+            raise ValueError(f"bad block {self.block!r}")
+
+
+class KDE:
+    """Classical Gaussian KDE."""
+
+    def __init__(self, h=None, config: EstimatorConfig | None = None):
+        self.h = None if h is None else float(h)
+        self.config = config or EstimatorConfig()
+        self.x_train: torch.Tensor | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return device_mod.resolve(self.config.device)
+
+    def _as_points(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def fit(self, x) -> "KDE":
+        self.x_train = self._as_points(x)
+        if self.h is None:
+            self.h = float(bw.silverman_bandwidth(self.x_train))
+        return self
+
+    def _train_points(self) -> torch.Tensor:
+        if self.x_train is None:
+            raise RuntimeError("call fit() first")
+        return self.x_train
+
+    def evaluate(self, y) -> torch.Tensor:
+        x = self._train_points()
+        y = self._as_points(y)
+        cfg = self.config
+        if cfg.backend == "flash":
+            return ops.flash_kde(x, y, self.h, precision=cfg.precision,
+                                 block_m=cfg.block_m, block_n=cfg.block_n)
+        return ref.kde_eval(x, y, self.h, block=cfg.block)
+
+    __call__ = evaluate
+
+
+class SDKDE(KDE):
+    """Score-debiased KDE: empirical-score shift + KDE on debiased samples.
+
+    ``fit`` performs the quadratic score pass (the paper's hot spot, kernel
+    B1 on the flash backend) and caches the debiased samples; ``evaluate``
+    is then a standard KDE pass (kernel B2).
+    """
+
+    def __init__(self, h=None, config: EstimatorConfig | None = None):
+        super().__init__(h, config)
+        self.x_sd: torch.Tensor | None = None
+
+    def fit(self, x) -> "SDKDE":
+        self.x_train = self._as_points(x)
+        if self.h is None:
+            self.h = float(bw.sdkde_bandwidth(self.x_train))
+        cfg = self.config
+        if cfg.backend == "flash":
+            self.x_sd = ops.flash_sdkde_shift(
+                self.x_train, self.h, score_h=cfg.score_h,
+                precision=cfg.precision, block_m=cfg.block_m,
+                block_n=cfg.block_n)
+        else:
+            self.x_sd = ref.sdkde_shift(self.x_train, self.h,
+                                        score_h=cfg.score_h, block=cfg.block)
+        return self
+
+    def _train_points(self) -> torch.Tensor:
+        if self.x_sd is None:
+            raise RuntimeError("call fit() first")
+        return self.x_sd
+
+
+__all__ = ["Backend", "BACKENDS", "EstimatorConfig", "KDE", "SDKDE",
+           "check_backend", "check_prune"]

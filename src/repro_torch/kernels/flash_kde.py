@@ -1,0 +1,167 @@
+"""Flash KDE pass (kernel B2): Gaussian kernel sums at query points.
+
+Computes ``p_j = Σ_i exp(-‖y_j - x_i‖²/(2h²))`` for query rows ``y_j``
+against the train columns ``xt`` (d, n), with ``sq`` clamped at 0.  Three
+functions:
+
+  * ``flash_kde_cuda`` launches the hand-written CUDA kernel
+    (``csrc/flash_kde.cu``) on CUDA tensors and counts the launch;
+  * ``flash_kde_plain`` is the same function in plain PyTorch, streaming
+    column blocks of ``block_n`` so n×m is never materialized;
+  * ``flash_kde`` takes the plain version for CPU tensors and the kernel
+    for CUDA tensors — no fallback between them.
+
+Arguments follow ``repro.kernels.flash_kde.flash_kde_pallas``: padded
+operands, norms (m, 1) and (1, n) in f32, ``inv2h2`` a (1, 1) f32 tensor,
+the bf16x2 tier given by both lo planes; the result is (m, 1) f32 sums.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import precision as prec
+
+MAX_D = 64          # the widest d the kernel is built for
+MAX_BLOCK_M = 256   # threads (rows) per block
+TIER_CODES = {"f32": 0, "bf16": 1, "bf16x2": 2}
+
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+#: Kernel launches made by ``flash_kde_cuda``; set to 0 to start a count.
+launches = 0
+
+
+def _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n):
+    m, d = y.shape
+    if xt.shape[0] != d:
+        raise ValueError(f"xt has d={xt.shape[0]}, queries d={d}")
+    n = xt.shape[1]
+    if (y_lo is None) != (xt_lo is None):
+        raise ValueError("bf16x2 needs both lo planes")
+    if m % block_m or n % block_n:
+        raise ValueError(f"shapes (m={m}, n={n}) must be multiples of "
+                         f"(block_m={block_m}, block_n={block_n})")
+    if tuple(nrm_y.shape) != (m, 1) or tuple(nrm_x.shape) != (1, n):
+        raise ValueError(f"norm shapes {tuple(nrm_y.shape)}, "
+                         f"{tuple(nrm_x.shape)} do not match ({m}, 1), "
+                         f"(1, {n})")
+    if inv2h2.numel() != 1:
+        raise ValueError("inv2h2 must hold one value")
+    return m, n, d
+
+
+def flash_kde_plain(
+    y: torch.Tensor,
+    nrm_y: torch.Tensor,
+    xt: torch.Tensor,
+    nrm_x: torch.Tensor,
+    inv2h2: torch.Tensor,
+    y_lo: Optional[torch.Tensor] = None,
+    xt_lo: Optional[torch.Tensor] = None,
+    *,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """Plain PyTorch B2, one column block of ``block_n`` at a time."""
+    m = y.shape[0]
+    n = xt.shape[1]
+    out = torch.zeros((m, 1), dtype=torch.float32, device=y.device)
+    for j0 in range(0, n, block_n):
+        cols = slice(j0, j0 + block_n)
+        if y_lo is None:
+            g = prec.dot_f32(y, xt[:, cols])
+        else:
+            g = prec.gram_compensated(y, y_lo, xt[:, cols], xt_lo[:, cols])
+        sq = torch.clamp(nrm_y + nrm_x[:, cols] - 2.0 * g, min=0.0)
+        out += torch.exp(-sq * inv2h2).sum(dim=1, keepdim=True)
+    return out
+
+
+def flash_kde_cuda(
+    y: torch.Tensor,
+    nrm_y: torch.Tensor,
+    xt: torch.Tensor,
+    nrm_x: torch.Tensor,
+    inv2h2: torch.Tensor,
+    y_lo: Optional[torch.Tensor] = None,
+    xt_lo: Optional[torch.Tensor] = None,
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """Launch kernel B2 on the current stream; returns (m, 1) f32 sums."""
+    global launches
+    m, n, d = _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
+                     block_m, block_n)
+    tensors = [y, nrm_y, xt, nrm_x, inv2h2] + [
+        t for t in (y_lo, xt_lo) if t is not None]
+    dev = y.device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"flash_kde_cuda needs every tensor on one CUDA "
+                             f"device, got {t.device} (queries on {dev})")
+        if not t.is_contiguous():
+            raise ValueError("flash_kde_cuda needs contiguous tensors")
+    tier = prec.tier_of(y, y_lo)
+    want = torch.float32 if tier == "f32" else torch.bfloat16
+    for t in (y, xt, y_lo, xt_lo):
+        if t is not None and t.dtype != want:
+            raise ValueError(f"tier {tier} operands must be {want}, "
+                             f"got {t.dtype}")
+    for t in (nrm_y, nrm_x, inv2h2):
+        if t.dtype != torch.float32:
+            raise ValueError(f"norms and inv2h2 must be float32, got "
+                             f"{t.dtype}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"flash_kde kernel is built for 1 <= d <= {MAX_D}, "
+                         f"got d={d}")
+    if not 1 <= block_m <= MAX_BLOCK_M:
+        raise ValueError(f"block_m must be in [1, {MAX_BLOCK_M}], got "
+                         f"{block_m}")
+    launch, error = _build.load("flash_kde", _ARGTYPES)
+    out = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(
+            y.data_ptr(), y_lo.data_ptr() if y_lo is not None else None,
+            nrm_y.data_ptr(), xt.data_ptr(),
+            xt_lo.data_ptr() if xt_lo is not None else None,
+            nrm_x.data_ptr(), inv2h2.data_ptr(), out.data_ptr(),
+            m, n, d, TIER_CODES[tier], block_m, block_n, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_kde kernel launch failed ({rc}): "
+                           f"{error(rc).decode()} [m={m} n={n} d={d} "
+                           f"tier={tier} block_m={block_m} "
+                           f"block_n={block_n}]")
+    launches += 1
+    return out
+
+
+def flash_kde(
+    y: torch.Tensor,
+    nrm_y: torch.Tensor,
+    xt: torch.Tensor,
+    nrm_x: torch.Tensor,
+    inv2h2: torch.Tensor,
+    y_lo: Optional[torch.Tensor] = None,
+    xt_lo: Optional[torch.Tensor] = None,
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """B2 on the tensors' device: plain PyTorch on the CPU, the kernel on
+    the card.  Returns unnormalized sums (m, 1) f32."""
+    if y.device.type == "cpu":
+        _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n)
+        return flash_kde_plain(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
+                               block_n=block_n)
+    return flash_kde_cuda(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
+                          block_m=block_m, block_n=block_n)
+
+
+__all__ = ["MAX_D", "MAX_BLOCK_M", "TIER_CODES", "flash_kde",
+           "flash_kde_cuda", "flash_kde_plain"]

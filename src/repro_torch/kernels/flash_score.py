@@ -1,0 +1,168 @@
+"""Flash score pass (kernel B1): the SD-KDE empirical-score statistics.
+
+Computes, for every train row i, ``S1aug_i = Σ_j φ_ij · [x_j | 1]`` with
+``φ_ij = exp(-‖x_i - x_j‖²/(2h²))`` — the score numerator ``Φ X`` and the
+denominator ``Φ 1`` in one pass.  Three functions:
+
+  * ``flash_score_cuda`` launches the hand-written CUDA kernel
+    (``csrc/flash_score.cu``) on CUDA tensors and counts the launch;
+  * ``flash_score_plain`` is the same function in plain PyTorch,
+    streaming column blocks of ``block_n`` so n×n is never materialized;
+  * ``flash_score`` takes the plain version for CPU tensors and the
+    kernel for CUDA tensors — no fallback between them.
+
+Arguments follow ``repro.kernels.flash_score.flash_score_pallas``: x
+(n, d), nrm (n, 1) f32, xt (d, n), xaug (n, d+1), ``inv2h2`` a (1, 1) f32
+tensor, and for bf16x2 the three lo planes.  The result is (n, d+1) f32.
+At the bf16 tiers φ is rounded (bf16) or split (bf16x2) before it
+multiplies ``[X|1]``, as ``precision.weighted_accum`` does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import precision as prec
+from repro_torch.kernels.flash_kde import MAX_BLOCK_M, MAX_D, TIER_CODES
+
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+#: Kernel launches made by ``flash_score_cuda``; set to 0 to start a count.
+launches = 0
+
+
+def _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo, block_m,
+           block_n):
+    n, d = x.shape
+    if n % block_m or n % block_n:
+        raise ValueError(f"n={n} must be a multiple of block_m={block_m} "
+                         f"and block_n={block_n}")
+    if tuple(xt.shape) != (d, n) or tuple(xaug.shape) != (n, d + 1):
+        raise ValueError(f"xt {tuple(xt.shape)} / xaug {tuple(xaug.shape)} "
+                         f"do not match x {tuple(x.shape)}")
+    if tuple(nrm.shape) != (n, 1) or inv2h2.numel() != 1:
+        raise ValueError("nrm must be (n, 1) and inv2h2 hold one value")
+    los = (x_lo, xt_lo, xaug_lo)
+    if not (all(v is None for v in los) or all(v is not None for v in los)):
+        raise ValueError("bf16x2 needs all three lo planes")
+    return n, d
+
+
+def flash_score_plain(
+    x: torch.Tensor,
+    nrm: torch.Tensor,
+    xt: torch.Tensor,
+    xaug: torch.Tensor,
+    inv2h2: torch.Tensor,
+    x_lo: Optional[torch.Tensor] = None,
+    xt_lo: Optional[torch.Tensor] = None,
+    xaug_lo: Optional[torch.Tensor] = None,
+    *,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """Plain PyTorch B1, one column block of ``block_n`` at a time."""
+    n, d = x.shape
+    out = torch.zeros((n, d + 1), dtype=torch.float32, device=x.device)
+    nrm_col = nrm.reshape(1, -1)
+    for j0 in range(0, n, block_n):
+        cols = slice(j0, j0 + block_n)
+        if x_lo is None:
+            g = prec.dot_f32(x, xt[:, cols])
+        else:
+            g = prec.gram_compensated(x, x_lo, xt[:, cols], xt_lo[:, cols])
+        sq = torch.clamp(nrm + nrm_col[:, cols] - 2.0 * g, min=0.0)
+        phi = torch.exp(-sq * inv2h2)
+        out += prec.weighted_accum(
+            phi, xaug[cols], None if xaug_lo is None else xaug_lo[cols])
+    return out
+
+
+def flash_score_cuda(
+    x: torch.Tensor,
+    nrm: torch.Tensor,
+    xt: torch.Tensor,
+    xaug: torch.Tensor,
+    inv2h2: torch.Tensor,
+    x_lo: Optional[torch.Tensor] = None,
+    xt_lo: Optional[torch.Tensor] = None,
+    xaug_lo: Optional[torch.Tensor] = None,
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """Launch kernel B1 on the current stream; returns (n, d+1) f32."""
+    global launches
+    n, d = _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo,
+                  block_m, block_n)
+    los = (x_lo, xt_lo, xaug_lo)
+    dev = x.device
+    for t in (x, nrm, xt, xaug, inv2h2) + los:
+        if t is None:
+            continue
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"flash_score_cuda needs every tensor on one "
+                             f"CUDA device, got {t.device} (x on {dev})")
+        if not t.is_contiguous():
+            raise ValueError("flash_score_cuda needs contiguous tensors")
+    tier = prec.tier_of(x, x_lo)
+    want = torch.float32 if tier == "f32" else torch.bfloat16
+    for t in (x, xt, xaug) + los:
+        if t is not None and t.dtype != want:
+            raise ValueError(f"tier {tier} operands must be {want}, "
+                             f"got {t.dtype}")
+    if nrm.dtype != torch.float32 or inv2h2.dtype != torch.float32:
+        raise ValueError("nrm and inv2h2 must be float32")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"flash_score kernel is built for 1 <= d <= "
+                         f"{MAX_D}, got d={d}")
+    if not 1 <= block_m <= MAX_BLOCK_M:
+        raise ValueError(f"block_m must be in [1, {MAX_BLOCK_M}], got "
+                         f"{block_m}")
+    launch, error = _build.load("flash_score", _ARGTYPES)
+    out = torch.empty((n, d + 1), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(ptr(x), ptr(x_lo), ptr(nrm), ptr(xt), ptr(xt_lo),
+                    ptr(xaug), ptr(xaug_lo), ptr(inv2h2), ptr(out),
+                    n, d, TIER_CODES[tier], block_m, block_n, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_score kernel launch failed ({rc}): "
+                           f"{error(rc).decode()} [n={n} d={d} tier={tier} "
+                           f"block_m={block_m} block_n={block_n}]")
+    launches += 1
+    return out
+
+
+def flash_score(
+    x: torch.Tensor,
+    nrm: torch.Tensor,
+    xt: torch.Tensor,
+    xaug: torch.Tensor,
+    inv2h2: torch.Tensor,
+    x_lo: Optional[torch.Tensor] = None,
+    xt_lo: Optional[torch.Tensor] = None,
+    xaug_lo: Optional[torch.Tensor] = None,
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+) -> torch.Tensor:
+    """B1 on the tensors' device: plain PyTorch on the CPU, the kernel on
+    the card.  Returns S1aug (n, d+1) f32."""
+    if x.device.type == "cpu":
+        _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo, block_m,
+               block_n)
+        return flash_score_plain(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo,
+                                 xaug_lo, block_n=block_n)
+    return flash_score_cuda(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo,
+                            block_m=block_m, block_n=block_n)
+
+
+__all__ = ["flash_score", "flash_score_cuda", "flash_score_plain"]

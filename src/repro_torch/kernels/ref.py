@@ -1,0 +1,41 @@
+"""Untiled PyTorch oracles for the kernels (``repro.kernels.ref``).
+
+Each ``ref_*`` computes what the corresponding kernel computes (same
+inputs, same outputs) in one f32 pass with no tiling — the ground truth
+the tests hold the tiled paths against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    an = torch.sum(a**2, dim=-1)[:, None]
+    bn = torch.sum(b**2, dim=-1)[None, :]
+    return an + bn - 2.0 * (a @ b.T)
+
+
+def ref_score_stats(x: torch.Tensor, h: float):
+    """(S0, S1): S0_i = Σ_j φ_ij, S1_i = Σ_j φ_ij x_j (train×train)."""
+    phi = torch.exp(-_sqdist(x, x) / (2.0 * h * h))
+    return torch.sum(phi, dim=1), phi @ x.to(torch.float32)
+
+
+def ref_kde_sums(x: torch.Tensor, y: torch.Tensor, h: float) -> torch.Tensor:
+    """Unnormalized KDE sums at queries: p_j = Σ_i φ(y_j, x_i)."""
+    return torch.sum(torch.exp(-_sqdist(y, x) / (2.0 * h * h)), dim=1)
+
+
+def ref_sdkde_shift(x: torch.Tensor, h: float, score_h: float | None = None):
+    """Debiased samples via the empirical score (as ops.flash_sdkde_shift)."""
+    sh = h if score_h is None else score_h
+    s0, s1 = ref_score_stats(x, sh)
+    x32 = x.to(torch.float32)
+    score = (s1 - x32 * s0[:, None]) / (sh * sh * s0[:, None])
+    return x32 + 0.5 * h * h * score
+
+
+__all__ = ["ref_score_stats", "ref_kde_sums", "ref_sdkde_shift"]

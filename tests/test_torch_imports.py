@@ -1,0 +1,123 @@
+"""Boundaries of the PyTorch port: no JAX inside it, the card by default,
+and no silent fallback from a kernel request to the CPU."""
+
+import ast
+import pathlib
+
+import pytest
+import torch
+
+from repro_torch import device
+from repro_torch.core.estimator import SDKDE, EstimatorConfig
+from repro_torch.kernels import flash_kde, flash_score, ops
+from repro_torch.serve import ServeConfig, ServeEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_port_has_cuda_sources_for_both_kernels():
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    assert {p.stem for p in csrc.glob("*.cu")} >= {"flash_score",
+                                                   "flash_kde"}
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match="cuda"):
+        device.resolve()
+    x = torch.zeros((8, 2))
+    with pytest.raises(RuntimeError, match="cuda"):
+        SDKDE(0.5).fit(x)
+    with pytest.raises(RuntimeError, match="cuda"):
+        SDKDE(0.5, EstimatorConfig(backend="torch")).fit(x)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeEngine(ServeConfig())
+
+
+def test_defaults_are_the_card_and_the_flash_kernels():
+    assert EstimatorConfig().device == "cuda"
+    assert EstimatorConfig().backend == "flash"
+    assert ServeConfig().device == "cuda"
+    assert ServeConfig().backend == "flash"
+
+
+def test_resolve_turns_tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert device.resolve("cpu").type == "cpu"
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert torch.backends.cudnn.allow_tf32 is False
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _kde_operands(n=256, m=128, d=4):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(n, d, generator=g)
+    y = torch.randn(m, d, generator=g)
+    y_ops, xt_ops, nrm_y, nrm_x = ops._prep_eval(x, y, 128, 128, "f32")
+    return y_ops[0], nrm_y, xt_ops[0], nrm_x, ops._inv2h2(0.5, x.device)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    args = _kde_operands()
+    before = flash_kde.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_kde.flash_kde_cuda(*args)
+    assert flash_kde.launches == before
+    y, nrm_y, _, _, inv = args
+    xs, xt_s, xaug, nrm, _ = ops._score_operands(y, "f32")
+    before = flash_score.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_score.flash_score_cuda(xs[0], nrm, xt_s[0], xaug[0], inv)
+    assert flash_score.launches == before
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    args = _kde_operands()
+    before = flash_kde.launches
+    got = flash_kde.flash_kde(*args, block_m=128, block_n=128)
+    want = flash_kde.flash_kde_plain(*args, block_n=128)
+    assert flash_kde.launches == before
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kwargs, roadmap", [
+    ({"backend": "ring"}, "A13"),
+    ({"prune": "auto"}, "A4"),
+    ({"block_m": "auto"}, "A6"),
+    ({"block_n": "auto"}, "A6"),
+])
+def test_unported_knobs_raise_naming_the_roadmap(kwargs, roadmap):
+    with pytest.raises(NotImplementedError, match=roadmap):
+        EstimatorConfig(device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match=roadmap):
+        ServeConfig(device="cpu", **kwargs)
+
+
+def test_laplace_method_waits_for_its_kernels():
+    with pytest.raises(NotImplementedError, match="A5"):
+        ServeConfig(method="laplace")

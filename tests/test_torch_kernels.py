@@ -1,0 +1,226 @@
+"""Kernels B1 (score) and B2 (KDE) of the port against the JAX package.
+
+On the CPU the port's wrappers run the kernels' plain PyTorch versions;
+they are held against ``flash_score_pallas`` / ``flash_kde_pallas``
+launched raw in interpret mode on the same padded operands (made by the
+JAX wrappers' own helpers from the same numpy inputs), for all three
+tiers.  Then the ``ops`` wrappers against ``repro.kernels.ops`` with
+``prune="off"`` and explicit blocks.  Only real rows are compared: a
+sentinel row against sentinel columns gives ``sq ≈ 0`` by cancellation,
+which is harmless only because padded rows are sliced off.
+
+Tolerances (per tier):
+  * f32: rtol 1e-5 with atol 1e-6·peak (the serve bar), or the norm-trick
+    error model 8·eps·max‖x‖²/(2h²) where that is larger: both sides
+    round the Gram differently, and 1/(2h²) amplifies it in ``exp``;
+  * bf16x2: 5e-4;  bf16: 5e-2 — the tiers' documented bars.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.flash_kde import flash_kde_pallas
+from repro.kernels.flash_score import flash_score_pallas
+from repro_torch.kernels import flash_kde, flash_score
+from repro_torch.kernels import ops as tops
+
+TIERS = ["f32", "bf16x2", "bf16"]
+TIER_BAR = {"f32": 1e-5, "bf16x2": 5e-4, "bf16": 5e-2}
+F32_EPS = float(np.finfo(np.float32).eps)
+
+# (n, m, d) from tests/test_kernels_allclose.py: non-multiples, d=1, d=32
+SHAPES = [
+    (64, 16, 8),
+    (300, 50, 16),
+    (513, 129, 16),
+    (256, 256, 32),
+    (128, 64, 1),
+]
+BM, BN = 32, 64
+
+
+def _data(n, m, d, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = (1.2 * rng.standard_normal((m, d))).astype(np.float32)
+    return x, y
+
+
+def bar(precision, pts, h):
+    if precision != "f32":
+        return TIER_BAR[precision]
+    return max(1e-5, 8 * F32_EPS * float(np.max(np.sum(pts * pts, 1)))
+               / (2 * h * h))
+
+
+def assert_close(got, want, rtol):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=1e-6 * np.max(np.abs(want)))
+
+
+def _t(a):
+    """A JAX array (f32 or bf16) as a torch tensor of the same bits."""
+    if a is None:
+        return None
+    a = np.asarray(a)
+    if a.dtype == np.float32:
+        return torch.from_numpy(a.copy())
+    return torch.from_numpy(a.view(np.int16).copy()).view(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("n,m,d", SHAPES)
+def test_score_plain_matches_pallas(n, m, d, precision):
+    x, _ = _data(n, m, d)
+    h = 0.7
+    xp = jops._pad_to(jnp.asarray(x), np.lcm(BM, BN))
+    x_ops, xt_ops, xaug_ops, nrm, _ = jops._score_operands(xp, precision)
+    inv = jops._inv2h2(h)
+    want = flash_score_pallas(x_ops[0], nrm, xt_ops[0], xaug_ops[0], inv,
+                              x_ops[1], xt_ops[1], xaug_ops[1],
+                              block_m=BM, block_n=BN, interpret=True)
+    args = [_t(a) for a in (x_ops[0], nrm, xt_ops[0], xaug_ops[0], inv,
+                            x_ops[1], xt_ops[1], xaug_ops[1])]
+    got = flash_score.flash_score(*args, block_m=BM, block_n=BN)
+    plain = flash_score.flash_score_plain(*args, block_n=BN)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    assert got.shape == (xp.shape[0], d + 1) and got.dtype == torch.float32
+    assert_close(got[:n], np.asarray(want)[:n], bar(precision, x, h))
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("n,m,d", SHAPES)
+def test_kde_plain_matches_pallas(n, m, d, precision):
+    x, y = _data(n, m, d, seed=1)
+    h = 0.7
+    y_ops, xt_ops, nrm_y, nrm_x = jops._prep_eval(
+        jnp.asarray(x), jnp.asarray(y), BM, BN, precision)
+    inv = jops._inv2h2(h)
+    want = flash_kde_pallas(y_ops[0], nrm_y, xt_ops[0], nrm_x, inv,
+                            y_ops[1], xt_ops[1], block_m=BM, block_n=BN,
+                            interpret=True)
+    args = [_t(a) for a in (y_ops[0], nrm_y, xt_ops[0], nrm_x, inv,
+                            y_ops[1], xt_ops[1])]
+    got = flash_kde.flash_kde(*args, block_m=BM, block_n=BN)
+    assert got.shape == (y_ops[0].shape[0], 1)
+    assert_close(got[:m], np.asarray(want)[:m],
+                 bar(precision, np.concatenate([x, y]), h))
+
+
+def test_sentinel_columns_add_exactly_zero():
+    """Padding the train set further changes no real row beyond f32
+    summation order, and a column block made only of sentinels adds
+    exactly 0.0 (the kernel's padding contract)."""
+    x, y = _data(100, 30, 4, seed=2)
+    yt, xt = torch.from_numpy(y), torch.from_numpy(x)
+    y_ops, xt_ops, nrm_y, nrm_x = tops._prep_eval(xt, yt, 32, 64, "f32")
+    inv = tops._inv2h2(0.6, yt.device)
+    base = flash_kde.flash_kde_plain(y_ops[0], nrm_y, xt_ops[0], nrm_x, inv,
+                                     block_n=64)
+    pad = tops._pad_to(xt, 64)
+    far = torch.cat([pad, torch.full((64, 4), tops.PAD_VALUE)])
+    _, xt2, _, nrm_x2 = tops._prep_eval(far, yt, 32, 64, "f32")
+    more = flash_kde.flash_kde_plain(y_ops[0], nrm_y, xt2[0], nrm_x2, inv,
+                                     block_n=64)
+    torch.testing.assert_close(more[:30], base[:30], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("precision", TIERS)
+def test_flash_score_stats_and_shift_match_jax(precision):
+    x, _ = _data(300, 50, 16, seed=3)
+    h, sh = 0.8, 0.6
+    js0, js1 = jops.flash_score_stats(jnp.asarray(x), sh,
+                                      precision=precision, block_m=BM,
+                                      block_n=BN, interpret=True, prune="off")
+    ts0, ts1 = tops.flash_score_stats(torch.from_numpy(x), sh,
+                                      precision=precision, block_m=BM,
+                                      block_n=BN)
+    rtol = bar(precision, x, sh)
+    assert_close(ts0, js0, rtol)
+    assert_close(ts1, js1, rtol)
+    want = jops.flash_sdkde_shift(jnp.asarray(x), h, score_h=sh,
+                                  precision=precision, block_m=BM,
+                                  block_n=BN, interpret=True, prune="off")
+    got = tops.flash_sdkde_shift(torch.from_numpy(x), h, score_h=sh,
+                                 precision=precision, block_m=BM, block_n=BN)
+    assert_close(got, want, rtol)
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("n,m,d", [(300, 50, 16), (128, 64, 1)])
+def test_flash_kde_matches_jax(n, m, d, precision):
+    x, y = _data(n, m, d, seed=4)
+    h = 0.7
+    want = jops.flash_kde(jnp.asarray(x), jnp.asarray(y), h,
+                          precision=precision, block_m=BM, block_n=BN,
+                          interpret=True, prune="off")
+    got = tops.flash_kde(torch.from_numpy(x), torch.from_numpy(y), h,
+                         precision=precision, block_m=BM, block_n=BN)
+    assert got.shape == (m,)
+    assert_close(got, want, bar(precision, np.concatenate([x, y]), h))
+
+
+@pytest.mark.parametrize("precision", TIERS)
+def test_prepared_columns_and_kde_match_jax(precision):
+    x, y = _data(200, 96, 8, seed=5)
+    h = 0.9
+    jcols = jops.prepare_train_columns(jnp.asarray(x), block_n=BN,
+                                       precision=precision)
+    tcols = tops.prepare_train_columns(torch.from_numpy(x), block_n=BN,
+                                       precision=precision)
+    np.testing.assert_array_equal(
+        tcols.xt.to(torch.float32).numpy(),
+        np.asarray(jcols.xt, np.float32))
+    if precision == "bf16x2":
+        np.testing.assert_array_equal(
+            tcols.xt_lo.to(torch.float32).numpy(),
+            np.asarray(jcols.xt_lo, np.float32))
+    np.testing.assert_array_equal(tcols.nrm_x.numpy(),
+                                  np.asarray(jcols.nrm_x))
+    yp = np.array(jops._pad_to(jnp.asarray(y), BM))
+    want = jops.flash_kde_prepared(jnp.asarray(yp), jcols.xt, jcols.nrm_x, h,
+                                   jcols.xt_lo, precision=precision,
+                                   block_m=BM, block_n=BN, interpret=True)
+    got = tops.flash_kde_prepared(torch.from_numpy(yp), tcols.xt,
+                                  tcols.nrm_x, h, tcols.xt_lo,
+                                  precision=precision, block_m=BM,
+                                  block_n=BN)
+    assert_close(got[:96], np.asarray(want)[:96],
+                 bar(precision, np.concatenate([x, y]), h))
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("n,m,d", [(300, 50, 16), (256, 128, 4)])
+def test_flash_sdkde_matches_jax(n, m, d, precision):
+    x, y = _data(n, m, d, seed=6)
+    h = 0.8
+    want = jops.flash_sdkde(jnp.asarray(x), jnp.asarray(y), h,
+                            precision=precision, block_m=BM, block_n=BN,
+                            interpret=True, prune="off")
+    got = tops.flash_sdkde(torch.from_numpy(x), torch.from_numpy(y), h,
+                           precision=precision, block_m=BM, block_n=BN)
+    assert_close(got, want, bar(precision, np.concatenate([x, y]), h))
+
+
+def test_bf16x2_prepared_path_needs_lo_planes():
+    x, y = _data(64, 32, 4, seed=7)
+    cols = tops.prepare_train_columns(torch.from_numpy(x), block_n=BN)
+    with pytest.raises(ValueError, match="lo planes"):
+        tops.flash_kde_prepared(torch.from_numpy(y), cols.xt, cols.nrm_x,
+                                0.5, precision="bf16x2", block_m=BM,
+                                block_n=BN)
+
+
+def test_wrappers_reject_ragged_operands():
+    x, y = _data(100, 30, 4)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_kde.flash_kde(torch.from_numpy(y), torch.zeros(30, 1),
+                            torch.from_numpy(x).T.contiguous(),
+                            torch.zeros(1, 100), torch.ones(1, 1),
+                            block_m=32, block_n=64)
