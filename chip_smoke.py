@@ -3,25 +3,41 @@
 
     python3 chip_smoke.py                # the default run, one card
     python3 chip_smoke.py --paper-scale  # plus 1,048,576 x 16 train /
-                                         # 131,072 queries, timed
+                                         # 131,072 queries, "auto" and
+                                         # "off", timed
 
 Run from the repository root.  Phases, each printing its lines:
 
   1. device       the card's name and power limit (nvidia-smi);
-  2. build        both CUDA kernels compiled with nvcc for sm_90a;
-  3. kernels      each kernel (B1 flash_score, B2 flash_kde) against its
-                  plain PyTorch version on the card, every tier, at a
-                  ragged small shape and at the main path's shape;
+  2. build        the three CUDA sources (B1 + B2 + B3/B4) compiled with
+                  nvcc for sm_90a, in parallel;
+  3. kernels      each kernel against its plain PyTorch version on the
+                  card, every tier: B1 flash_score and B2 flash_kde, then
+                  B3 flash_score_pruned and B4 flash_kde_pruned (laplace
+                  off and on), at a ragged small shape whose visit lists
+                  hold a zero-count row tile, and at the main path's shape;
   4. main path    32768 x 16 train and 16384 queries from the paper's 16-d
-                  mixture: SDKDE(backend="flash").fit(x).evaluate(y) and a
-                  ServeEngine answering ragged QueryRequests and one
-                  query_many, checked against the "torch" backend on the
-                  card and both against float64 on 2048 queries; the
-                  kernels' launch counters must rise;
+                  mixture.  The default path (prune="auto", which prunes
+                  at this size): SDKDE(backend="flash").fit(x).evaluate(y)
+                  and a ServeEngine answering ragged QueryRequests and one
+                  query_many; B3 and B4 must launch, B1 and B2 must not.
+                  Then the same with prune="off", which must launch B1
+                  and B2 only.  Pruned densities are held against dense,
+                  against the "torch" backend on the card, and both
+                  against float64 on 2048 queries;
+  4b. clustered   32768 x 16 from 32 centres uniform in [0, 20]^16, sigma
+                  1, h 0.5 (drawn with numpy from the seed): tiles really
+                  are skipped (occupancy <= 0.2), prune=0.0 equals dense,
+                  and at prune=1e-7 every row's float64 error stays within
+                  its certificate;
   5. timings      CUDA-event medians of each kernel and its plain version
-                  at the main path's shape, beside the least time the card
-                  could take (the bound);
-  6. paper scale  (--paper-scale only) fit + evaluate at the paper's size.
+                  at the main path's shape (and B3/B4 on the clustered
+                  set), beside the least time the card could take for the
+                  work (for B3/B4: the visited pairs only); the host-side
+                  prepass (k-means, layout, tile map, visit lists) timed
+                  apart from the kernels;
+  6. paper scale  (--paper-scale only) fit + evaluate at the paper's size,
+                  prune="auto" and prune="off".
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -40,6 +56,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -51,6 +68,10 @@ SERVE_SIZES = (1, 3, 17, 100, 333, 640, 1000, 2048, 2500, 4096)
 N_F64 = 2048                            # queries held against float64
 MANY_SIZES = (7, 120, 900, 2000)
 SEED = 0
+# the clustered check: 32 centres uniform in [0, 20]^16, sigma 1, h 0.5
+CLU_K, CLU_SPREAD, CLU_H, CLU_EPS = 32, 20.0, 0.5, 1e-7
+CLU_MAX_OCCUPANCY = 0.2
+N_CLU_F64 = 4096
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): FP32
 # outside the tensor cores, bf16 on the tensor cores, HBM3 bandwidth.
@@ -67,6 +88,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
 def f32_bar(pts, inv2h2: float) -> float:
     """rtol at the f32 tier: 1e-5, or the norm-trick error model
     8·eps·max‖x‖²/(2h²) where larger (both sides round the Gram
@@ -75,17 +100,28 @@ def f32_bar(pts, inv2h2: float) -> float:
     return max(1e-5, 8 * eps * float((pts * pts).sum(1).max()) * inv2h2)
 
 
-def compare(got, want, rtol: float, what: str) -> dict:
-    """allclose(rtol, atol = 1e-6·peak) on the card; raises on a miss."""
+def tier_bar(precision: str, pts, h: float) -> float:
+    """A tier's bar, and never below the f32 norm-trick model: sq is f32
+    at every tier, so a Gram summed in another order carries the same
+    cancellation (it sets the bar where ‖x‖² is large, as on the
+    clustered set)."""
+    return max(TIER_BAR[precision], f32_bar(pts, 1 / (2 * h * h)))
+
+
+def compare(got, want, rtol: float, what: str, *,
+            atol_frac: float = 1e-6) -> dict:
+    """allclose(rtol, atol = atol_frac·peak) on the card; raises on a
+    miss.  Sums that cross zero (Laplace) pass rtol=0 and atol_frac=bar:
+    their error is bounded against the peak."""
     got = got.double()
     want = want.double()
     peak = float(want.abs().max())
-    atol = 1e-6 * peak
+    atol = atol_frac * peak
     diff = (got - want).abs()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite values")
     excess = float((diff - (atol + rtol * want.abs())).max())
-    big = want.abs() > atol / rtol
+    big = want.abs() > (atol / rtol if rtol else peak * 1e-3)
     rel = float((diff[big] / want.abs()[big]).max()) if bool(big.any()) else 0.0
     out = {"max_abs_err": float(diff.max()), "max_rel_err": rel,
            "rtol": rtol, "atol": atol}
@@ -100,7 +136,7 @@ def cuda_ms(fn, reps: int) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after one
     warm-up run."""
     fn()
-    torch.cuda.synchronize()
+    sync()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -108,24 +144,33 @@ def cuda_ms(fn, reps: int) -> float:
         e0.record()
         fn()
         e1.record()
-        torch.cuda.synchronize()
+        sync()
         times.append(e0.elapsed_time(e1))
     times.sort()
     return times[len(times) // 2]
+
+
+def host_ms(fn) -> tuple:
+    """(result, ms) of one call on the host clock, synchronized."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound_ms(kernel: str, tier: str, rows: int, cols: int, d: int,
-             moved: int) -> tuple:
+def bound_ms(kind: str, tier: str, pairs: int, d: int, moved: int) -> tuple:
     """(ms, "bytes" | "operations"): the larger of the bytes the call must
-    move over the HBM rate and its operations over their peak rates."""
-    pairs = rows * cols
-    gemm = 2 * d + (2 * (d + 1) if kernel == "flash_score" else 0)
+    move over the HBM rate and the operations on ``pairs`` (row, column)
+    pairs over their peak rates.  ``kind`` is "score" (B1/B3) or "kde"
+    (B2/B4)."""
+    gemm = 2 * d + (2 * (d + 1) if kind == "score" else 0)
     gemm *= 4 if tier == "bf16x2" else 1
-    elementwise = 3 if kernel == "flash_score" else 4
+    elementwise = 3 if kind == "score" else 4
     if tier == "f32":
         ops_s = pairs * (gemm + elementwise) / PEAK_F32
     else:
@@ -135,6 +180,12 @@ def bound_ms(kernel: str, tier: str, rows: int, cols: int, d: int,
     bytes_s = moved / PEAK_BYTES
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
+
+
+def clustered_points(rng: np.random.Generator, centres, n: int, dev):
+    lab = rng.integers(0, centres.shape[0], n)
+    x = centres[lab] + rng.standard_normal((n, centres.shape[1]))
+    return torch.as_tensor(x.astype(np.float32), device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -154,9 +205,14 @@ def phase_device() -> tuple:
     return name, smi
 
 
+_PTXAS_NAME = re.compile(
+    r"(kde|score)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E(?:Lb([01])E)?"
+    r"N\w*?(AllTiles|VisitList)")
+
+
 def ptxas_summary(text: str) -> list:
-    """(kernel<tier,DMAX>, registers, spill-store bytes) per instantiation
-    from ptxas's -v report."""
+    """(kernel<tier,DMAX,...>, registers, spill-store bytes) per
+    instantiation from ptxas's -v report."""
     out, fn, spill = [], None, 0
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -168,12 +224,13 @@ def ptxas_summary(text: str) -> list:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn:
-            t = re.search(r"(\w+?_kernel)I(f|13__nv_bfloat16)Lb([01])ELi(\d+)E",
-                          fn)
+            t = _PTXAS_NAME.search(fn)
             key = fn if t is None else (
                 f"{t.group(1)}<"
                 f"{'f32' if t.group(2) == 'f' else 'bf16'}"
-                f"{'x2' if t.group(3) == '1' else ''},{t.group(4)}>")
+                f"{'x2' if t.group(3) == '1' else ''},{t.group(4)}"
+                f"{',laplace' if t.group(5) == '1' else ''}"
+                f"{',visits' if t.group(6) == 'VisitList' else ''}>")
             out.append((key, int(m.group(1)), spill))
             fn = None
     return out
@@ -191,15 +248,20 @@ def phase_build(_build) -> None:
             f"{secs.get(name, 0.0):.1f} s (0 = already built)")
         ptxas = _build.BUILD_DIR / f"{name}.ptxas.txt"
         if ptxas.exists():
-            log("    registers / spill-store bytes per instantiation: "
-                + ", ".join(f"{k} {r}/{sp}" for k, r, sp in
-                            ptxas_summary(ptxas.read_text())))
+            rows = ptxas_summary(ptxas.read_text())
+            log("    registers / spill-store bytes, d <= 16: "
+                + ", ".join(f"{k} {r}/{sp}" for k, r, sp in rows
+                            if ",16" in k))
+            spills = [f"{k} {sp}" for k, _, sp in rows if sp]
+            log(f"    {len(rows)} instantiations, most registers "
+                f"{max((r for _, r, _ in rows), default=0)}; spills: "
+                f"{', '.join(spills) or 'none'}")
     log(f"  build wall time {time.perf_counter() - t0:.1f} s")
 
 
 def kernel_operands(ops, x, y, precision, block_m, block_n, h):
-    """Operands of both kernels at one tier, as the ops wrappers make
-    them, plus the kernel and plain callables."""
+    """Operands of B1 and B2 at one tier, as the ops wrappers make them,
+    plus the kernel and plain callables."""
     from repro_torch.kernels import flash_kde as fk
     from repro_torch.kernels import flash_score as fs
 
@@ -211,83 +273,188 @@ def kernel_operands(ops, x, y, precision, block_m, block_n, h):
     y_ops, xt2, nrm_y, nrm_x = ops._prep_eval(x, y, block_m, block_n,
                                               precision)
     k_args = (y_ops[0], nrm_y, xt2[0], nrm_x, inv, y_ops[1], xt2[1])
+    n, m, d = x.shape[0], y.shape[0], x.shape[1]
     return {
         "flash_score": dict(
+            kind="score",
             kernel=lambda: fs.flash_score_cuda(*s_args, block_m=block_m,
                                                block_n=block_n),
             plain=lambda: fs.flash_score_plain(*s_args, block_n=512),
-            rows=x.shape[0], cols=x.shape[0],
-            moved=nbytes(*s_args) + x.shape[0] * (x.shape[1] + 1) * 4,
-            pts=xrec[: x.shape[0]]),
+            real=slice(0, n), pairs=n * n,
+            moved=nbytes(*s_args) + n * (d + 1) * 4,
+            pts=xrec[:n]),
         "flash_kde": dict(
+            kind="kde",
             kernel=lambda: fk.flash_kde_cuda(*k_args, block_m=block_m,
                                              block_n=block_n),
             plain=lambda: fk.flash_kde_plain(*k_args, block_n=512),
-            rows=y.shape[0], cols=x.shape[0],
-            moved=nbytes(*k_args) + y.shape[0] * 4,
-            pts=torch.cat([xrec[: x.shape[0]], y.float()])),
+            real=slice(0, m), pairs=m * n,
+            moved=nbytes(*k_args) + m * 4,
+            pts=torch.cat([xrec[:n], y.float()])),
     }
 
 
-def phase_kernels(ops, mixture, gen, block_m, block_n) -> dict:
+def prepass(ops, sp, x, y, precision, block_m, block_n, h, index, *,
+            eps=0.0, empty_row=None, times=None):
+    """The pruned passes' prepass, as ``ops._score_stats_pruned`` and
+    ``ops._pruned_eval_sums`` run it: layouts, tier casts, tile metadata,
+    tile maps and visit lists.  ``empty_row`` empties one row tile's
+    visit list in both passes; ``times`` collects host ms per step."""
+    times = {} if times is None else times
+
+    def step(name, fn):
+        out, ms = host_ms(fn)
+        times[name] = times.get(name, 0.0) + ms
+        return out
+
+    inv = ops._inv2h2(h, x.device)
+    lay = step("layout", lambda: sp.cluster_layout(
+        x, index.labels, block_n, total_multiple=math.lcm(block_m, block_n)))
+    x_ops, xt_ops, xaug_ops, nrm, xrec = ops._score_operands(lay.points,
+                                                             precision)
+    meta = step("tile_metadata", lambda: sp.tile_metadata(
+        xrec, lay.real, block=block_n))
+    skeep = step("tile_map", lambda: sp.tile_map(
+        xrec, meta, inv, eps, block_m=block_m, kind="score")).keep
+    cols = step("columns", lambda: ops.prepare_train_columns(
+        x, block_n=block_n, precision=precision, clustered=True,
+        index=index))
+    ql = step("layout", lambda: sp.cluster_layout(
+        y, sp.assign(y, index), block_m, bucket_rows=True))
+    y_hi, y_lo, nrm_y, yrec = ops._cast_queries(ql.points, precision)
+    ktm = step("tile_map", lambda: sp.tile_map(
+        yrec, cols.meta, inv, eps, block_m=block_m, kind="kde"))
+    if empty_row is not None:
+        skeep[empty_row] = False
+        ktm.keep[empty_row] = False
+    sv = step("visit_lists", lambda: sp.visit_lists(skeep))
+    kv = step("visit_lists", lambda: sp.visit_lists(ktm.keep))
+    s_args = (sv.counts, sv.tile_map, x_ops[0], nrm, xt_ops[0], xaug_ops[0],
+              inv, x_ops[1], xt_ops[1], xaug_ops[1])
+    k_args = (kv.counts, kv.tile_map, y_hi, nrm_y, cols.xt, cols.nrm_x, inv,
+              y_lo, cols.xt_lo)
+    return dict(s_args=s_args, k_args=k_args, score_vl=sv, kde_vl=kv,
+                score_real=lay.real, kde_real=ql.real, xrec=xrec,
+                yrec=yrec, kde_map=ktm, qlayout=ql, cols=cols)
+
+
+def pruned_operands(ops, sp, x, y, precision, block_m, block_n, h, index,
+                    **kw):
+    """B3 and B4 (laplace off and on) at one tier, on the prepass's
+    operands and visit lists, with the kernel and plain callables."""
+    from repro_torch.kernels import flash_pruned as fp
+
+    pre = prepass(ops, sp, x, y, precision, block_m, block_n, h, index, **kw)
+    s_args, k_args = pre["s_args"], pre["k_args"]
+    d = x.shape[1]
+    bk = dict(block_m=block_m, block_n=block_n)
+    s_pairs = int(pre["score_vl"].counts.sum()) * block_m * block_n
+    k_pairs = int(pre["kde_vl"].counts.sum()) * block_m * block_n
+    rows_s, rows_k = s_args[2].shape[0], k_args[2].shape[0]
+    xreal = pre["xrec"][pre["score_real"]]
+    out = {
+        "flash_score_pruned": dict(
+            kind="score",
+            kernel=lambda: fp.flash_score_pruned_cuda(*s_args, **bk),
+            plain=lambda: fp.flash_score_pruned_plain(*s_args, **bk),
+            real=pre["score_real"], pairs=s_pairs,
+            moved=nbytes(*s_args) + rows_s * (d + 1) * 4,
+            occupancy=pre["score_vl"].occupancy,
+            max_visits=pre["score_vl"].max_visits, pts=xreal),
+    }
+    for laplace in (False, True):
+        name = "flash_kde_pruned" + (" laplace" if laplace else "")
+        out[name] = dict(
+            kind="kde", laplace=laplace,
+            kernel=lambda lp=laplace: fp.flash_kde_pruned_cuda(
+                *k_args, laplace=lp, **bk),
+            plain=lambda lp=laplace: fp.flash_kde_pruned_plain(
+                *k_args, laplace=lp, **bk),
+            real=pre["kde_real"], pairs=k_pairs,
+            moved=nbytes(*k_args) + rows_k * 4,
+            occupancy=pre["kde_vl"].occupancy,
+            max_visits=pre["kde_vl"].max_visits,
+            pts=torch.cat([xreal, pre["yrec"][pre["kde_real"]]]))
+    return out
+
+
+def check_kernel(name, c, precision, h, label) -> dict:
+    got = c["kernel"]()[c["real"]]
+    want = c["plain"]()[c["real"]]
+    sync()
+    rtol = tier_bar(precision, c["pts"], h)
+    what = f"{name} {precision} {label}"
+    if c.get("laplace"):
+        return compare(got, want, 0.0, what, atol_frac=rtol)
+    return compare(got, want, rtol, what)
+
+
+def phase_kernels(ops, sp, mixture, gen, block_m, block_n) -> dict:
     log("== phase 3: kernels against their plain versions on the card")
-    results = {"flash_score": {}, "flash_kde": {}}
-    cases = [("ragged", SMALL),
-             ("main", (N_TRAIN, N_TRAIN, D))]
+    results = {}
+    cases = [("ragged", SMALL), ("main", (N_TRAIN, N_TRAIN, D))]
     for label, (n, m, d) in cases:
         x = mixture.sample(n, gen)
         y = mixture.sample(m, gen)
         h = 0.78
+        index = sp.build_index(x, seed=SEED)
         for precision in TIERS:
             opnds = kernel_operands(ops, x, y, precision, block_m, block_n,
                                     h)
+            # the ragged case empties row tile 1 of both visit lists
+            pruned = pruned_operands(
+                ops, sp, x, y, precision, block_m, block_n, h, index,
+                empty_row=1 if label == "ragged" else None)
+            if label == "ragged":
+                for key in ("flash_score_pruned", "flash_kde_pruned"):
+                    tile1 = pruned[key]["kernel"]()[block_m:2 * block_m]
+                    sync()
+                    if bool((tile1 != 0).any()):
+                        raise AssertionError(f"{key}: a zero-count row "
+                                             "tile did not sum to zero")
+                log(f"  zero-count row tile sums to 0.0 in both pruned "
+                    f"kernels ({precision})")
+            opnds.update(pruned)
             for name, c in opnds.items():
-                got = c["kernel"]()[: c["rows"]]
-                want = c["plain"]()[: c["rows"]]
-                torch.cuda.synchronize()
-                rtol = (f32_bar(c["pts"], 1 / (2 * h * h))
-                        if precision == "f32" else TIER_BAR[precision])
-                res = compare(got, want, rtol,
-                              f"{name} {precision} {label} n={n} m={m} d={d}")
+                res = check_kernel(name, c, precision, h,
+                                   f"{label} n={n} m={m} d={d}")
                 if label == "main":
-                    results[name][precision] = res
-            del opnds
+                    results.setdefault(name, {})[precision] = res
+            del opnds, pruned
     return results
 
 
-def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs) -> dict:
-    log("== phase 4: main path")
-    x = mixture.sample(N_TRAIN, gen)
-    y = mixture.sample(N_QUERY, gen)
-    torch.cuda.synchronize()
-
+def reset_counts(fs, fk, fp) -> None:
     fs.launches = 0
     fk.launches = 0
-    t0 = time.perf_counter()
-    est = est_mod.SDKDE(config=est_mod.EstimatorConfig(backend="flash"))
-    est.fit(x)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    fit_launches = (fs.launches, fk.launches)
-    eval_s = []
-    for _ in range(2):          # the first call also loads the kernel
-        t0 = time.perf_counter()
-        dens = est.evaluate(y)
-        torch.cuda.synchronize()
-        eval_s.append(time.perf_counter() - t0)
-    eval_launches = (fs.launches - fit_launches[0],
-                     fk.launches - fit_launches[1])
-    log(f"  SDKDE flash fit {N_TRAIN}x{D}: {fit_s * 1e3:.2f} ms "
-        f"(h={est.h:.6f}); evaluate {N_QUERY} queries: first "
-        f"{eval_s[0] * 1e3:.2f} ms, second {eval_s[1] * 1e3:.2f} ms")
+    fp.score_counts.reset()
+    fp.kde_counts.reset()
 
+
+def read_counts(fs, fk, fp) -> dict:
+    return {"flash_score": fs.launches, "flash_kde": fk.launches,
+            "flash_score_pruned": fp.score_counts.launches,
+            "flash_kde_pruned": fp.kde_counts.launches}
+
+
+def drive(est_mod, serve, x, y, prune, h=None) -> dict:
+    """The main path once: SDKDE fit + two evaluates, then a ServeEngine
+    registering x and answering two rounds of ragged requests and one
+    query_many.  Returns densities, answers and host times."""
+    out = {}
+    est = est_mod.SDKDE(h, config=est_mod.EstimatorConfig(
+        backend="flash", prune=prune))
+    _, out["fit_ms"] = host_ms(lambda: est.fit(x))
+    evals = []
+    for _ in range(2):          # the first call also builds the columns
+        dens, ms = host_ms(lambda: est.evaluate(y))
+        evals.append(ms)
+    out.update(est=est, dens=dens, evaluate_first_ms=evals[0],
+               evaluate_ms=evals[1])
     eng = serve.ServeEngine(serve.ServeConfig(backend="flash",
-                                              method="sdkde"))
-    before = (fs.launches, fk.launches)
-    t0 = time.perf_counter()
-    eng.register("bench", x, h=est.h)
-    torch.cuda.synchronize()
-    register_s = time.perf_counter() - t0
+                                              method="sdkde", prune=prune))
+    _, out["register_ms"] = host_ms(lambda: eng.register("bench", x,
+                                                         h=est.h))
     answers, latencies, served = [], [], []
     off = 0
     for rnd in range(2):        # round 0 builds bucket callables
@@ -304,111 +471,280 @@ def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs) -> dict:
     for m in MANY_SIZES:
         many_sl.append(slice(start, start + m))
         start += m
-    t0 = time.perf_counter()
-    many = eng.query_many([serve.QueryRequest(key="bench", points=y[s])
-                           for s in many_sl])
-    many_s = time.perf_counter() - t0
+    many, out["query_many_ms"] = host_ms(lambda: eng.query_many(
+        [serve.QueryRequest(key="bench", points=y[s]) for s in many_sl]))
     answers += [(s, a.value) for s, a in zip(many_sl, many)]
-    serve_launches = (fs.launches - before[0], fk.launches - before[1])
-    main_launches = (fs.launches, fk.launches)
-    log(f"  ServeEngine register (debias + columns): "
-        f"{register_s * 1e3:.2f} ms; {len(answers)} answers "
-        f"({2 * len(SERVE_SIZES)} queries of {SERVE_SIZES} rows, one "
-        f"query_many of {MANY_SIZES})")
     lat = sorted(latencies)
-    p50 = lat[len(lat) // 2] * 1e3
-    p99 = lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)] * 1e3
-    qps = sum(served) / sum(latencies)
-    log(f"  served (warm round): p50 {p50:.3f} ms, p99 {p99:.3f} ms per "
-        f"request, {qps:.0f} query rows/s; query_many "
-        f"{many_s * 1e3:.3f} ms for {sum(MANY_SIZES)} rows")
-    log(f"  launches on the main path: flash_score {main_launches[0]} "
-        f"(fit {fit_launches[0]}, register {serve_launches[0]}), "
-        f"flash_kde {main_launches[1]} (evaluate {eval_launches[1]}, "
-        f"serving {serve_launches[1]})")
-    if min(main_launches) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{main_launches}")
+    out.update(
+        answers=answers, p50_ms=lat[len(lat) // 2] * 1e3,
+        p99_ms=lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)] * 1e3,
+        qps=sum(served) / sum(latencies))
+    return out
 
-    # the "torch" backend on the card is the reference; both are held
-    # against float64 on the first N_F64 queries, at the f32 serve bar
-    ref_est = est_mod.SDKDE(est.h, est_mod.EstimatorConfig(backend="torch"))
-    ref_dens = ref_est.fit(x).evaluate(y)
-    torch.cuda.synchronize()
-    if fs.launches != main_launches[0] or fk.launches != main_launches[1]:
+
+def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs,
+                    fp) -> dict:
+    log("== phase 4: main path")
+    x = mixture.sample(N_TRAIN, gen)
+    y = mixture.sample(N_QUERY, gen)
+    sync()
+    runs, launches = {}, {}
+    for prune in ("auto", "off"):
+        reset_counts(fs, fk, fp)
+        runs[prune] = r = drive(est_mod, serve, x, y, prune)
+        sync()
+        launches[prune] = counts = read_counts(fs, fk, fp)
+        log(f"  prune={prune!r}: SDKDE fit {N_TRAIN}x{D} "
+            f"{r['fit_ms']:.2f} ms (h={r['est'].h:.6f}); evaluate "
+            f"{N_QUERY} queries: first {r['evaluate_first_ms']:.2f} ms, "
+            f"second {r['evaluate_ms']:.2f} ms; ServeEngine register "
+            f"{r['register_ms']:.2f} ms; served (warm round) p50 "
+            f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, "
+            f"{r['qps']:.0f} query rows/s; query_many "
+            f"{r['query_many_ms']:.3f} ms for {sum(MANY_SIZES)} rows")
+        log(f"  prune={prune!r} launches: {json.dumps(counts)}")
+        if prune == "auto":
+            occupancy = {"flash_score_pruned": fp.score_counts.occupancy,
+                         "flash_kde_pruned": fp.kde_counts.occupancy}
+            log(f"  occupancy of the pruned launches: B3 "
+                f"{fp.score_counts.occupancy:.4f} "
+                f"({fp.score_counts.tiles_visited}/"
+                f"{fp.score_counts.tiles_total} tiles), B4 "
+                f"{fp.kde_counts.occupancy:.4f} "
+                f"({fp.kde_counts.tiles_visited}/"
+                f"{fp.kde_counts.tiles_total} tiles)")
+            ran, idle = ("flash_score_pruned", "flash_kde_pruned"), (
+                "flash_score", "flash_kde")
+        else:
+            ran, idle = ("flash_score", "flash_kde"), (
+                "flash_score_pruned", "flash_kde_pruned")
+        if min(counts[k] for k in ran) < 1 or max(counts[k] for k in idle):
+            raise AssertionError(f"prune={prune!r} must launch {ran} and "
+                                 f"not {idle}: {counts}")
+
+    # the "torch" backend on the card is the reference; the flash paths
+    # are held against it and against float64 on the first N_F64 queries
+    auto, off = runs["auto"], runs["off"]
+    h = auto["est"].h
+    reset_counts(fs, fk, fp)
+    ref_dens = est_mod.SDKDE(h, est_mod.EstimatorConfig(
+        backend="torch")).fit(x).evaluate(y)
+    sync()
+    if any(read_counts(fs, fk, fp).values()):
         raise AssertionError("the torch backend launched a flash kernel")
     bar = TIER_BAR["f32"]
-    compare(dens, ref_dens, bar, "SDKDE flash vs torch backend")
-    got = torch.cat([v for _, v in answers])
-    want = torch.cat([ref_dens[s] for s, _ in answers])
-    compare(got, want, bar, "ServeEngine answers vs torch backend")
-    f64 = kdemod.sdkde_eval(x.double(), y[:N_F64].double(), est.h)
-    compare(dens[:N_F64], f64, bar, f"SDKDE flash vs float64 ({N_F64} q)")
+    compare(auto["dens"], off["dens"], bar, "SDKDE pruned (auto) vs dense "
+            "(off)")
+    compare(auto["dens"], ref_dens, bar, "SDKDE pruned vs torch backend")
+    compare(off["dens"], ref_dens, bar, "SDKDE dense vs torch backend")
+    for prune, r in runs.items():
+        got = torch.cat([v for _, v in r["answers"]])
+        want = torch.cat([ref_dens[s] for s, _ in r["answers"]])
+        compare(got, want, bar, f"ServeEngine prune={prune!r} answers vs "
+                "torch backend")
+    f64 = kdemod.sdkde_eval(x.double(), y[:N_F64].double(), h)
+    compare(auto["dens"][:N_F64], f64, bar,
+            f"SDKDE pruned vs float64 ({N_F64} q)")
+    compare(off["dens"][:N_F64], f64, bar,
+            f"SDKDE dense vs float64 ({N_F64} q)")
     compare(ref_dens[:N_F64], f64, bar,
             f"SDKDE torch backend vs float64 ({N_F64} q)")
 
     true = mixture.pdf(y.double()).float()
     kde = est_mod.KDE(config=est_mod.EstimatorConfig(backend="flash"))
     kde_dens = kde.fit(x).evaluate(y)
-    sd_err = float(((dens - true).abs() / true).mean())
+    sd_err = float(((auto["dens"] - true).abs() / true).mean())
     kde_err = float(((kde_dens - true).abs() / true).mean())
     log(f"  mean relative error vs the mixture's pdf (information): "
         f"SD-KDE {sd_err:.4f}, KDE {kde_err:.4f}")
+    keep = ("fit_ms", "evaluate_ms", "evaluate_first_ms", "register_ms",
+            "p50_ms", "p99_ms", "qps", "query_many_ms")
     return {
-        "launches": {"flash_score": main_launches[0],
-                     "flash_kde": main_launches[1]},
-        "per_phase": {"fit": fit_launches, "evaluate": eval_launches,
-                      "serve": serve_launches},
-        "fit_ms": fit_s * 1e3, "evaluate_ms": eval_s[1] * 1e3,
-        "evaluate_first_ms": eval_s[0] * 1e3,
-        "register_ms": register_s * 1e3, "p50_ms": p50, "p99_ms": p99,
-        "qps": qps, "query_many_ms": many_s * 1e3,
+        "launches": {**{k: launches["off"][k]
+                        for k in ("flash_score", "flash_kde")},
+                     **{k: launches["auto"][k]
+                        for k in ("flash_score_pruned",
+                                  "flash_kde_pruned")}},
+        "occupancy": occupancy,
+        "auto": {k: auto[k] for k in keep},
+        "off": {k: off[k] for k in keep},
         "sdkde_mean_rel_err": sd_err, "kde_mean_rel_err": kde_err,
     }
 
 
-def phase_timings(ops, mixture, gen, block_m, block_n, errors) -> dict:
+def phase_clustered(ops, sp, kdemod, fp, dev) -> dict:
+    log(f"== phase 4b: clustered check, {N_TRAIN} x {D} from {CLU_K} "
+        f"centres in [0, {CLU_SPREAD:g}]^{D}, sigma 1, h {CLU_H}")
+    rng = np.random.default_rng(SEED)
+    centres = rng.uniform(0.0, CLU_SPREAD, (CLU_K, D))
+    x = clustered_points(rng, centres, N_TRAIN, dev)
+    y = clustered_points(rng, centres, N_QUERY, dev)
+    h = CLU_H
+    bar = f32_bar(torch.cat([x, y]), 1 / (2 * h * h))
+    fp.score_counts.reset()
+    fp.kde_counts.reset()
+    s0p, s1p = ops.flash_score_stats(x, h, prune=0.0)
+    dens0 = ops.flash_kde(x, y, h, prune=0.0)
+    sync()
+    occ = {"flash_score_pruned": fp.score_counts.occupancy,
+           "flash_kde_pruned": fp.kde_counts.occupancy}
+    log(f"  occupancy at prune=0.0: B3 {occ['flash_score_pruned']:.4f} "
+        f"({fp.score_counts.tiles_visited}/{fp.score_counts.tiles_total} "
+        f"tiles), B4 {occ['flash_kde_pruned']:.4f} "
+        f"({fp.kde_counts.tiles_visited}/{fp.kde_counts.tiles_total})")
+    if max(occ.values()) > CLU_MAX_OCCUPANCY:
+        raise AssertionError(f"clustered check: occupancy {occ} above "
+                             f"{CLU_MAX_OCCUPANCY}: tiles are not skipped")
+    # information: k-means starts from random points, so how well the
+    # set prunes depends on the index's seed
+    spread = {}
+    for seed in range(4):
+        index = sp.build_index(x, seed=seed)
+        lay = sp.cluster_layout(x, index.labels, 128, total_multiple=128)
+        meta = sp.tile_metadata(lay.points, lay.real, block=128)
+        keep = sp.tile_map(lay.points, meta, ops._inv2h2(h, dev), 0.0,
+                           block_m=128, kind="score").keep
+        spread[seed] = sp.visit_lists(keep).occupancy
+    log("  score-pass occupancy by k-means seed (information): "
+        + ", ".join(f"seed {k} {v:.4f}" for k, v in spread.items()))
+    s0d, s1d = ops.flash_score_stats(x, h, prune="off")
+    dense = ops.flash_kde(x, y, h, prune="off")
+    compare(s0p, s0d, bar, "S0 prune=0.0 vs dense")
+    compare(s1p, s1d, 0.0, "S1 prune=0.0 vs dense (against the peak)",
+            atol_frac=bar)
+    compare(dens0, dense, bar, "KDE prune=0.0 vs dense")
+
+    # prune=1e-7: every row's float64 error within its certificate
+    yq = y[:N_CLU_F64]
+    cols = ops.prepare_train_columns(x, block_n=128, clustered=True)
+    got = ops._pruned_eval_sums(yq, cols, h, CLU_EPS, precision="f32",
+                                block_m=128, block_n=128).double()
+    ql = sp.cluster_layout(yq, sp.assign(yq, cols.index), 128,
+                           bucket_rows=True)
+    tm = sp.tile_map(ql.points, cols.meta, ops._inv2h2(h, dev), CLU_EPS,
+                     block_m=128, kind="kde")
+    row_err = tm.err_bound.double()[ql.slots // 128]
+    exact = kdemod.kde_eval(x.double(), yq.double(), h) * (
+        N_TRAIN * (2 * math.pi) ** (D / 2) * h**D)
+    excess = (got - exact).abs() - (row_err * (1 + 1e-5) + bar * exact
+                                    + 1e-30)
+    eps_occ = sp.visit_lists(tm.keep).occupancy
+    log(f"  prune={CLU_EPS:g}: occupancy {eps_occ:.4f}, max certificate "
+        f"{float(row_err.max()):.3e}, max |f64 error| "
+        f"{float((got - exact).abs().max()):.3e}, worst margin "
+        f"{float(excess.max()):.3e} (must be <= 0)")
+    if float(excess.max()) > 0:
+        raise AssertionError("clustered check: a row's float64 error "
+                             "exceeds its certificate")
+    return {"x": x, "y": y, "occupancy": occ, "eps_occupancy": eps_occ,
+            "occupancy_by_seed": spread}
+
+
+def timed_entry(name, c, precision, h, errors) -> dict:
+    ms = cuda_ms(c["kernel"], 10)
+    plain = cuda_ms(c["plain"], 3)
+    bms, by = bound_ms(c["kind"], precision, c["pairs"], D, c["moved"])
+    occ = (f", occupancy {c['occupancy']:.4f}, max_visits "
+           f"{c['max_visits']}" if "occupancy" in c else "")
+    log(f"  {name} {precision}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"bound {bms:.4f} ms ({by}), {bms / ms * 100:.1f}% of bound{occ}")
+    entry = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+             "pairs": c["pairs"]}
+    if "occupancy" in c:
+        entry.update(occupancy=c["occupancy"], max_visits=c["max_visits"])
+    if errors is not None:
+        entry.update(errors[name][precision])
+    return entry
+
+
+def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
+                  clustered) -> dict:
     log(f"== phase 5: timings at the main path's shape "
         f"(n={N_TRAIN}, m={N_TRAIN}, d={D})")
     x = mixture.sample(N_TRAIN, gen)
+    h = 0.78
+    index, index_ms = host_ms(lambda: sp.build_index(x, seed=SEED))
     entries = {}
+    prep_times = {"main": {"kmeans": index_ms}}
     for precision in TIERS:
-        opnds = kernel_operands(ops, x, x, precision, block_m, block_n, 0.78)
+        opnds = kernel_operands(ops, x, x, precision, block_m, block_n, h)
+        pre_t = prep_times["main"] if precision == "f32" else None
+        opnds.update(pruned_operands(ops, sp, x, x, precision, block_m,
+                                     block_n, h, index, times=pre_t))
         for name, c in opnds.items():
-            ms = cuda_ms(c["kernel"], 10)
-            plain = cuda_ms(c["plain"], 3)
-            bms, by = bound_ms(name, precision, c["rows"], c["cols"], D,
-                               c["moved"])
-            log(f"  {name} {precision}: kernel {ms:.3f} ms, plain "
-                f"{plain:.3f} ms, bound {bms:.4f} ms ({by}), "
-                f"{bms / ms * 100:.1f}% of bound")
-            entries.setdefault(name, {})[precision] = {
-                "ms": ms, "plain_ms": plain, "bound_ms": bms,
-                "bound_by": by, **errors[name][precision]}
+            if c.get("laplace"):
+                continue        # off the main path (ROADMAP A5)
+            entries.setdefault(name, {})[precision] = timed_entry(
+                name, c, precision, h, errors)
         del opnds
-    return entries
+    log("  host prepass at the main shape, f32 (ms, synchronized): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in prep_times["main"].items()))
+
+    log(f"  clustered set (h={CLU_H}):")
+    cx, cy = clustered["x"], clustered["y"]
+    cindex, cms = host_ms(lambda: sp.build_index(cx, seed=SEED))
+    prep_times["clustered"] = {"kmeans": cms}
+    for precision in TIERS:
+        pruned = pruned_operands(
+            ops, sp, cx, cy, precision, block_m, block_n, CLU_H, cindex,
+            times=prep_times["clustered"] if precision == "f32" else None)
+        for name in ("flash_score_pruned", "flash_kde_pruned"):
+            c = pruned[name]
+            check_kernel(name, c, precision, CLU_H, "clustered")
+            entries[name].setdefault("clustered", {})[precision] = \
+                timed_entry(name, c, precision, CLU_H, None)
+        del pruned
+    log("  host prepass on the clustered set, f32 (ms, synchronized): "
+        + ", ".join(f"{k} {v:.2f}"
+                    for k, v in prep_times["clustered"].items()))
+    return {"entries": entries, "prepass_ms": prep_times}
 
 
-def phase_paper_scale(mixture, gen, est_mod) -> None:
+def phase_paper_scale(mixture, gen, est_mod, fs, fk, fp) -> dict:
     n, m = 1_048_576, 131_072
     log(f"== phase 6: paper scale, {n} x {D} train, {m} queries")
     x = mixture.sample(n, gen)
     y = mixture.sample(m, gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    est = est_mod.SDKDE(config=est_mod.EstimatorConfig(backend="flash"))
-    est.fit(x)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    dens = est.evaluate(y)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    if not bool(torch.isfinite(dens).all()) or dens.shape != (m,):
-        raise AssertionError("paper-scale densities are not finite")
+    sync()
+    out, dens = {}, {}
     true = mixture.pdf(y.double()).float()
-    err = float(((dens - true).abs() / true).mean())
-    log(f"  fit {(t1 - t0):.3f} s, evaluate {(t2 - t1):.3f} s, end to end "
-        f"{(t2 - t0):.3f} s; mean relative error vs pdf {err:.4f}")
+    for prune in ("auto", "off"):
+        reset_counts(fs, fk, fp)
+        est = est_mod.SDKDE(config=est_mod.EstimatorConfig(
+            backend="flash", prune=prune))
+        _, fit_ms = host_ms(lambda: est.fit(x))
+        dens[prune], eval_ms = host_ms(lambda: est.evaluate(y))
+        d = dens[prune]
+        if not bool(torch.isfinite(d).all()) or d.shape != (m,):
+            raise AssertionError("paper-scale densities are not finite")
+        err = float(((d - true).abs() / true).mean())
+        out[prune] = {"fit_s": fit_ms / 1e3, "evaluate_s": eval_ms / 1e3,
+                      "total_s": (fit_ms + eval_ms) / 1e3,
+                      "launches": read_counts(fs, fk, fp),
+                      "mean_rel_err_vs_pdf": err}
+        occ = (f"; occupancy B3 {fp.score_counts.occupancy:.4f}, B4 "
+               f"{fp.kde_counts.occupancy:.4f}" if prune == "auto" else "")
+        log(f"  prune={prune!r}: fit {fit_ms / 1e3:.3f} s, evaluate "
+            f"{eval_ms / 1e3:.3f} s, end to end "
+            f"{(fit_ms + eval_ms) / 1e3:.3f} s; mean relative error vs pdf "
+            f"{err:.4f}; launches {json.dumps(out[prune]['launches'])}"
+            f"{occ}")
+        del est
+    compare(dens["auto"], dens["off"], TIER_BAR["f32"],
+            "paper scale: auto vs off densities")
+    return out
+
+
+SOURCES = {
+    "flash_score": ("src/repro_torch/kernels/csrc/flash_score.cu",
+                    "src/repro/kernels/flash_score.py:78"),
+    "flash_kde": ("src/repro_torch/kernels/csrc/flash_kde.cu",
+                  "src/repro/kernels/flash_kde.py:57"),
+    "flash_score_pruned": ("src/repro_torch/kernels/csrc/flash_pruned.cu",
+                           "src/repro/kernels/flash_pruned.py:174"),
+    "flash_kde_pruned": ("src/repro_torch/kernels/csrc/flash_pruned.cu",
+                         "src/repro/kernels/flash_pruned.py:81"),
+}
 
 
 def main(argv=None) -> int:
@@ -427,8 +763,9 @@ def main(argv=None) -> int:
     from repro_torch.core import estimator as est_mod
     from repro_torch.core import kde as kdemod
     from repro_torch.core import mixtures
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, spatial
     from repro_torch.kernels import flash_kde as fk
+    from repro_torch.kernels import flash_pruned as fp
     from repro_torch.kernels import flash_score as fs
 
     dev = device_mod.resolve("cuda")
@@ -438,23 +775,21 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     cfg = est_mod.EstimatorConfig()
-    errors = phase_kernels(ops, mixture, gen, cfg.block_m, cfg.block_n)
+    errors = phase_kernels(ops, spatial, mixture, gen, cfg.block_m,
+                           cfg.block_n)
     main_path = phase_main_path(mixture, gen, est_mod, kdemod, serve, fk,
-                                fs)
-    timings = phase_timings(ops, mixture, gen, cfg.block_m, cfg.block_n,
-                            errors)
+                                fs, fp)
+    clustered = phase_clustered(ops, spatial, kdemod, fp, dev)
+    timings = phase_timings(ops, spatial, mixture, gen, cfg.block_m,
+                            cfg.block_n, errors, clustered)
+    paper = None
     if args.paper_scale:
-        phase_paper_scale(mixture, gen, est_mod)
+        paper = phase_paper_scale(mixture, gen, est_mod, fs, fk, fp)
 
-    sources = {
-        "flash_score": ("src/repro_torch/kernels/csrc/flash_score.cu",
-                        "src/repro/kernels/flash_score.py:78"),
-        "flash_kde": ("src/repro_torch/kernels/csrc/flash_kde.cu",
-                      "src/repro/kernels/flash_kde.py:57"),
-    }
     kernels = []
-    for kname, (src, replaces) in sources.items():
-        main_tier = timings[kname]["f32"]
+    for kname, (src, replaces) in SOURCES.items():
+        tiers = timings["entries"][kname]
+        main_tier = tiers["f32"]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -465,9 +800,14 @@ def main(argv=None) -> int:
             "bound_by": main_tier["bound_by"], "library_ms": None,
             "tier": "f32", "shape": {"rows": N_TRAIN, "cols": N_TRAIN,
                                      "d": D},
-            "tiers": timings[kname],
+            "tiers": tiers,
         })
-    summary = {k: v for k, v in main_path.items() if k != "per_phase"}
+    summary = {k: v for k, v in main_path.items()}
+    summary["clustered_occupancy"] = clustered["occupancy"]
+    summary["clustered_occupancy_by_seed"] = clustered["occupancy_by_seed"]
+    summary["prepass_ms"] = timings["prepass_ms"]
+    if paper is not None:
+        summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

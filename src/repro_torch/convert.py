@@ -9,10 +9,15 @@ nothing of JAX:
     ``SDKDE`` without running the score pass again;
   * ``prepared_from_state`` — a ``repro.serve.registry.PreparedEstimator``
     (``points``, ``h``, ``n_true``, ``d``, ``norm``, block sizes) becomes
-    the port's ``PreparedEstimator``, ready to be adopted by a registry.
+    the port's ``PreparedEstimator``, ready to be adopted by a registry;
+  * ``index_from_state`` — a fitted ``repro.kernels.spatial.SpatialIndex``
+    (``labels``, ``centroids``, ``method``) becomes the port's, so a
+    pruned path can run on JAX's clustering (the two packages' k-means
+    draw different random numbers from the same seed).
 
 With these the KDE pass can be held against JAX's on a debiased set that
-JAX computed, apart from the score pass.
+JAX computed, apart from the score pass, and the pruned path on
+identical layouts.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core.estimator import SDKDE, EstimatorConfig
+from repro_torch.kernels.spatial import SpatialIndex
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.registry import PreparedEstimator
 
@@ -42,16 +48,33 @@ def sdkde_from_state(x_train: np.ndarray, x_sd: np.ndarray, h: float,
     return est
 
 
+def index_from_state(labels: Optional[np.ndarray],
+                     centroids: Optional[np.ndarray], method: str = "kmeans",
+                     device: str = "cuda") -> SpatialIndex:
+    """The port's ``SpatialIndex`` for a fitted JAX one: int32 labels
+    (n,) and f32 centroids (k, d) (None for a Morton index) on
+    ``device``."""
+    dev = device_mod.resolve(device)
+    return SpatialIndex(
+        None if labels is None else torch.as_tensor(
+            np.array(labels, np.int32), device=dev),
+        None if centroids is None else torch.as_tensor(
+            np.array(centroids, np.float32), device=dev),
+        method)
+
+
 def prepared_from_state(key: str, points: np.ndarray, h: float, n_true: int,
                         d: int, norm: float, *, block_m: int = 128,
                         block_n: int = 128,
-                        config: ServeConfig | None = None
+                        config: ServeConfig | None = None,
+                        index: Optional[SpatialIndex] = None
                         ) -> PreparedEstimator:
     """The port's ``PreparedEstimator`` for a JAX-prepared one.
 
     ``points`` are the (debiased) train points the JAX estimator serves;
     the port prepares its own column layout from them at the config's
-    tier.  Register the result with ``EstimatorRegistry.adopt``.
+    tier, clustered by ``index`` (``index_from_state``) when the config's
+    pruning engages.  Register the result with ``EstimatorRegistry.adopt``.
     """
     cfg = config or ServeConfig()
     cfg = dataclasses.replace(cfg, block_m=int(block_m), block_n=int(block_n))
@@ -62,7 +85,7 @@ def prepared_from_state(key: str, points: np.ndarray, h: float, n_true: int,
                          f"(n_true={n_true}, d={d})")
     prep = PreparedEstimator(
         key=key, config=cfg, h=float(h), n_true=int(n_true), d=int(d),
-        generation=0, points=pts, norm=float(norm),
+        generation=0, points=pts, norm=float(norm), index=index,
     )
     if cfg.backend == "flash":
         prep.block_m, prep.block_n = cfg.block_m, cfg.block_n
@@ -70,4 +93,4 @@ def prepared_from_state(key: str, points: np.ndarray, h: float, n_true: int,
     return prep
 
 
-__all__ = ["sdkde_from_state", "prepared_from_state"]
+__all__ = ["sdkde_from_state", "prepared_from_state", "index_from_state"]

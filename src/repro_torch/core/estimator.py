@@ -3,7 +3,9 @@
 The counterpart of ``repro.core.estimator``.  Backends:
 
   * ``flash`` — the hand-written kernels (``repro_torch.kernels.ops``):
-                B1 for the fit's score pass, B2 for every evaluation.
+                B1 for the fit's score pass, B2 for every evaluation, or
+                their pruned forms B3 / B4 when ``prune`` engages (by
+                default at ≥16384 train points, ``ops.resolve_prune``).
                 The default.  On CPU tensors the kernels' plain PyTorch
                 versions run instead.
   * ``torch`` — the streaming plain math of ``core/kde.py``.
@@ -42,13 +44,6 @@ def check_backend(backend: str) -> None:
                          f"{BACKENDS})")
 
 
-def check_prune(prune) -> None:
-    if prune != "off":
-        raise NotImplementedError(
-            f"prune={prune!r}: cluster pruning (kernels B3/B4) is not ported "
-            "yet (ROADMAP A4); use prune='off'")
-
-
 @dataclasses.dataclass
 class EstimatorConfig:
     backend: Backend = "flash"
@@ -57,12 +52,14 @@ class EstimatorConfig:
     block_n: int = 128           # kernel column tile (points per stage)
     score_h: Optional[float] = None  # score-estimation bandwidth (None = h)
     precision: str = "f32"       # GEMM-operand tier (kernels/precision)
-    prune: str = "off"           # only "off" until ROADMAP A4
+    # cluster pruning (kernels/spatial.py): "auto" = exact pruning at
+    # >= 16384 train points, "off" = dense, float = epsilon >= 0
+    prune: "str | float" = "auto"
     device: str = "cuda"         # "cuda" (raises without a card) or "cpu"
 
     def __post_init__(self):
         check_backend(self.backend)
-        check_prune(self.prune)
+        ops.check_prune(self.prune)
         ops.check_blocks(self.block_m, self.block_n)
         prec.validate(self.precision)
         if self.block < 1:
@@ -101,7 +98,8 @@ class KDE:
         cfg = self.config
         if cfg.backend == "flash":
             return ops.flash_kde(x, y, self.h, precision=cfg.precision,
-                                 block_m=cfg.block_m, block_n=cfg.block_n)
+                                 block_m=cfg.block_m, block_n=cfg.block_n,
+                                 prune=cfg.prune)
         return ref.kde_eval(x, y, self.h, block=cfg.block)
 
     __call__ = evaluate
@@ -112,7 +110,7 @@ class SDKDE(KDE):
 
     ``fit`` performs the quadratic score pass (the paper's hot spot, kernel
     B1 on the flash backend) and caches the debiased samples; ``evaluate``
-    is then a standard KDE pass (kernel B2).
+    is then a standard KDE pass (kernel B2; B3 / B4 when pruning).
     """
 
     def __init__(self, h=None, config: EstimatorConfig | None = None):
@@ -128,7 +126,7 @@ class SDKDE(KDE):
             self.x_sd = ops.flash_sdkde_shift(
                 self.x_train, self.h, score_h=cfg.score_h,
                 precision=cfg.precision, block_m=cfg.block_m,
-                block_n=cfg.block_n)
+                block_n=cfg.block_n, prune=cfg.prune)
         else:
             self.x_sd = ref.sdkde_shift(self.x_train, self.h,
                                         score_h=cfg.score_h, block=cfg.block)
@@ -141,4 +139,4 @@ class SDKDE(KDE):
 
 
 __all__ = ["Backend", "BACKENDS", "EstimatorConfig", "KDE", "SDKDE",
-           "check_backend", "check_prune"]
+           "check_backend"]

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels and their wrappers.
 
-``flash_score`` (kernel B1, the SD-KDE score pass) and ``flash_kde``
-(kernel B2, the KDE pass) are CUDA C++ sources under ``csrc/``, built by
-``_build`` and launched through ctypes.  Each module keeps a plain PyTorch
-version of its kernel beside it; ``ops`` holds the padded, normalized
-public wrappers.
+``flash_score`` (kernel B1, the SD-KDE score pass), ``flash_kde`` (kernel
+B2, the KDE pass) and ``flash_pruned`` (B3 and B4, the same passes over
+per-row-tile visit lists) are CUDA C++ sources under ``csrc/``, built by
+``_build`` and launched through ctypes.  Each module keeps a plain
+PyTorch version of its kernels beside them; ``spatial`` holds the pruned
+passes' prepass (k-means index, cluster layouts, certified tile bounds,
+visit lists) and ``ops`` the padded, normalized public wrappers.
 """

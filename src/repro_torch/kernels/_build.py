@@ -1,13 +1,15 @@
 """Build the CUDA kernels with nvcc and load them through ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the repository
-root, on first use:
+(with the shared ``csrc/*.cuh`` headers) into
+``build/repro_torch_kernels/lib<name>-<hash>.so`` at the repository root,
+on first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
-The hash covers the source and the flags, so an edited kernel is rebuilt
+The hash covers the source, every header and the flags, so an edited
+kernel or header is rebuilt
 and a stale library is never loaded.  ``build`` starts one nvcc per
 missing source, all at once, and waits for every one; a missing nvcc or a
 failed build raises.  ptxas's report (registers, shared memory, spills)
@@ -28,7 +30,7 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_score", "flash_kde")
+SOURCES = ("flash_score", "flash_kde", "flash_pruned")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,9 +56,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
@@ -94,10 +98,10 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str, argtypes: Sequence) -> "tuple":
+def load(name: str, argtypes: Sequence, entry: str = "launch") -> "tuple":
     """(launch, error) C functions of library ``name``, building it first
-    if needed.  ``launch`` returns a cudaError_t code; ``error(code)``
-    its message."""
+    if needed.  ``launch`` is ``<name>_<entry>`` and returns a cudaError_t
+    code; ``error(code)`` is its message."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -105,14 +109,14 @@ def load(name: str, argtypes: Sequence) -> "tuple":
             if not path.exists():
                 build([name])
             lib = ctypes.CDLL(str(path))
-            launch = getattr(lib, f"{name}_launch")
-            launch.argtypes = list(argtypes)
-            launch.restype = ctypes.c_int
             err = getattr(lib, f"{name}_error")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             _loaded[name] = lib
-    return getattr(lib, f"{name}_launch"), getattr(lib, f"{name}_error")
+        launch = getattr(lib, f"{name}_{entry}")
+        launch.argtypes = list(argtypes)
+        launch.restype = ctypes.c_int
+    return launch, getattr(lib, f"{name}_error")
 
 
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "nvcc",

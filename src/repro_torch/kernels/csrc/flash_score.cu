@@ -8,260 +8,19 @@
 //     S1aug_i = sum_j phi_ij * [x_j | 1]                 (n, d+1), f32
 // i.e. the score numerator and denominator of SD-KDE in one pass.  The
 // Gram operands are x (rows, n x d) and xt (columns, d x n); the second
-// product's operand is xaug = [x | 1] (n x (d+1)).  Norms are inputs,
-// computed by the caller from the tier-cast operands.
-//
-// Tiers, chosen by the operand type and whether the lo planes are given:
-//   f32     Gram and phi.[X|1] in f32.
-//   bf16    bf16 operands, products summed in f32; phi is rounded to bf16
-//           (round to nearest even) BEFORE it multiplies [X|1].
-//   bf16x2  Gram: hi.hi + hi.lo + lo.hi + lo.lo as four f32 partial sums
-//           added in that order; phi is split into bf16 hi and lo and the
-//           second product is the same four-product sum, in f32.
-// Norms, sq, exp and the accumulators are f32 at every tier.  exp is expf
-// (full precision, <= 2 ulp), not __expf, so the kernel agrees with its
-// plain PyTorch version to f32 summation order (bar: rtol 1e-5 plus
-// 1e-6 of the peak).
+// product's operand is xaug = [x | 1] (n x (d+1)).
 //
 // Bound on this card: operations.  Per pair the kernel does 2d flops of
 // Gram, 2(d+1) of the weighted sum and one exp; the bytes it must move
 // are the operands once and S1aug once, a few MB at n = 32768.  The f32
 // tier's floor is the FP32 rate (67 TFLOP/s); the exp floor is the SFU.
 //
-// Design, simple first: one thread per train row, block_m rows per
-// block; the row (d values, two planes at bf16x2) and its d+1
-// accumulators live in registers.  The block loops over ALL column
-// tiles of block_n points, staged through shared memory as f32, and
-// reads each staged column as float4 broadcasts.  That loop takes the
-// place of the TPU's sequential inner grid axis: each output row is
-// written once by one thread, no atomics, deterministic sums.  As on the
-// TPU, each tile's terms go into partial sums that are added to the
-// running totals once per tile, so rounding grows with the tile and
-// tile counts, not with n (see flash_kde.cu).  Padding
-// is the caller's sentinel padding; a ragged last tile is masked by the
-// loop bound.  Later work: wgmma for both products, TMA staging.
+// Design: flash_tiles.cuh's score_kernel streaming every column tile
+// (AllTiles): one thread per train row with its d+1 accumulators in
+// registers, the column tiles staged through shared memory, a per-tile
+// partial added to the running sums.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-
-namespace {
-
-constexpr int kMaxD = 64;
-constexpr int kMaxRows = 256;
-constexpr size_t kMaxSmem = 232448;  // 227 KB, the most one block may use
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Shared-memory row widths, in floats: Gram columns hold DMAX values,
-// [X|1] columns DMAX + 1, padded to a float4 multiple.
-template <int DMAX>
-struct Widths {
-  static constexpr int kG = DMAX;
-  static constexpr int kA = DMAX + 4;
-};
-
-template <typename T, bool X2, int DMAX>
-__global__ void __launch_bounds__(kMaxRows)
-score_kernel(const T* __restrict__ x, const T* __restrict__ x_lo,
-             const float* __restrict__ nrm, const T* __restrict__ xt,
-             const T* __restrict__ xt_lo, const T* __restrict__ xaug,
-             const T* __restrict__ xaug_lo,
-             const float* __restrict__ inv2h2_ptr, float* __restrict__ out,
-             int n, int d, int block_n) {
-  constexpr int WG = Widths<DMAX>::kG;
-  constexpr int WA = Widths<DMAX>::kA;
-  constexpr int P = X2 ? 2 : 1;
-  extern __shared__ float4 smem4[];
-  float* s_gh = reinterpret_cast<float*>(smem4);  // [block_n][WG]
-  float* s_gl = s_gh + (size_t)block_n * WG;      // (X2)
-  float* s_ah = s_gh + (size_t)P * block_n * WG;  // [block_n][WA]
-  float* s_al = s_ah + (size_t)block_n * WA;      // (X2)
-  float* s_nrm = s_ah + (size_t)P * block_n * WA;
-
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * blockDim.x + tid;
-  const bool live = row < n;
-  const int w = d + 1;
-
-  float r_hi[DMAX];
-  float r_lo[X2 ? DMAX : 1];
-#pragma unroll
-  for (int k = 0; k < DMAX; ++k) {
-    const bool in = live && k < d;
-    r_hi[k] = in ? to_f32(x[(size_t)row * d + k]) : 0.f;
-    if constexpr (X2) r_lo[k] = in ? to_f32(x_lo[(size_t)row * d + k]) : 0.f;
-  }
-  const float nrm_r = live ? nrm[row] : 0.f;
-  const float inv2h2 = *inv2h2_ptr;
-
-  // Slots past d (Gram) and past d+1 ([X|1]) stay zero for the launch.
-  for (int e = tid; e < block_n * WG; e += blockDim.x) {
-    s_gh[e] = 0.f;
-    if constexpr (X2) s_gl[e] = 0.f;
-  }
-  for (int e = tid; e < block_n * WA; e += blockDim.x) {
-    s_ah[e] = 0.f;
-    if constexpr (X2) s_al[e] = 0.f;
-  }
-
-  float acc[DMAX + 1];
-  float part[DMAX + 1];
-#pragma unroll
-  for (int k = 0; k <= DMAX; ++k) acc[k] = 0.f;
-
-  for (int j0 = 0; j0 < n; j0 += block_n) {
-    const int cols = min(block_n, n - j0);
-#pragma unroll
-    for (int k = 0; k <= DMAX; ++k) part[k] = 0.f;
-    __syncthreads();
-    for (int k = 0; k < d; ++k) {
-      for (int c = tid; c < cols; c += blockDim.x) {
-        const size_t src = (size_t)k * n + j0 + c;
-        s_gh[c * WG + k] = to_f32(xt[src]);
-        if constexpr (X2) s_gl[c * WG + k] = to_f32(xt_lo[src]);
-      }
-    }
-    const size_t base = (size_t)j0 * w;
-    for (int e = tid; e < cols * w; e += blockDim.x) {
-      const int c = e / w;
-      const int k = e - c * w;
-      s_ah[c * WA + k] = to_f32(xaug[base + e]);
-      if constexpr (X2) s_al[c * WA + k] = to_f32(xaug_lo[base + e]);
-    }
-    for (int c = tid; c < cols; c += blockDim.x) s_nrm[c] = nrm[j0 + c];
-    __syncthreads();
-
-    for (int c = 0; c < cols; ++c) {
-      const float4* gh = reinterpret_cast<const float4*>(s_gh + c * WG);
-      float g;
-      if constexpr (X2) {
-        const float4* gl = reinterpret_cast<const float4*>(s_gl + c * WG);
-        float ghh = 0.f, ghl = 0.f, glh = 0.f, gll = 0.f;
-#pragma unroll
-        for (int q = 0; q < DMAX / 4; ++q) {
-          const float4 h = gh[q], l = gl[q];
-          ghh += r_hi[4 * q] * h.x + r_hi[4 * q + 1] * h.y +
-                 r_hi[4 * q + 2] * h.z + r_hi[4 * q + 3] * h.w;
-          ghl += r_hi[4 * q] * l.x + r_hi[4 * q + 1] * l.y +
-                 r_hi[4 * q + 2] * l.z + r_hi[4 * q + 3] * l.w;
-          glh += r_lo[4 * q] * h.x + r_lo[4 * q + 1] * h.y +
-                 r_lo[4 * q + 2] * h.z + r_lo[4 * q + 3] * h.w;
-          gll += r_lo[4 * q] * l.x + r_lo[4 * q + 1] * l.y +
-                 r_lo[4 * q + 2] * l.z + r_lo[4 * q + 3] * l.w;
-        }
-        g = ((ghh + ghl) + glh) + gll;
-      } else {
-        g = 0.f;
-#pragma unroll
-        for (int q = 0; q < DMAX / 4; ++q) {
-          const float4 h = gh[q];
-          g += r_hi[4 * q] * h.x + r_hi[4 * q + 1] * h.y +
-               r_hi[4 * q + 2] * h.z + r_hi[4 * q + 3] * h.w;
-        }
-      }
-      const float sq = fmaxf(nrm_r + s_nrm[c] - 2.f * g, 0.f);
-      const float phi = expf(-sq * inv2h2);
-
-      const float* ah = s_ah + c * WA;
-      const float4* ah4 = reinterpret_cast<const float4*>(ah);
-      if constexpr (X2) {
-        const float* al = s_al + c * WA;
-        const float4* al4 = reinterpret_cast<const float4*>(al);
-        const float p_hi = round_bf16(phi);
-        const float p_lo = round_bf16(phi - p_hi);
-#pragma unroll
-        for (int q = 0; q < DMAX / 4; ++q) {
-          const float4 h = ah4[q], l = al4[q];
-          part[4 * q] +=
-              ((p_hi * h.x + p_hi * l.x) + p_lo * h.x) + p_lo * l.x;
-          part[4 * q + 1] +=
-              ((p_hi * h.y + p_hi * l.y) + p_lo * h.y) + p_lo * l.y;
-          part[4 * q + 2] +=
-              ((p_hi * h.z + p_hi * l.z) + p_lo * h.z) + p_lo * l.z;
-          part[4 * q + 3] +=
-              ((p_hi * h.w + p_hi * l.w) + p_lo * h.w) + p_lo * l.w;
-        }
-        part[DMAX] +=
-            ((p_hi * ah[DMAX] + p_hi * al[DMAX]) + p_lo * ah[DMAX]) +
-            p_lo * al[DMAX];
-      } else {
-        // bf16 tier: phi rounded to bf16 before the product (both
-        // operands of the second GEMM are bf16); f32 tier: phi as is.
-        const float p = (sizeof(T) == 2) ? round_bf16(phi) : phi;
-#pragma unroll
-        for (int q = 0; q < DMAX / 4; ++q) {
-          const float4 h = ah4[q];
-          part[4 * q] += p * h.x;
-          part[4 * q + 1] += p * h.y;
-          part[4 * q + 2] += p * h.z;
-          part[4 * q + 3] += p * h.w;
-        }
-        part[DMAX] += p * ah[DMAX];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k <= DMAX; ++k) acc[k] += part[k];
-  }
-  if (live) {
-#pragma unroll
-    for (int k = 0; k <= DMAX; ++k)
-      if (k <= d) out[(size_t)row * w + k] = acc[k];
-  }
-}
-
-template <typename T, bool X2, int DMAX>
-cudaError_t launch(const void* x, const void* x_lo, const void* nrm,
-                   const void* xt, const void* xt_lo, const void* xaug,
-                   const void* xaug_lo, const void* inv2h2, void* out, int n,
-                   int d, int block_m, int block_n, cudaStream_t stream) {
-  constexpr int P = X2 ? 2 : 1;
-  const size_t smem =
-      sizeof(float) * ((size_t)P * block_n *
-                           (Widths<DMAX>::kG + Widths<DMAX>::kA) +
-                       block_n);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = score_kernel<T, X2, DMAX>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int grid = (n + block_m - 1) / block_m;
-  kernel<<<grid, block_m, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(x_lo),
-      static_cast<const float*>(nrm), static_cast<const T*>(xt),
-      static_cast<const T*>(xt_lo), static_cast<const T*>(xaug),
-      static_cast<const T*>(xaug_lo), static_cast<const float*>(inv2h2),
-      static_cast<float*>(out), n, d, block_n);
-  return cudaGetLastError();
-}
-
-template <typename T, bool X2>
-cudaError_t launch_d(const void* x, const void* x_lo, const void* nrm,
-                     const void* xt, const void* xt_lo, const void* xaug,
-                     const void* xaug_lo, const void* inv2h2, void* out,
-                     int n, int d, int block_m, int block_n,
-                     cudaStream_t s) {
-#define SCORE_LAUNCH(DM)                                                   \
-  return launch<T, X2, DM>(x, x_lo, nrm, xt, xt_lo, xaug, xaug_lo, inv2h2, \
-                           out, n, d, block_m, block_n, s)
-  if (d <= 4) SCORE_LAUNCH(4);
-  if (d <= 8) SCORE_LAUNCH(8);
-  if (d <= 16) SCORE_LAUNCH(16);
-  if (d <= 32) SCORE_LAUNCH(32);
-  SCORE_LAUNCH(64);
-#undef SCORE_LAUNCH
-}
-
-}  // namespace
+#include "flash_tiles.cuh"
 
 // tier: 0 = f32, 1 = bf16, 2 = bf16x2.  Returns a cudaError_t code.
 extern "C" int flash_score_launch(const void* x, const void* x_lo,
@@ -270,25 +29,11 @@ extern "C" int flash_score_launch(const void* x, const void* x_lo,
                                   const void* xaug_lo, const void* inv2h2,
                                   void* out, int n, int d, int tier,
                                   int block_m, int block_n, void* stream) {
-  if (n <= 0 || d < 1 || d > kMaxD || block_m < 1 || block_m > kMaxRows ||
-      block_n < 1)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tier) {
-    case 0:
-      return launch_d<float, false>(x, x_lo, nrm, xt, xt_lo, xaug, xaug_lo,
-                                    inv2h2, out, n, d, block_m, block_n, s);
-    case 1:
-      return launch_d<__nv_bfloat16, false>(x, x_lo, nrm, xt, xt_lo, xaug,
-                                            xaug_lo, inv2h2, out, n, d,
-                                            block_m, block_n, s);
-    case 2:
-      return launch_d<__nv_bfloat16, true>(x, x_lo, nrm, xt, xt_lo, xaug,
-                                           xaug_lo, inv2h2, out, n, d,
-                                           block_m, block_n, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (block_n < 1) return cudaErrorInvalidValue;
+  return flash::score_dispatch(
+      x, x_lo, nrm, xt, xt_lo, xaug, xaug_lo, inv2h2, out, n, d, tier,
+      block_m, block_n, flash::AllTiles{(n + block_n - 1) / block_n},
+      stream);
 }
 
 extern "C" const char* flash_score_error(int code) {

@@ -55,6 +55,38 @@ def _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n):
     return m, n, d
 
 
+def check_cuda(name, tier, operands, floats, d, block_m, ints=()):
+    """Checks shared by every kernel launch: all tensors contiguous on one
+    CUDA device, the GEMM ``operands`` (None for an absent lo plane) of
+    the tier's type, the norms and inv2h2 (``floats``) f32, index tensors
+    (``ints``) int32, and d and block_m within what the kernels are built
+    for.  Returns the device."""
+    dev = operands[0].device
+    for t in operands + floats + ints:
+        if t is None:
+            continue
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} needs every tensor on one CUDA "
+                             f"device, got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors")
+    want = torch.float32 if tier == "f32" else torch.bfloat16
+    for t in operands:
+        if t is not None and t.dtype != want:
+            raise ValueError(f"tier {tier} operands must be {want}, "
+                             f"got {t.dtype}")
+    if any(t.dtype != torch.float32 for t in floats):
+        raise ValueError("norms and inv2h2 must be float32")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise ValueError("counts and tile_map must be int32")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"{name} is built for 1 <= d <= {MAX_D}, got d={d}")
+    if not 1 <= block_m <= MAX_BLOCK_M:
+        raise ValueError(f"block_m must be in [1, {MAX_BLOCK_M}], got "
+                         f"{block_m}")
+    return dev
+
+
 def flash_kde_plain(
     y: torch.Tensor,
     nrm_y: torch.Tensor,
@@ -97,31 +129,9 @@ def flash_kde_cuda(
     global launches
     m, n, d = _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
                      block_m, block_n)
-    tensors = [y, nrm_y, xt, nrm_x, inv2h2] + [
-        t for t in (y_lo, xt_lo) if t is not None]
-    dev = y.device
-    for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"flash_kde_cuda needs every tensor on one CUDA "
-                             f"device, got {t.device} (queries on {dev})")
-        if not t.is_contiguous():
-            raise ValueError("flash_kde_cuda needs contiguous tensors")
     tier = prec.tier_of(y, y_lo)
-    want = torch.float32 if tier == "f32" else torch.bfloat16
-    for t in (y, xt, y_lo, xt_lo):
-        if t is not None and t.dtype != want:
-            raise ValueError(f"tier {tier} operands must be {want}, "
-                             f"got {t.dtype}")
-    for t in (nrm_y, nrm_x, inv2h2):
-        if t.dtype != torch.float32:
-            raise ValueError(f"norms and inv2h2 must be float32, got "
-                             f"{t.dtype}")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"flash_kde kernel is built for 1 <= d <= {MAX_D}, "
-                         f"got d={d}")
-    if not 1 <= block_m <= MAX_BLOCK_M:
-        raise ValueError(f"block_m must be in [1, {MAX_BLOCK_M}], got "
-                         f"{block_m}")
+    dev = check_cuda("flash_kde_cuda", tier, (y, xt, y_lo, xt_lo),
+                     (nrm_y, nrm_x, inv2h2), d, block_m)
     launch, error = _build.load("flash_kde", _ARGTYPES)
     out = torch.empty((m, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -163,5 +173,5 @@ def flash_kde(
                           block_m=block_m, block_n=block_n)
 
 
-__all__ = ["MAX_D", "MAX_BLOCK_M", "TIER_CODES", "flash_kde",
+__all__ = ["MAX_D", "MAX_BLOCK_M", "TIER_CODES", "check_cuda", "flash_kde",
            "flash_kde_cuda", "flash_kde_plain"]

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import precision as prec
-from repro_torch.kernels.flash_kde import MAX_BLOCK_M, MAX_D, TIER_CODES
+from repro_torch.kernels.flash_kde import TIER_CODES, check_cuda
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -98,30 +98,10 @@ def flash_score_cuda(
     global launches
     n, d = _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo,
                   block_m, block_n)
-    los = (x_lo, xt_lo, xaug_lo)
-    dev = x.device
-    for t in (x, nrm, xt, xaug, inv2h2) + los:
-        if t is None:
-            continue
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"flash_score_cuda needs every tensor on one "
-                             f"CUDA device, got {t.device} (x on {dev})")
-        if not t.is_contiguous():
-            raise ValueError("flash_score_cuda needs contiguous tensors")
     tier = prec.tier_of(x, x_lo)
-    want = torch.float32 if tier == "f32" else torch.bfloat16
-    for t in (x, xt, xaug) + los:
-        if t is not None and t.dtype != want:
-            raise ValueError(f"tier {tier} operands must be {want}, "
-                             f"got {t.dtype}")
-    if nrm.dtype != torch.float32 or inv2h2.dtype != torch.float32:
-        raise ValueError("nrm and inv2h2 must be float32")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"flash_score kernel is built for 1 <= d <= "
-                         f"{MAX_D}, got d={d}")
-    if not 1 <= block_m <= MAX_BLOCK_M:
-        raise ValueError(f"block_m must be in [1, {MAX_BLOCK_M}], got "
-                         f"{block_m}")
+    dev = check_cuda("flash_score_cuda", tier,
+                     (x, xt, xaug, x_lo, xt_lo, xaug_lo), (nrm, inv2h2), d,
+                     block_m)
     launch, error = _build.load("flash_score", _ARGTYPES)
     out = torch.empty((n, d + 1), dtype=torch.float32, device=dev)
 

@@ -1,12 +1,12 @@
-"""Public wrappers around the Flash-SD-KDE kernels (dense main path).
+"""Public wrappers around the Flash-SD-KDE kernels.
 
-The counterpart of ``repro.kernels.ops`` with ``prune="off"``: pad point
-sets to tile multiples with far sentinels (whose kernel weight underflows
-to exactly 0.0, so padding never changes a real row's sum), precompute
-squared norms and the transposed (d, n) column layout, cast operands to
-the precision tier, launch B1 / B2, slice off padding and normalize.
+The counterpart of ``repro.kernels.ops``: pad point sets to tile
+multiples with far sentinels (whose kernel weight underflows to exactly
+0.0, so padding never changes a real row's sum), precompute squared norms
+and the transposed (d, n) column layout, cast operands to the precision
+tier, launch the kernels, slice off padding and normalize.
 
-Two launch knobs thread through every wrapper:
+Three launch knobs thread through every wrapper:
 
   * ``precision`` — the GEMM-operand tier (``"f32"`` / ``"bf16"`` /
     ``"bf16x2"``, ``kernels/precision.py``).  Norms come from the
@@ -15,25 +15,77 @@ Two launch knobs thread through every wrapper:
     and column tile (train points staged per shared-memory pass), both
     explicit ints.  Rows are padded to ``block_m`` and columns to
     ``block_n`` multiples, as the JAX wrappers pad.
+  * ``prune`` — cluster pruning (``kernels/spatial.py``): ``"off"``
+    streams every tile pair (B1 / B2), a float ``epsilon ≥ 0`` reorders
+    the train set spatially and skips column tiles whose certified
+    per-point contribution is ≤ epsilon (B3 / B4; ``0.0`` skips only tiles
+    whose every term underflows to exactly 0.0 in f32), and ``"auto"``
+    (the one-shot wrappers' default) applies exact pruning once the
+    streamed set is large enough (``resolve_prune``).
 
 Each wrapper runs where its tensors are: the kernels on the card, their
-plain PyTorch versions on the CPU (``flash_score.flash_score``,
-``flash_kde.flash_kde``).
+plain PyTorch versions on the CPU (``flash_score``, ``flash_kde``,
+``flash_pruned``).  The pruned path syncs once per pass to size its visit
+lists.  Not ported: ``repro``'s occupancy profile for the autotuner
+(ROADMAP A6), the prune telemetry (A10) and the fallback to dense under
+JAX tracing (PyTorch does not trace).  Spans carry ``repro``'s names
+(``kernels.pruned_score``, ``kernels.pruned_eval``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+import threading
+import weakref
+from typing import NamedTuple, Optional, Union
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.bandwidth import gaussian_norm_const
+from repro_torch.kernels import flash_pruned, spatial
 from repro_torch.kernels import precision as prec
 from repro_torch.kernels.flash_kde import flash_kde as _kde_kernel
 from repro_torch.kernels.flash_score import flash_score as _score_kernel
 
 PAD_VALUE = 1.0e6
+
+PruneArg = Union[str, float]  # "auto" | "off" | epsilon ≥ 0
+
+#: ``prune="auto"`` enables exact pruning only past these sizes — below
+#: them the bounds prepass and visit-list compaction cost more than the
+#: skipped tiles were worth.
+PRUNE_AUTO_MIN_COLS = 16384
+PRUNE_AUTO_MIN_TILES = 4
+
+
+def resolve_prune(prune: PruneArg, cols: int, block_n: int) -> Optional[float]:
+    """The per-point epsilon a prune argument means; None = dense."""
+    if prune is None or prune is False or prune == "off":
+        return None
+    if prune == "auto":
+        if (cols >= PRUNE_AUTO_MIN_COLS
+                and cols >= PRUNE_AUTO_MIN_TILES * block_n):
+            return 0.0
+        return None
+    if isinstance(prune, str):
+        raise ValueError(
+            f"bad prune argument {prune!r} (choose 'auto', 'off', or a "
+            "float epsilon >= 0)"
+        )
+    eps = float(prune)
+    if not eps >= 0.0:
+        raise ValueError(f"prune epsilon must be >= 0, got {eps}")
+    return eps
+
+
+def check_prune(prune) -> None:
+    """A config's prune knob: ``"auto"``, ``"off"`` or an epsilon ≥ 0."""
+    if not (prune in ("auto", "off")
+            or (isinstance(prune, (int, float))
+                and not isinstance(prune, bool) and prune >= 0)):
+        raise ValueError(
+            f"bad prune {prune!r} ('auto', 'off', or epsilon >= 0)")
 
 
 def check_blocks(block_m, block_n) -> None:
@@ -82,6 +134,29 @@ def _normalize(sums: torch.Tensor, n: int, d: int, h) -> torch.Tensor:
     return sums / (n * gaussian_norm_const(d, 1.0) * h**d)
 
 
+# One-shot wrappers amortize the spatial prep across repeated calls on the
+# SAME train tensor (e.g. the estimators' evaluate loops): keyed by tensor
+# identity, guarded by a weakref so a recycled id can never alias.
+_COLUMNS_CACHE: dict = {}
+_COLUMNS_LOCK = threading.Lock()
+
+
+def _cached_columns(x: torch.Tensor, *, block_n: int, precision: str,
+                    seed: int) -> "TrainColumns":
+    key = (id(x), int(block_n), precision, seed)
+    with _COLUMNS_LOCK:
+        hit = _COLUMNS_CACHE.get(key)
+        if hit is not None and hit[0]() is x:
+            return hit[1]
+    cols = prepare_train_columns(x, block_n=block_n, precision=precision,
+                                 clustered=True, seed=seed)
+    with _COLUMNS_LOCK:
+        for k in [k for k, (r, _) in _COLUMNS_CACHE.items() if r() is None]:
+            del _COLUMNS_CACHE[k]
+        _COLUMNS_CACHE[key] = (weakref.ref(x), cols)
+    return cols
+
+
 # ---------------------------------------------------------------------------
 # Score statistics / SD-KDE shift.
 # ---------------------------------------------------------------------------
@@ -104,12 +179,50 @@ def _score_operands(xp: torch.Tensor, precision: str):
     return x_ops, xt_ops, xaug_ops, _norms(xrec), xrec
 
 
+def _score_stats_pruned(x: torch.Tensor, h, epsilon: float,
+                        index: spatial.SpatialIndex, *, precision: str,
+                        block_m: int, block_n: int):
+    """Pruned score pass (B3); returns (S0, S1) in ``x``'s row order.
+
+    The score pass is train×train, so the cluster-aligned layout serves
+    both axes: row tiles and column tiles of the same padded scatter, and
+    the output rows come back through the layout's slot map.  The
+    certificate uses the score kind (per-point bound exp(-arg)·max(1,
+    max|x|)) because the accumulator weights are the [X | 1] columns.
+    """
+    n, d = x.shape
+    layout = spatial.cluster_layout(
+        x.to(torch.float32), index.labels, block_n,
+        total_multiple=math.lcm(block_m, block_n))
+    x_ops, xt_ops, xaug_ops, nrm, xrec = _score_operands(layout.points,
+                                                         precision)
+    inv = _inv2h2(h, x.device)
+    col_meta = spatial.tile_metadata(xrec, layout.real, block=block_n)
+    tm = spatial.tile_map(xrec, col_meta, inv, epsilon, block_m=block_m,
+                          kind="score")
+    vl = spatial.visit_lists(tm.keep)
+    with record_function("kernels.pruned_score"):
+        s1aug = flash_pruned.flash_score_pruned(
+            vl.counts, vl.tile_map, x_ops[0], nrm, xt_ops[0], xaug_ops[0],
+            inv, x_ops[1], xt_ops[1], xaug_ops[1], block_m=block_m,
+            block_n=block_n)
+    rows = s1aug[layout.slots]
+    return rows[:, d], rows[:, :d]
+
+
 def flash_score_stats(x: torch.Tensor, h, *, precision: str = "f32",
-                      block_m: int = 128, block_n: int = 128):
-    """(S0, S1) score statistics over the train set via kernel B1."""
+                      block_m: int = 128, block_n: int = 128,
+                      prune: PruneArg = "auto", seed: int = 0):
+    """(S0, S1) score statistics over the train set via kernel B1, or B3
+    when ``prune`` engages (``seed`` seeds the k-means index)."""
     prec.validate(precision)
     check_blocks(block_m, block_n)
     n, d = x.shape
+    eps = resolve_prune(prune, n, block_n)
+    if eps is not None:
+        return _score_stats_pruned(
+            x, h, eps, spatial.build_index(x, seed=seed),
+            precision=precision, block_m=block_m, block_n=block_n)
     xp = _pad_to(x, math.lcm(block_m, block_n))
     x_ops, xt_ops, xaug_ops, nrm, _ = _score_operands(xp, precision)
     s1aug = _score_kernel(
@@ -129,11 +242,13 @@ def _apply_score_shift(x32: torch.Tensor, s0, s1, h, sh) -> torch.Tensor:
 
 def flash_sdkde_shift(x: torch.Tensor, h, *, score_h=None,
                       precision: str = "f32", block_m: int = 128,
-                      block_n: int = 128) -> torch.Tensor:
-    """Debiased samples x^SD = x + (h²/2)·ŝ(x), score via kernel B1."""
+                      block_n: int = 128, prune: PruneArg = "auto",
+                      seed: int = 0) -> torch.Tensor:
+    """Debiased samples x^SD = x + (h²/2)·ŝ(x), score via kernel B1 (B3
+    when ``prune`` engages)."""
     sh = h if score_h is None else score_h
     s0, s1 = flash_score_stats(x, sh, precision=precision, block_m=block_m,
-                               block_n=block_n)
+                               block_n=block_n, prune=prune, seed=seed)
     return _apply_score_shift(x.to(torch.float32), s0, s1, h, sh)
 
 
@@ -161,12 +276,22 @@ def _prep_eval(x, y, block_m, block_n, precision):
 
 def flash_kde(x: torch.Tensor, y: torch.Tensor, h, *,
               precision: str = "f32", block_m: int = 128,
-              block_n: int = 128) -> torch.Tensor:
-    """Normalized Gaussian KDE densities at ``y`` (train set ``x``)."""
+              block_n: int = 128, prune: PruneArg = "auto",
+              seed: int = 0) -> torch.Tensor:
+    """Normalized Gaussian KDE densities at ``y`` (train set ``x``), via
+    B2, or B4 when ``prune`` engages (the clustered columns of ``x`` are
+    cached while ``x`` lives)."""
     prec.validate(precision)
     check_blocks(block_m, block_n)
     n, d = x.shape
     m = y.shape[0]
+    eps = resolve_prune(prune, n, block_n)
+    if eps is not None:
+        cols = _cached_columns(x, block_n=block_n, precision=precision,
+                               seed=seed)
+        sums = _pruned_eval_sums(y, cols, h, eps, precision=precision,
+                                 block_m=block_m, block_n=block_n)
+        return _normalize(sums, n, d, h)
     y_ops, xt_ops, nrm_y, nrm_x = _prep_eval(x, y, block_m, block_n,
                                              precision)
     sums = _kde_kernel(
@@ -187,46 +312,122 @@ class TrainColumns(NamedTuple):
     xt: torch.Tensor                 # (d, n_padded) tier-cast hi plane
     xt_lo: Optional[torch.Tensor]    # (d, n_padded) bf16 lo plane (bf16x2)
     nrm_x: torch.Tensor              # (1, n_padded) f32 column norms
+    # Cluster-pruning state (None on non-spatial prepares): per-column-tile
+    # geometry certified against the tier-cast points, and the spatial
+    # index whose centroids order incoming query batches.
+    meta: Optional[spatial.TileMeta] = None
+    index: Optional[spatial.SpatialIndex] = None
     block_n: int = 0                 # prepare-time column-tile width
 
 
 def prepare_train_columns(x: torch.Tensor, *, block_n: int = 128,
-                          precision: str = "f32") -> TrainColumns:
+                          precision: str = "f32", clustered: bool = False,
+                          index: Optional[spatial.SpatialIndex] = None,
+                          seed: int = 0) -> TrainColumns:
     """One-time train-side prep for repeated evaluation against one set.
 
     Pads the (debiased) train set to a ``block_n`` multiple with sentinel
     points, builds the transposed (d, n) layout cast to the tier (both
     planes for bf16x2) and the f32 column norms of the cast points.
+
+    ``clustered=True`` instead scatters the points into the cluster-aligned
+    sentinel-padded layout (k-means seeded by ``seed``; pass ``index`` to
+    reuse a clustering — its labels apply directly when it was fitted on a
+    row-aligned set, e.g. the pre-shift points) and attaches the per-tile
+    metadata the pruned kernels' bounds prepass reads.
     """
     prec.validate(precision)
     check_blocks(1, block_n)
-    xp = _pad_to(x, block_n)
+    real = None
+    if clustered:
+        if index is None:
+            index = spatial.build_index(x, seed=seed)
+        labels = index.labels if (
+            index.labels is not None and index.labels.shape[0] == x.shape[0]
+        ) else spatial.assign(x, index)
+        layout = spatial.cluster_layout(x, labels, block_n)
+        xp, real = layout.points, layout.real
+    else:
+        xp = _pad_to(x, block_n)
     if precision == "f32":
         xt, xt_lo = _t(xp), None
-        nrm_x = _norms(xp).reshape(1, -1)
+        xrec = xp.to(torch.float32)
     else:
         x_hi, x_lo = prec.cast_operand(xp.to(torch.float32), precision)
         xt, xt_lo = _t(x_hi), None if x_lo is None else _t(x_lo)
-        nrm_x = _norms(prec.reconstruct(x_hi, x_lo)).reshape(1, -1)
-    return TrainColumns(xt, xt_lo, nrm_x, block_n)
+        xrec = prec.reconstruct(x_hi, x_lo)
+    meta = None if real is None else spatial.tile_metadata(xrec, real,
+                                                           block=block_n)
+    return TrainColumns(xt, xt_lo, _norms(xrec).reshape(1, -1), meta,
+                        index if clustered else None, block_n)
 
 
 def _cast_queries(yp: torch.Tensor, precision: str):
-    """(y_hi, y_lo, nrm_y) for a padded query block at one tier."""
+    """(y_hi, y_lo, nrm_y, yrec) for a padded query block at one tier."""
     if precision == "f32":
-        return yp.contiguous(), None, _norms(yp)
+        return yp.contiguous(), None, _norms(yp), yp.to(torch.float32)
     y_hi, y_lo = prec.cast_operand(yp.to(torch.float32), precision)
-    return y_hi, y_lo, _tier_norms(y_hi, y_lo)
+    yrec = prec.reconstruct(y_hi, y_lo)
+    return y_hi, y_lo, _norms(yrec), yrec
+
+
+def _pruned_eval_sums(y: torch.Tensor, cols: TrainColumns, h,
+                      epsilon: float, *, precision: str, block_m: int,
+                      block_n: int,
+                      n_real: Optional[int] = None) -> torch.Tensor:
+    """Pruned kernel sums (len(y),) for queries against prepared columns.
+
+    ``y`` may carry sentinel padding rows past ``n_real`` (the serving
+    path); only real rows enter the query layout and the tail sums are 0.
+    Assign queries to the train clusters → scatter into a cluster-aligned
+    layout → bounds prepass → visit lists (one sync) → B4 → gather back
+    to request order.
+    """
+    if cols.meta is None or cols.index is None:
+        raise ValueError(
+            "pruned evaluation needs spatially prepared train columns "
+            "(prepare_train_columns(..., clustered=True))")
+    if cols.block_n != block_n:
+        raise ValueError(
+            "pruned launch block_n must match the width the columns were "
+            f"prepared at: launch {block_n} vs prepared {cols.block_n} — "
+            "the tile metadata and visit lists address tiles of that width")
+    m_in = y.shape[0]
+    nr = m_in if n_real is None else min(n_real, m_in)
+    yr = y[:nr].to(torch.float32)
+    qlayout = spatial.cluster_layout(yr, spatial.assign(yr, cols.index),
+                                     block_m, bucket_rows=True)
+    y_hi, y_lo, nrm_y, yrec = _cast_queries(qlayout.points, precision)
+    inv = _inv2h2(h, y.device)
+    tm = spatial.tile_map(yrec, cols.meta, inv, epsilon, block_m=block_m,
+                          kind="kde")
+    vl = spatial.visit_lists(tm.keep)
+    with record_function("kernels.pruned_eval"):
+        sums = flash_pruned.flash_kde_pruned(
+            vl.counts, vl.tile_map, y_hi, nrm_y, cols.xt, cols.nrm_x, inv,
+            y_lo, cols.xt_lo, block_m=block_m, block_n=block_n)
+    out = sums[qlayout.slots, 0]                 # back to request order
+    if nr < m_in:                                # caller's sentinel tail
+        out = torch.cat([out, out.new_zeros((m_in - nr,))])
+    return out
 
 
 def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
                        nrm_x: torch.Tensor, h,
                        xt_lo: Optional[torch.Tensor] = None, *,
                        precision: str = "f32", block_m: int = 128,
-                       block_n: int = 128) -> torch.Tensor:
+                       block_n: int = 128, prune: PruneArg = "off",
+                       columns: Optional[TrainColumns] = None,
+                       n_real: Optional[int] = None) -> torch.Tensor:
     """Unnormalized kernel sums (m,) for queries already padded to a
     ``block_m`` multiple against prepared columns; the caller divides by
-    ``n_true · (2π)^{d/2} h^d`` and slices off padding rows."""
+    ``n_true · (2π)^{d/2} h^d`` and slices off padding rows.
+
+    ``prune`` ≠ "off" takes the cluster-pruned path (B4): pass the full
+    ``columns`` (prepared with ``clustered=True``) and ``n_real``, the
+    true query count, so sentinel padding rows stay out of the row-tile
+    geometry.
+    """
     prec.validate(precision)
     check_blocks(block_m, block_n)
     if (precision == "bf16x2") != (xt_lo is not None):
@@ -234,7 +435,16 @@ def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
             "bf16x2 needs prepared lo planes (and other tiers must not "
             f"pass them): precision={precision} xt_lo={xt_lo is not None}"
         )
-    y_hi, y_lo, nrm_y = _cast_queries(yp, precision)
+    eps = resolve_prune(prune, xt.shape[1], block_n)
+    if eps is not None:
+        if columns is None:
+            raise ValueError(
+                "flash_kde_prepared(prune=...) needs columns= (the "
+                "clustered TrainColumns) for the tile metadata")
+        return _pruned_eval_sums(yp, columns, h, eps, precision=precision,
+                                 block_m=block_m, block_n=block_n,
+                                 n_real=n_real)
+    y_hi, y_lo, nrm_y, _ = _cast_queries(yp, precision)
     sums = _kde_kernel(y_hi, nrm_y, xt, nrm_x, _inv2h2(h, yp.device), y_lo,
                        xt_lo, block_m=block_m, block_n=block_n)
     return sums[:, 0]
@@ -247,26 +457,48 @@ def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
 
 def flash_sdkde(x: torch.Tensor, y: torch.Tensor, h, *, score_h=None,
                 precision: str = "f32", block_m: int = 128,
-                block_n: int = 128) -> torch.Tensor:
-    """Full Flash-SD-KDE: score pass (B1) → shift → KDE at queries (B2),
-    normalized.  The shifted set flows through ``prepare_train_columns``."""
+                block_n: int = 128, prune: PruneArg = "auto",
+                seed: int = 0) -> torch.Tensor:
+    """Full Flash-SD-KDE: score pass → shift → KDE at queries (normalized).
+
+    Dense, B1 then B2; when ``prune`` engages, B3 then B4 with one shared
+    spatial index: the clustering of ``x`` orders the score pass and,
+    row for row, the O(h²)-shifted set of the KDE pass.
+    """
     prec.validate(precision)
     check_blocks(block_m, block_n)
     n, d = x.shape
     m = y.shape[0]
+    sh = h if score_h is None else score_h
+    eps = resolve_prune(prune, n, block_n)
     x32 = x.to(torch.float32)
-    x_sd = flash_sdkde_shift(x32, h, score_h=score_h, precision=precision,
-                             block_m=block_m, block_n=block_n)
-    cols = prepare_train_columns(x_sd, block_n=block_n, precision=precision)
-    yp = _pad_to(y, block_m)
-    sums = flash_kde_prepared(yp, cols.xt, cols.nrm_x, h, cols.xt_lo,
-                              precision=precision, block_m=block_m,
-                              block_n=block_n)[:m]
+    if eps is None:
+        index = None
+        s0, s1 = flash_score_stats(x32, sh, precision=precision,
+                                   block_m=block_m, block_n=block_n,
+                                   prune="off")
+    else:
+        index = spatial.build_index(x32, seed=seed)
+        s0, s1 = _score_stats_pruned(x32, sh, eps, index,
+                                     precision=precision, block_m=block_m,
+                                     block_n=block_n)
+    x_sd = _apply_score_shift(x32, s0, s1, h, sh)
+    cols = prepare_train_columns(x_sd, block_n=block_n, precision=precision,
+                                 clustered=eps is not None, index=index)
+    if eps is None:
+        sums = flash_kde_prepared(_pad_to(y, block_m), cols.xt, cols.nrm_x,
+                                  h, cols.xt_lo, precision=precision,
+                                  block_m=block_m, block_n=block_n)[:m]
+    else:
+        sums = _pruned_eval_sums(y, cols, h, eps, precision=precision,
+                                 block_m=block_m, block_n=block_n)
     return _normalize(sums, n, d, h)
 
 
 __all__ = [
-    "PAD_VALUE", "check_blocks", "flash_score_stats", "flash_sdkde_shift",
+    "PAD_VALUE", "PRUNE_AUTO_MIN_COLS", "PRUNE_AUTO_MIN_TILES", "PruneArg",
+    "resolve_prune", "check_prune", "check_blocks", "flash_score_stats",
+    "flash_sdkde_shift",
     "flash_kde", "TrainColumns", "prepare_train_columns",
     "flash_kde_prepared", "flash_sdkde",
 ]

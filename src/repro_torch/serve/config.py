@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal, Optional, Tuple
 
-from repro_torch.core.estimator import check_backend, check_prune
+from repro_torch.core.estimator import check_backend
 from repro_torch.kernels import ops
 from repro_torch.kernels.precision import validate as _validate_precision
 
@@ -48,7 +48,9 @@ class ServeConfig:
     # Tier of the one-time O(n²·d) debias fit: full precision by default,
     # since a reduced fit bakes its error into every later answer.
     fit_precision: str = "f32"
-    prune: str = "off"           # only "off" until ROADMAP A4
+    # cluster pruning: "auto" = exact pruning once the train set reaches
+    # ops.PRUNE_AUTO_MIN_COLS, "off" = dense, float = epsilon >= 0
+    prune: "str | float" = "auto"
 
     # micro-batching policy
     min_batch: int = 128         # smallest shape bucket
@@ -66,7 +68,7 @@ class ServeConfig:
         if self.method not in METHODS:
             raise ValueError(f"unknown method {self.method!r} (choose from "
                              f"{METHODS})")
-        check_prune(self.prune)
+        ops.check_prune(self.prune)
         ops.check_blocks(self.block_m, self.block_n)
         for p in (self.precision, self.fit_precision):
             _validate_precision(p)

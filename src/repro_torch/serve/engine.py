@@ -14,8 +14,10 @@ Both backends dispatch through per-(estimator, tier, bucket) callables
 kept in a small LRU:
 
   * ``flash`` — prepared fast path (``kernels.ops.flash_kde_prepared``,
-                kernel B2): train columns transposed and normed once at
-                fit, queries arrive padded to a ``block_m`` multiple;
+                kernel B2, or B4 when ``prune`` engages for the train
+                set): train columns transposed and normed once at fit
+                (clustered for B4), queries arrive padded to a
+                ``block_m`` multiple;
   * ``torch`` — the streaming plain math of ``core/kde.py``.
 
 Spans are ``torch.profiler.record_function`` ranges with ``repro``'s
@@ -209,19 +211,27 @@ class ServeEngine:
         with record_function("serve.bucket"):
             fn = self.cache.get_or_build(
                 ck, lambda: self._build_executable(prep, tier))
-            return fn(pad_queries(y, bucket))[:m]
+            return fn(pad_queries(y, bucket), m)[:m]
 
     @staticmethod
     def _build_executable(prep: PreparedEstimator, tier: str):
-        """Bucket callable: padded (bucket, d) queries → (bucket,) densities."""
+        """Bucket callable ``fn(yp, n_real)``: padded (bucket, d) queries
+        → (bucket,) densities.  ``n_real`` is the true query count; the
+        pruned path keeps the sentinel rows past it out of the row-tile
+        geometry, the other paths ignore it.  Pruning is decided once per
+        callable: "auto" below the size threshold is the dense path for
+        every request."""
         cfg = prep.config
         if cfg.backend == "flash":
             cols = prep.columns_for(tier)
-            return lambda yp: ops.flash_kde_prepared(
+            prune = cfg.prune if ops.resolve_prune(
+                cfg.prune, prep.n_true, prep.block_n) is not None else "off"
+            return lambda yp, n_real: ops.flash_kde_prepared(
                 yp, cols.xt, cols.nrm_x, prep.h, cols.xt_lo, precision=tier,
-                block_m=prep.block_m, block_n=prep.block_n) / prep.norm
-        return lambda yp: ref.kde_eval(prep.points, yp, prep.h,
-                                       block=cfg.block)
+                block_m=prep.block_m, block_n=prep.block_n, prune=prune,
+                columns=cols, n_real=n_real) / prep.norm
+        return lambda yp, n_real: ref.kde_eval(prep.points, yp, prep.h,
+                                               block=cfg.block)
 
 
 __all__ = ["ServeEngine"]

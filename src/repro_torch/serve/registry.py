@@ -5,7 +5,9 @@ set is O(n²·d) and depends only on the dataset, while each query batch is
 an O(n·m·d) pass against the fixed debiased points.  The registry runs the
 expensive pass once per dataset and caches a prepared estimator: debiased
 points, the padded transposed column layout per precision tier, and the
-normalization constant.
+normalization constant.  When the config's ``prune`` engages for the
+train set (``ops.resolve_prune``), every tier's columns are clustered, and
+all tiers share ONE spatial index, clustered once.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.core import bandwidth as bw
 from repro_torch.core.bandwidth import gaussian_norm_const
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, spatial
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.errors import UnknownKey
 
@@ -38,13 +40,26 @@ class PreparedEstimator:
     norm: float              # n_true · (2π)^{d/2} · h^d
     block_m: Optional[int] = None   # flash: kernel tiles
     block_n: Optional[int] = None
+    # the spatial index every tier's clustered columns share (pruning)
+    index: Optional[spatial.SpatialIndex] = None
     _columns: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def columns_for(self, precision: str) -> ops.TrainColumns:
-        """Prepared train tensors for one tier (built once, then cached)."""
+        """Prepared train tensors for one tier (built once, then cached).
+
+        Clustered only when pruning can engage for this set ("auto" below
+        the size threshold stays dense end to end); the first clustered
+        tier fits the index the others reuse, so their tile layouts agree.
+        """
         if precision not in self._columns:
-            self._columns[precision] = ops.prepare_train_columns(
-                self.points, block_n=self.block_n, precision=precision)
+            clustered = ops.resolve_prune(
+                self.config.prune, self.n_true, self.block_n) is not None
+            cols = ops.prepare_train_columns(
+                self.points, block_n=self.block_n, precision=precision,
+                clustered=clustered, index=self.index)
+            if cols.index is not None:
+                self.index = cols.index
+            self._columns[precision] = cols
         return self._columns[precision]
 
 
@@ -113,13 +128,16 @@ class EstimatorRegistry:
 
     def _debias(self, x: torch.Tensor, h: float, cfg: ServeConfig):
         """The O(n²·d) score pass — once per registered key, through the
-        core estimator (one backend dispatch for the whole port)."""
+        core estimator (one backend dispatch for the whole port).  Like
+        ``fit_precision``, the amortized fit never spends an epsilon
+        budget: exact (underflow-only) pruning at most."""
         from repro_torch.core.estimator import SDKDE, EstimatorConfig
 
         est_cfg = EstimatorConfig(
             backend=cfg.backend, block=cfg.block, block_m=cfg.block_m,
             block_n=cfg.block_n, score_h=cfg.score_h,
-            precision=cfg.fit_precision, prune="off", device=cfg.device,
+            precision=cfg.fit_precision,
+            prune="auto" if cfg.prune != "off" else "off", device=cfg.device,
         )
         return SDKDE(h, est_cfg).fit(x).x_sd
 

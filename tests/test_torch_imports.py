@@ -3,6 +3,7 @@ and no silent fallback from a kernel request to the CPU."""
 
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -37,7 +38,28 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 def test_port_has_cuda_sources_for_both_kernels():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.stem for p in csrc.glob("*.cu")} >= {"flash_score",
-                                                   "flash_kde"}
+                                                   "flash_kde",
+                                                   "flash_pruned"}
+
+
+def test_every_loaded_entry_point_is_defined_in_its_source():
+    """``_build.load(name, argtypes, entry)`` resolves ``<name>_<entry>``
+    and ``<name>_error`` in ``csrc/<name>.cu``: a misnamed C function
+    would only fail on the card."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    kernels = ROOT / "src" / "repro_torch" / "kernels"
+    loads = set()
+    for path in kernels.glob("*.py"):
+        for m in re.finditer(
+                r'_build\.load\(\s*"(\w+)"\s*,\s*\w+(?:\s*,\s*"(\w+)")?',
+                path.read_text()):
+            loads.add((m.group(1), m.group(2) or "launch"))
+    assert {name for name, _ in loads} == {"flash_score", "flash_kde",
+                                           "flash_pruned"}
+    for name, entry in loads:
+        src = (csrc / f"{name}.cu").read_text()
+        for fn in (f"{name}_{entry}", f"{name}_error"):
+            assert re.search(rf'extern "C" [\w\s*]+\b{fn}\(', src), fn
 
 
 @pytest.fixture
@@ -107,7 +129,6 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 @pytest.mark.parametrize("kwargs, roadmap", [
     ({"backend": "ring"}, "A13"),
-    ({"prune": "auto"}, "A4"),
     ({"block_m": "auto"}, "A6"),
     ({"block_n": "auto"}, "A6"),
 ])
@@ -116,6 +137,22 @@ def test_unported_knobs_raise_naming_the_roadmap(kwargs, roadmap):
         EstimatorConfig(device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match=roadmap):
         ServeConfig(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("prune", ["bogus", -1.0])
+def test_bad_prune_value_raises_in_both_configs(prune):
+    with pytest.raises(ValueError, match="prune"):
+        EstimatorConfig(device="cpu", prune=prune)
+    with pytest.raises(ValueError, match="prune"):
+        ServeConfig(device="cpu", prune=prune)
+
+
+def test_prune_defaults_to_auto_as_in_repro():
+    assert EstimatorConfig().prune == "auto"
+    assert ServeConfig().prune == "auto"
+    for ok in ("auto", "off", 0.0, 1e-7):
+        EstimatorConfig(device="cpu", prune=ok)
+        ServeConfig(device="cpu", prune=ok)
 
 
 def test_laplace_method_waits_for_its_kernels():
