@@ -9,13 +9,15 @@
 Run from the repository root.  Phases, each printing its lines:
 
   1. device       the card's name and power limit (nvidia-smi);
-  2. build        the three CUDA sources (B1 + B2 + B3/B4) compiled with
-                  nvcc for sm_90a, in parallel;
+  2. build        the four CUDA sources (B1, B2, B3/B4, B5/B6) compiled
+                  with nvcc for sm_90a, in parallel;
   3. kernels      each kernel against its plain PyTorch version on the
-                  card, every tier: B1 flash_score and B2 flash_kde, then
-                  B3 flash_score_pruned and B4 flash_kde_pruned (laplace
-                  off and on), at a ragged small shape whose visit lists
-                  hold a zero-count row tile, and at the main path's shape;
+                  card, every tier: B1 flash_score, B2 flash_kde, B5
+                  flash_laplace and B6 sq_moment, then B3
+                  flash_score_pruned and B4 flash_kde_pruned (laplace off
+                  and on), at a ragged small shape whose visit lists hold
+                  a zero-count row tile, and at the main path's shape;
+                  B1, B2, B5 and B6 also at d = 1 (Fig. 4's dimension);
   4. main path    32768 x 16 train and 16384 queries from the paper's 16-d
                   mixture.  The default path (prune="auto", which prunes
                   at this size): SDKDE(backend="flash").fit(x).evaluate(y)
@@ -30,14 +32,34 @@ Run from the repository root.  Phases, each printing its lines:
                   are skipped (occupancy <= 0.2), prune=0.0 equals dense,
                   and at prune=1e-7 every row's float64 error stays within
                   its certificate;
+  4c. Laplace    the Laplace-corrected path at the main path's size:
+                  LaplaceKDE(backend="flash").fit(x).evaluate(y) with
+                  prune="auto" (must launch B4 with laplace only), "off"
+                  (B5 only) and fused=False (B2 and B6 only), and a
+                  ServeEngine(method="laplace") answering the ragged
+                  requests and one query_many (B4 laplace only); fused,
+                  non-fused, dense, the "torch" backend and float64 on
+                  2048 queries are held against each other per row within
+                  bar·(the row's absolute mass);
   5. timings      CUDA-event medians of each kernel and its plain version
                   at the main path's shape (and B3/B4 on the clustered
                   set), beside the least time the card could take for the
                   work (for B3/B4: the visited pairs only); the host-side
                   prepass (k-means, layout, tile map, visit lists) timed
-                  apart from the kernels;
+                  apart from the kernels; the fusion comparison, fused
+                  (B5) against non-fused (B2 + B6), kernels alone and
+                  through ops, at the main shape and Fig. 4's four 1-D
+                  shapes;
   6. paper scale  (--paper-scale only) fit + evaluate at the paper's size,
-                  prune="auto" and prune="off".
+                  prune="auto" and prune="off";
+  7. oracle       MISE, MIAE and negative mass against the known mixture
+                  for KDE, SD-KDE, Laplace fused and non-fused, flash and
+                  "torch" backends: Fig. 3's 1-D setting at n = 8192 (grid)
+                  and Fig. 2's 16-d setting at n = 32768 (importance
+                  sampling), Silverman h, one seed.  Fused must agree with
+                  non-fused per point, and each flash estimator's MISE and
+                  MIAE with the "torch" backend's within the bound its
+                  per-point bar implies; the ordering is printed.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -72,6 +94,11 @@ SEED = 0
 CLU_K, CLU_SPREAD, CLU_H, CLU_EPS = 32, 20.0, 0.5, 1e-7
 CLU_MAX_OCCUPANCY = 0.2
 N_CLU_F64 = 4096
+# Fig. 4's fusion shapes: the 1-D mixture, h 0.3, n train, n/8 queries
+FIG4_NS, FIG4_H = (4096, 8192, 16384, 32768), 0.3
+# Fig. 3 (1-D grid) and Fig. 2 (16-d importance sampling) oracle errors
+ORACLE_N_1D, N_MC = 8192, 8192
+ORACLE_METHODS = ("kde", "sdkde", "laplace", "laplace_nonfused")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): FP32
 # outside the tensor cores, bf16 on the tensor cores, HBM3 bandwidth.
@@ -111,8 +138,7 @@ def tier_bar(precision: str, pts, h: float) -> float:
 def compare(got, want, rtol: float, what: str, *,
             atol_frac: float = 1e-6) -> dict:
     """allclose(rtol, atol = atol_frac·peak) on the card; raises on a
-    miss.  Sums that cross zero (Laplace) pass rtol=0 and atol_frac=bar:
-    their error is bounded against the peak."""
+    miss.  Sums that cross zero (Laplace) go through ``compare_mass``."""
     got = got.double()
     want = want.double()
     peak = float(want.abs().max())
@@ -130,6 +156,41 @@ def compare(got, want, rtol: float, what: str, *,
     if excess > 0:
         raise AssertionError(f"{what}: outside the bar by {excess:.3e}")
     return out
+
+
+def compare_mass(got, want, mass, bar: float, what: str) -> dict:
+    """Per row |got − want| <= bar·mass on the card; raises on a miss.
+
+    For sums that cross zero (Laplace) or weigh far points most (the
+    square moment): ``mass`` is the row's absolute mass, the sum of the
+    terms' magnitudes and of their sensitivity to an absolute error in
+    the scaled distance (``flash_laplace``'s plain versions return it)."""
+    got, want, mass = (t.double().reshape(-1) for t in (got, want, mass))
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (got - want).abs()
+    excess = float((diff - bar * mass).max())
+    ratio = float((diff / mass.clamp(min=1e-300)).max())
+    out = {"max_abs_err": float(diff.max()), "max_rel_err": ratio,
+           "rtol": bar, "atol": 0.0, "relative_to": "row absolute mass"}
+    log(f"  {what}: max |err|/mass {ratio:.3e} (bar {bar:.1e}), max abs "
+        f"err {out['max_abs_err']:.3e}")
+    if excess > 0:
+        raise AssertionError(f"{what}: outside bar·mass by {excess:.3e}")
+    return out
+
+
+def laplace_mass(kdemod, x, y, h: float, block: int = 2048):
+    """Each query's normalized Laplace absolute mass in float64,
+    Σ_i φ·(2 + d/2 + scaled) / (n (2π)^{d/2} h^d): the scale of the
+    Laplace density's rounding error (``kernels/flash_laplace.py``)."""
+    n, d = x.shape
+    y64 = y.double()
+    out = torch.zeros(y.shape[0], dtype=torch.float64, device=y.device)
+    for j0 in range(0, n, block):
+        s = kdemod.sqdist(y64, x[j0:j0 + block].double()) / (2 * h * h)
+        out += (torch.exp(-s) * (2 + d / 2 + s)).sum(1)
+    return out / (n * (2 * math.pi) ** (d / 2) * h**d)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -166,11 +227,12 @@ def nbytes(*tensors) -> int:
 def bound_ms(kind: str, tier: str, pairs: int, d: int, moved: int) -> tuple:
     """(ms, "bytes" | "operations"): the larger of the bytes the call must
     move over the HBM rate and the operations on ``pairs`` (row, column)
-    pairs over their peak rates.  ``kind`` is "score" (B1/B3) or "kde"
-    (B2/B4)."""
+    pairs over their peak rates.  ``kind`` is "score" (B1/B3), "kde"
+    (B2/B4), "laplace" (B5, B4's flag: two more per pair for the factor)
+    or "sq_moment" (B6: one more, the weight's multiply)."""
     gemm = 2 * d + (2 * (d + 1) if kind == "score" else 0)
     gemm *= 4 if tier == "bf16x2" else 1
-    elementwise = 3 if kind == "score" else 4
+    elementwise = {"score": 3, "kde": 4, "laplace": 6, "sq_moment": 5}[kind]
     if tier == "f32":
         ops_s = pairs * (gemm + elementwise) / PEAK_F32
     else:
@@ -206,8 +268,9 @@ def phase_device() -> tuple:
 
 
 _PTXAS_NAME = re.compile(
-    r"(kde|score)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E(?:Lb([01])E)?"
-    r"N\w*?(AllTiles|VisitList)")
+    r"(kde|score)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E"
+    r"(?:LN\w*?WeightE(\d)E)?N\w*?(AllTiles|VisitList)")
+_WEIGHTS = {None: "", "0": "", "1": ",laplace", "2": ",sq_moment"}
 
 
 def ptxas_summary(text: str) -> list:
@@ -229,7 +292,7 @@ def ptxas_summary(text: str) -> list:
                 f"{t.group(1)}<"
                 f"{'f32' if t.group(2) == 'f' else 'bf16'}"
                 f"{'x2' if t.group(3) == '1' else ''},{t.group(4)}"
-                f"{',laplace' if t.group(5) == '1' else ''}"
+                f"{_WEIGHTS[t.group(5)]}"
                 f"{',visits' if t.group(6) == 'VisitList' else ''}>")
             out.append((key, int(m.group(1)), spill))
             fn = None
@@ -260,9 +323,11 @@ def phase_build(_build) -> None:
 
 
 def kernel_operands(ops, x, y, precision, block_m, block_n, h):
-    """Operands of B1 and B2 at one tier, as the ops wrappers make them,
-    plus the kernel and plain callables."""
+    """Operands of B1, B2, B5 and B6 at one tier, as the ops wrappers
+    make them, plus the kernel and plain callables (and for B5/B6 the
+    rows' absolute mass)."""
     from repro_torch.kernels import flash_kde as fk
+    from repro_torch.kernels import flash_laplace as fl
     from repro_torch.kernels import flash_score as fs
 
     inv = ops._inv2h2(h, x.device)
@@ -274,7 +339,8 @@ def kernel_operands(ops, x, y, precision, block_m, block_n, h):
                                               precision)
     k_args = (y_ops[0], nrm_y, xt2[0], nrm_x, inv, y_ops[1], xt2[1])
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
-    return {
+    bk = dict(block_m=block_m, block_n=block_n)
+    out = {
         "flash_score": dict(
             kind="score",
             kernel=lambda: fs.flash_score_cuda(*s_args, block_m=block_m,
@@ -292,6 +358,18 @@ def kernel_operands(ops, x, y, precision, block_m, block_n, h):
             moved=nbytes(*k_args) + m * 4,
             pts=torch.cat([xrec[:n], y.float()])),
     }
+    for name, cuda, plain in (
+            ("flash_laplace", fl.flash_laplace_cuda, fl.flash_laplace_plain),
+            ("sq_moment", fl.sq_moment_cuda, fl.sq_moment_plain)):
+        out[name] = dict(
+            kind=name.removeprefix("flash_"),
+            kernel=lambda f=cuda: f(*k_args, **bk),
+            plain=lambda f=plain: f(*k_args, block_n=512),
+            mass=lambda f=plain: f(*k_args, block_n=512, mass=True)[1],
+            real=slice(0, m), pairs=m * n,
+            moved=nbytes(*k_args) + m * 4,
+            pts=torch.cat([xrec[:n], y.float()]))
+    return out
 
 
 def prepass(ops, sp, x, y, precision, block_m, block_n, h, index, *,
@@ -342,6 +420,7 @@ def pruned_operands(ops, sp, x, y, precision, block_m, block_n, h, index,
                     **kw):
     """B3 and B4 (laplace off and on) at one tier, on the prepass's
     operands and visit lists, with the kernel and plain callables."""
+    from repro_torch.kernels import flash_laplace as fl
     from repro_torch.kernels import flash_pruned as fp
 
     pre = prepass(ops, sp, x, y, precision, block_m, block_n, h, index, **kw)
@@ -375,6 +454,12 @@ def pruned_operands(ops, sp, x, y, precision, block_m, block_n, h, index,
             occupancy=pre["kde_vl"].occupancy,
             max_visits=pre["kde_vl"].max_visits,
             pts=torch.cat([xreal, pre["yrec"][pre["kde_real"]]]))
+        if laplace:
+            # the rows' mass over every column tile bounds it over the
+            # visited ones (at epsilon 0 the skipped tiles add exactly 0)
+            out[name].update(kind="laplace", mass=lambda: (
+                fl.flash_laplace_plain(*k_args[2:], block_n=512,
+                                       mass=True)[1]))
     return out
 
 
@@ -384,12 +469,12 @@ def check_kernel(name, c, precision, h, label) -> dict:
     sync()
     rtol = tier_bar(precision, c["pts"], h)
     what = f"{name} {precision} {label}"
-    if c.get("laplace"):
-        return compare(got, want, 0.0, what, atol_frac=rtol)
+    if "mass" in c:
+        return compare_mass(got, want, c["mass"]()[c["real"]], rtol, what)
     return compare(got, want, rtol, what)
 
 
-def phase_kernels(ops, sp, mixture, gen, block_m, block_n) -> dict:
+def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
     log("== phase 3: kernels against their plain versions on the card")
     results = {}
     cases = [("ragged", SMALL), ("main", (N_TRAIN, N_TRAIN, D))]
@@ -421,40 +506,68 @@ def phase_kernels(ops, sp, mixture, gen, block_m, block_n) -> dict:
                 if label == "main":
                     results.setdefault(name, {})[precision] = res
             del opnds, pruned
+    # d = 1, Fig. 4's largest shape: the dense kernels' DMAX = 4 build,
+    # with coordinates past d zero in shared memory
+    n, m = FIG4_NS[-1], FIG4_NS[-1] // 8
+    x, y = mix1.sample(n, gen), mix1.sample(m, gen)
+    for precision in TIERS:
+        opnds = kernel_operands(ops, x, y, precision, block_m, block_n,
+                                FIG4_H)
+        for name, c in opnds.items():
+            check_kernel(name, c, precision, FIG4_H, f"d=1 n={n} m={m}")
+        del opnds
     return results
 
 
-def reset_counts(fs, fk, fp) -> None:
+def reset_counts(fs, fk, fp, fl) -> None:
     fs.launches = 0
     fk.launches = 0
+    fl.laplace_launches = 0
+    fl.sq_moment_launches = 0
     fp.score_counts.reset()
     fp.kde_counts.reset()
+    fp.laplace_counts.reset()
 
 
-def read_counts(fs, fk, fp) -> dict:
+def read_counts(fs, fk, fp, fl) -> dict:
     return {"flash_score": fs.launches, "flash_kde": fk.launches,
             "flash_score_pruned": fp.score_counts.launches,
-            "flash_kde_pruned": fp.kde_counts.launches}
+            "flash_kde_pruned": fp.kde_counts.launches,
+            "flash_laplace": fl.laplace_launches,
+            "sq_moment": fl.sq_moment_launches,
+            "flash_kde_pruned laplace": fp.laplace_counts.launches}
 
 
-def drive(est_mod, serve, x, y, prune, h=None) -> dict:
-    """The main path once: SDKDE fit + two evaluates, then a ServeEngine
-    registering x and answering two rounds of ragged requests and one
-    query_many.  Returns densities, answers and host times."""
+def check_launches(counts: dict, ran, what: str) -> None:
+    """Every kernel in ``ran`` launched, and no other."""
+    idle = [k for k in counts if k not in ran]
+    if min(counts[k] for k in ran) < 1 or max(counts[k] for k in idle):
+        raise AssertionError(f"{what} must launch {sorted(ran)} and no "
+                             f"other kernel: {counts}")
+
+
+def drive_estimator(est, x, y) -> dict:
+    """fit(x) and two evaluate(y) (the first call may also build the
+    clustered columns); densities and host times."""
     out = {}
-    est = est_mod.SDKDE(h, config=est_mod.EstimatorConfig(
-        backend="flash", prune=prune))
     _, out["fit_ms"] = host_ms(lambda: est.fit(x))
     evals = []
-    for _ in range(2):          # the first call also builds the columns
+    for _ in range(2):
         dens, ms = host_ms(lambda: est.evaluate(y))
         evals.append(ms)
     out.update(est=est, dens=dens, evaluate_first_ms=evals[0],
                evaluate_ms=evals[1])
+    return out
+
+
+def drive_engine(serve, x, y, method, prune, h=None) -> dict:
+    """A ServeEngine registering x and answering two rounds of ragged
+    requests and one query_many; answers, latencies and host times."""
+    out = {}
     eng = serve.ServeEngine(serve.ServeConfig(backend="flash",
-                                              method="sdkde", prune=prune))
-    _, out["register_ms"] = host_ms(lambda: eng.register("bench", x,
-                                                         h=est.h))
+                                              method=method, prune=prune))
+    _, out["register_ms"] = host_ms(lambda: eng.register("bench", x, h=h))
+    out["h"] = eng.registry.get("bench").h
     answers, latencies, served = [], [], []
     off = 0
     for rnd in range(2):        # round 0 builds bucket callables
@@ -482,18 +595,26 @@ def drive(est_mod, serve, x, y, prune, h=None) -> dict:
     return out
 
 
-def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs,
-                    fp) -> dict:
+def drive(est_mod, serve, x, y, prune, h=None) -> dict:
+    """The main path once: SDKDE fit + two evaluates, then the engine."""
+    out = drive_estimator(est_mod.SDKDE(h, config=est_mod.EstimatorConfig(
+        backend="flash", prune=prune)), x, y)
+    out.update(drive_engine(serve, x, y, "sdkde", prune, out["est"].h))
+    return out
+
+
+def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
+                    fl) -> dict:
     log("== phase 4: main path")
     x = mixture.sample(N_TRAIN, gen)
     y = mixture.sample(N_QUERY, gen)
     sync()
     runs, launches = {}, {}
     for prune in ("auto", "off"):
-        reset_counts(fs, fk, fp)
+        reset_counts(fs, fk, fp, fl)
         runs[prune] = r = drive(est_mod, serve, x, y, prune)
         sync()
-        launches[prune] = counts = read_counts(fs, fk, fp)
+        launches[prune] = counts = read_counts(fs, fk, fp, fl)
         log(f"  prune={prune!r}: SDKDE fit {N_TRAIN}x{D} "
             f"{r['fit_ms']:.2f} ms (h={r['est'].h:.6f}); evaluate "
             f"{N_QUERY} queries: first {r['evaluate_first_ms']:.2f} ms, "
@@ -513,24 +634,20 @@ def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs,
                 f"{fp.kde_counts.occupancy:.4f} "
                 f"({fp.kde_counts.tiles_visited}/"
                 f"{fp.kde_counts.tiles_total} tiles)")
-            ran, idle = ("flash_score_pruned", "flash_kde_pruned"), (
-                "flash_score", "flash_kde")
+            ran = ("flash_score_pruned", "flash_kde_pruned")
         else:
-            ran, idle = ("flash_score", "flash_kde"), (
-                "flash_score_pruned", "flash_kde_pruned")
-        if min(counts[k] for k in ran) < 1 or max(counts[k] for k in idle):
-            raise AssertionError(f"prune={prune!r} must launch {ran} and "
-                                 f"not {idle}: {counts}")
+            ran = ("flash_score", "flash_kde")
+        check_launches(counts, ran, f"SDKDE prune={prune!r}")
 
     # the "torch" backend on the card is the reference; the flash paths
     # are held against it and against float64 on the first N_F64 queries
     auto, off = runs["auto"], runs["off"]
     h = auto["est"].h
-    reset_counts(fs, fk, fp)
+    reset_counts(fs, fk, fp, fl)
     ref_dens = est_mod.SDKDE(h, est_mod.EstimatorConfig(
         backend="torch")).fit(x).evaluate(y)
     sync()
-    if any(read_counts(fs, fk, fp).values()):
+    if any(read_counts(fs, fk, fp, fl).values()):
         raise AssertionError("the torch backend launched a flash kernel")
     bar = TIER_BAR["f32"]
     compare(auto["dens"], off["dens"], bar, "SDKDE pruned (auto) vs dense "
@@ -569,6 +686,111 @@ def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs,
         "auto": {k: auto[k] for k in keep},
         "off": {k: off[k] for k in keep},
         "sdkde_mean_rel_err": sd_err, "kde_mean_rel_err": kde_err,
+    }
+
+
+# (label, prune, fused) of the Laplace runs, and the kernels each must
+# launch (and no other): "auto" prunes at this size
+LAPLACE_RUNS = {"auto": ("auto", True, ("flash_kde_pruned laplace",)),
+                "off": ("off", True, ("flash_laplace",)),
+                "nonfused": ("auto", False, ("flash_kde", "sq_moment"))}
+
+
+def phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
+                       fl) -> dict:
+    log(f"== phase 4c: Laplace path, {N_TRAIN} x {D} train, {N_QUERY} "
+        "queries")
+    x = mixture.sample(N_TRAIN, gen)
+    y = mixture.sample(N_QUERY, gen)
+    sync()
+    runs, launches = {}, {}
+    for label, (prune, fused, ran) in LAPLACE_RUNS.items():
+        reset_counts(fs, fk, fp, fl)
+        runs[label] = r = drive_estimator(est_mod.LaplaceKDE(
+            config=est_mod.EstimatorConfig(backend="flash", prune=prune),
+            fused=fused), x, y)
+        sync()
+        launches[label] = counts = read_counts(fs, fk, fp, fl)
+        log(f"  LaplaceKDE {label} (prune={prune!r}, fused={fused}): fit "
+            f"{r['fit_ms']:.2f} ms (h={r['est'].h:.6f}); evaluate "
+            f"{N_QUERY} queries: first {r['evaluate_first_ms']:.2f} ms, "
+            f"second {r['evaluate_ms']:.2f} ms; launches "
+            f"{json.dumps(counts)}")
+        check_launches(counts, ran, f"LaplaceKDE {label}")
+        if label == "auto":
+            occupancy = fp.laplace_counts.occupancy
+            log(f"  occupancy of the pruned Laplace launches: "
+                f"{occupancy:.4f} ({fp.laplace_counts.tiles_visited}/"
+                f"{fp.laplace_counts.tiles_total} tiles)")
+    h = runs["auto"]["est"].h
+
+    reset_counts(fs, fk, fp, fl)
+    eng = drive_engine(serve, x, y, "laplace", "auto")
+    sync()
+    launches["serve"] = counts = read_counts(fs, fk, fp, fl)
+    log(f"  ServeEngine(method='laplace'): register {eng['register_ms']:.2f}"
+        f" ms (h={eng['h']:.6f}); served (warm round) p50 "
+        f"{eng['p50_ms']:.3f} ms, p99 {eng['p99_ms']:.3f} ms, "
+        f"{eng['qps']:.0f} query rows/s; query_many "
+        f"{eng['query_many_ms']:.3f} ms for {sum(MANY_SIZES)} rows; "
+        f"launches {json.dumps(counts)}")
+    check_launches(counts, ("flash_kde_pruned laplace",),
+                   "ServeEngine(method='laplace')")
+    if eng["h"] != h:
+        raise AssertionError(f"the engine's Silverman h {eng['h']} is not "
+                             f"the estimator's {h}")
+    served = sum(v.shape[0] for _, v in eng["answers"])
+    if served != 2 * sum(SERVE_SIZES) + sum(MANY_SIZES):
+        raise AssertionError(f"the engine answered {served} rows")
+
+    # the "torch" backend on the card is the reference; every pair is
+    # held per row within bar·(absolute mass), float64 on N_F64 queries
+    reset_counts(fs, fk, fp, fl)
+    ref_dens = est_mod.LaplaceKDE(h, est_mod.EstimatorConfig(
+        backend="torch")).fit(x).evaluate(y)
+    sync()
+    if any(read_counts(fs, fk, fp, fl).values()):
+        raise AssertionError("the torch backend launched a flash kernel")
+    mass = laplace_mass(kdemod, x, y, h)
+    bar = f32_bar(torch.cat([x, y]), 1 / (2 * h * h))
+    auto, off, nonf = (runs[k]["dens"] for k in ("auto", "off", "nonfused"))
+    errors = {
+        "fused_vs_nonfused": compare_mass(
+            auto, nonf, mass, bar, "Laplace fused (pruned) vs non-fused"),
+        "pruned_vs_dense": compare_mass(
+            auto, off, mass, bar, "Laplace pruned (auto) vs dense (off)"),
+        "dense_vs_nonfused": compare_mass(
+            off, nonf, mass, bar, "Laplace dense fused vs non-fused"),
+        "fused_vs_torch": compare_mass(
+            auto, ref_dens, mass, bar, "Laplace fused vs torch backend"),
+        "nonfused_vs_torch": compare_mass(
+            nonf, ref_dens, mass, bar, "Laplace non-fused vs torch backend"),
+    }
+    got = torch.cat([v for _, v in eng["answers"]])
+    sl = torch.cat([torch.arange(s.start, s.stop, device=y.device)
+                    for s, _ in eng["answers"]])
+    errors["serve_vs_torch"] = compare_mass(
+        got, ref_dens[sl], mass[sl], bar,
+        "ServeEngine(method='laplace') answers vs torch backend")
+    f64 = kdemod.laplace_kde_eval(x.double(), y[:N_F64].double(), h)
+    m64 = mass[:N_F64]
+    for name, dens in (("auto", auto), ("off", off), ("nonfused", nonf),
+                       ("torch", ref_dens)):
+        errors[f"{name}_vs_f64"] = compare_mass(
+            dens[:N_F64], f64, m64, bar,
+            f"Laplace {name} vs float64 ({N_F64} q)")
+    neg = float((auto < 0).double().mean())
+    log(f"  share of queries with a negative Laplace density "
+        f"(information): {neg:.4f}")
+    keep = ("fit_ms", "evaluate_first_ms", "evaluate_ms")
+    return {
+        "launches": launches, "bar": bar, "errors": errors,
+        "negative_share": neg, "occupancy": occupancy,
+        "ms": {**{label: {k: runs[label][k] for k in keep}
+                  for label in runs},
+               "serve": {k: eng[k] for k in ("register_ms", "p50_ms",
+                                             "p99_ms", "qps",
+                                             "query_many_ms")}},
     }
 
 
@@ -672,8 +894,6 @@ def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
         opnds.update(pruned_operands(ops, sp, x, x, precision, block_m,
                                      block_n, h, index, times=pre_t))
         for name, c in opnds.items():
-            if c.get("laplace"):
-                continue        # off the main path (ROADMAP A5)
             entries.setdefault(name, {})[precision] = timed_entry(
                 name, c, precision, h, errors)
         del opnds
@@ -688,7 +908,8 @@ def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
         pruned = pruned_operands(
             ops, sp, cx, cy, precision, block_m, block_n, CLU_H, cindex,
             times=prep_times["clustered"] if precision == "f32" else None)
-        for name in ("flash_score_pruned", "flash_kde_pruned"):
+        for name in ("flash_score_pruned", "flash_kde_pruned",
+                     "flash_kde_pruned laplace"):
             c = pruned[name]
             check_kernel(name, c, precision, CLU_H, "clustered")
             entries[name].setdefault("clustered", {})[precision] = \
@@ -700,7 +921,166 @@ def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
     return {"entries": entries, "prepass_ms": prep_times}
 
 
-def phase_paper_scale(mixture, gen, est_mod, fs, fk, fp) -> dict:
+def fusion_case(ops, fk, fl, kdemod, x, y, h, block_m, block_n) -> dict:
+    """Fused (B5) against non-fused (B2 + B6) on one shape: the kernels
+    alone on the same prepared operands, and the ops wrappers end to end
+    (padding, norms, transposes, normalization; fused with prune="off",
+    as the non-fused baseline is always dense).  CUDA-event medians in
+    the order fused, non-fused, non-fused, fused; each side's two
+    medians are averaged."""
+    y_ops, xt_ops, nrm_y, nrm_x = ops._prep_eval(x, y, block_m, block_n,
+                                                 "f32")
+    args = (y_ops[0], nrm_y, xt_ops[0], nrm_x, ops._inv2h2(h, x.device))
+    bk = dict(block_m=block_m, block_n=block_n)
+    pairs = {
+        "kernels": (lambda: fl.flash_laplace_cuda(*args, **bk),
+                    lambda: (fk.flash_kde_cuda(*args, **bk),
+                             fl.sq_moment_cuda(*args, **bk))),
+        "ops": (lambda: ops.flash_laplace_kde(x, y, h, prune="off", **bk),
+                lambda: ops.laplace_kde_nonfused(x, y, h, **bk)),
+    }
+    out = {}
+    for level, (fused, nonfused) in pairs.items():
+        f1, n1, n2, f2 = (cuda_ms(fn, 20)
+                          for fn in (fused, nonfused, nonfused, fused))
+        out[level] = {"fused_ms": (f1 + f2) / 2,
+                      "nonfused_ms": (n1 + n2) / 2,
+                      "fused_runs": [f1, f2], "nonfused_runs": [n1, n2]}
+        out[level]["speedup"] = (out[level]["nonfused_ms"]
+                                 / out[level]["fused_ms"])
+    out["blocks"] = -(-y.shape[0] // block_m)
+    bar = f32_bar(torch.cat([x, y]), 1 / (2 * h * h))
+    compare_mass(ops.flash_laplace_kde(x, y, h, prune="off", **bk),
+                 ops.laplace_kde_nonfused(x, y, h, **bk),
+                 laplace_mass(kdemod, x, y, h), bar,
+                 f"fusion n={x.shape[0]} m={y.shape[0]} d={x.shape[1]}: "
+                 "fused vs non-fused")
+    return out
+
+
+def phase_fusion(ops, fk, fl, kdemod, mixture, mix1, gen, block_m,
+                 block_n) -> dict:
+    log("== phase 5b: fusion, fused (B5) vs non-fused (B2 + B6), f32")
+    cases = {"main": (mixture.sample(N_TRAIN, gen),
+                      mixture.sample(N_QUERY, gen), 0.78)}
+    for n in FIG4_NS:
+        cases[f"fig4 n={n}"] = (mix1.sample(n, gen), mix1.sample(n // 8, gen),
+                                FIG4_H)
+    out = {}
+    for label, (x, y, h) in cases.items():
+        r = out[label] = fusion_case(ops, fk, fl, kdemod, x, y, h, block_m,
+                                     block_n)
+        r.update(n=x.shape[0], m=y.shape[0], d=x.shape[1], h=h)
+        k, o = r["kernels"], r["ops"]
+        log(f"  {label} (n={r['n']}, m={r['m']}, d={r['d']}, {r['blocks']} "
+            f"blocks of {block_m} rows): kernels fused {k['fused_ms']:.4f} "
+            f"ms vs non-fused {k['nonfused_ms']:.4f} ms "
+            f"({k['speedup']:.2f}x); ops fused {o['fused_ms']:.4f} ms vs "
+            f"non-fused {o['nonfused_ms']:.4f} ms ({o['speedup']:.2f}x)")
+    return out
+
+
+def oracle_allowance(torch_vals, mass, bar):
+    """Per-point allowance |flash − torch| may reach: bar·mass for the
+    Laplace densities, bar·|p̂| for the positive KDE and SD-KDE sums.  No
+    absolute floor: the integrals weigh a point by 1/q, which is huge in
+    the tails, so a floor would integrate to nothing meaningful there;
+    bar·|p̂| integrates to bar·∫|p̂|."""
+    if mass is not None:
+        return bar * mass
+    return bar * torch_vals.double().abs()
+
+
+def phase_oracle(est_mod, bw, metrics, mixtures, kdemod, dev) -> dict:
+    log("== phase 7: oracle errors (MISE, MIAE, negative mass) against "
+        "the known mixture, Silverman h, seed 0")
+    settings = {"fig3 1-d": (mixtures.benchmark_mixture_1d(), ORACLE_N_1D),
+                "fig2 16-d": (mixtures.benchmark_mixture_16d(), N_TRAIN)}
+    out = {}
+    for label, (mix, n) in settings.items():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        x = mix.sample(n, gen)
+        h = float(bw.silverman_bandwidth(x))
+        if mix.dim == 1:
+            span = float(mix.stds.max()) * 6.0
+            lo = float(mix.means.min()) - span
+            hi = float(mix.means.max()) + span
+            z = torch.linspace(lo, hi, 2048, dtype=torch.float32,
+                               device=dev)[:, None]
+            weight = torch.full((2048,), (hi - lo) / 2047,
+                                dtype=torch.float64, device=dev)
+
+            def errors(fn):
+                return metrics.oracle_errors(fn, mix, device="cuda")
+        else:
+            z = metrics.widened_proposal(mix).sample(N_MC, gen)
+            weight = 1.0 / metrics.widened_proposal(mix).pdf(
+                z.double()).clamp(min=metrics.Q_FLOOR) / N_MC
+
+            def errors(fn):
+                return metrics.oracle_errors_at(fn, mix, z)
+        p = mix.pdf(z.double())
+        mass = laplace_mass(kdemod, x, z, h)
+        bar = f32_bar(torch.cat([x, z]), 1 / (2 * h * h))
+        res, vals = {}, {}
+        for backend in ("flash", "torch"):
+            cfg = est_mod.EstimatorConfig(backend=backend)
+            ests = {"kde": est_mod.KDE(h, cfg),
+                    "sdkde": est_mod.SDKDE(h, cfg),
+                    "laplace": est_mod.LaplaceKDE(h, cfg),
+                    "laplace_nonfused": est_mod.LaplaceKDE(h, cfg,
+                                                           fused=False)}
+            for name, est in ests.items():
+                est.fit(x)
+                v = vals[(name, backend)] = est.evaluate(z)
+                e = errors(lambda pts, v=v: v)
+                res[(name, backend)] = e
+        out[label] = {"n": n, "h": h, "points": z.shape[0], "bar": bar}
+        log(f"  {label}: n={n}, h={h:.6f}, "
+            + ("grid of 2048 points" if mix.dim == 1
+               else f"{N_MC} importance samples (widened proposal)"))
+        for name in ORACLE_METHODS:
+            f, t = res[(name, "flash")], res[(name, "torch")]
+            fv, tv = vals[(name, "flash")], vals[(name, "torch")]
+            lap = name.startswith("laplace")
+            allow = oracle_allowance(tv, mass if lap else None, bar)
+            diff = (fv.double() - tv.double()).abs()
+            ratio = float((diff / allow.clamp(min=1e-300)).max())
+            if float((diff - allow).max()) > 0:
+                raise AssertionError(f"{label} {name}: flash vs torch "
+                                     "densities outside the per-point bar "
+                                     f"(worst |diff|/allowance {ratio})")
+            err = (tv.double() - p).abs()
+            mise_tol = float(((2 * err * allow + allow**2) * weight).sum())
+            miae_tol = float((allow * weight).sum())
+            if (abs(f.mise - t.mise) > mise_tol
+                    or abs(f.miae - t.miae) > miae_tol):
+                raise AssertionError(
+                    f"{label} {name}: flash MISE/MIAE {f.mise}/{f.miae} vs "
+                    f"torch {t.mise}/{t.miae} beyond {mise_tol}/{miae_tol}")
+            out[label][name] = {
+                "mise": f.mise, "miae": f.miae, "neg_mass": f.neg_mass,
+                "torch_mise": t.mise, "torch_miae": t.miae,
+                "torch_neg_mass": t.neg_mass, "mise_tol": mise_tol,
+                "miae_tol": miae_tol, "worst_point_ratio": ratio}
+            log(f"    {name:17s} flash MISE {f.mise:.6e} MIAE {f.miae:.6e} "
+                f"neg mass {f.neg_mass:.6e} | torch MISE {t.mise:.6e} "
+                f"(|diff| {abs(f.mise - t.mise):.2e} <= {mise_tol:.2e}) "
+                f"MIAE {t.miae:.6e} (|diff| {abs(f.miae - t.miae):.2e} <= "
+                f"{miae_tol:.2e}); worst point |diff|/allowance "
+                f"{ratio:.3f}")
+        compare_mass(vals[("laplace", "flash")],
+                     vals[("laplace_nonfused", "flash")], mass, bar,
+                     f"{label}: Laplace fused vs non-fused at the points")
+        order = sorted(ORACLE_METHODS, key=lambda k: out[label][k]["mise"])
+        out[label]["mise_order"] = order
+        log(f"    MISE order, lowest first (information): "
+            f"{' < '.join(order)}")
+    return out
+
+
+def phase_paper_scale(mixture, gen, est_mod, fs, fk, fp, fl) -> dict:
     n, m = 1_048_576, 131_072
     log(f"== phase 6: paper scale, {n} x {D} train, {m} queries")
     x = mixture.sample(n, gen)
@@ -709,7 +1089,7 @@ def phase_paper_scale(mixture, gen, est_mod, fs, fk, fp) -> dict:
     out, dens = {}, {}
     true = mixture.pdf(y.double()).float()
     for prune in ("auto", "off"):
-        reset_counts(fs, fk, fp)
+        reset_counts(fs, fk, fp, fl)
         est = est_mod.SDKDE(config=est_mod.EstimatorConfig(
             backend="flash", prune=prune))
         _, fit_ms = host_ms(lambda: est.fit(x))
@@ -720,7 +1100,7 @@ def phase_paper_scale(mixture, gen, est_mod, fs, fk, fp) -> dict:
         err = float(((d - true).abs() / true).mean())
         out[prune] = {"fit_s": fit_ms / 1e3, "evaluate_s": eval_ms / 1e3,
                       "total_s": (fit_ms + eval_ms) / 1e3,
-                      "launches": read_counts(fs, fk, fp),
+                      "launches": read_counts(fs, fk, fp, fl),
                       "mean_rel_err_vs_pdf": err}
         occ = (f"; occupancy B3 {fp.score_counts.occupancy:.4f}, B4 "
                f"{fp.kde_counts.occupancy:.4f}" if prune == "auto" else "")
@@ -744,6 +1124,10 @@ SOURCES = {
                            "src/repro/kernels/flash_pruned.py:174"),
     "flash_kde_pruned": ("src/repro_torch/kernels/csrc/flash_pruned.cu",
                          "src/repro/kernels/flash_pruned.py:81"),
+    "flash_laplace": ("src/repro_torch/kernels/csrc/flash_laplace.cu",
+                      "src/repro/kernels/flash_laplace.py:127"),
+    "sq_moment": ("src/repro_torch/kernels/csrc/flash_laplace.cu",
+                  "src/repro/kernels/flash_laplace.py:138"),
 }
 
 
@@ -760,11 +1144,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import device as device_mod
     from repro_torch import serve
+    from repro_torch.core import bandwidth as bw
     from repro_torch.core import estimator as est_mod
     from repro_torch.core import kde as kdemod
-    from repro_torch.core import mixtures
+    from repro_torch.core import metrics, mixtures
     from repro_torch.kernels import _build, ops, spatial
     from repro_torch.kernels import flash_kde as fk
+    from repro_torch.kernels import flash_laplace as fl
     from repro_torch.kernels import flash_pruned as fp
     from repro_torch.kernels import flash_score as fs
 
@@ -772,40 +1158,66 @@ def main(argv=None) -> int:
     name, _ = phase_device()
     phase_build(_build)
     mixture = mixtures.benchmark_mixture_16d()
+    mix1 = mixtures.benchmark_mixture_1d()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     cfg = est_mod.EstimatorConfig()
-    errors = phase_kernels(ops, spatial, mixture, gen, cfg.block_m,
+    errors = phase_kernels(ops, spatial, mixture, mix1, gen, cfg.block_m,
                            cfg.block_n)
     main_path = phase_main_path(mixture, gen, est_mod, kdemod, serve, fk,
-                                fs, fp)
+                                fs, fp, fl)
     clustered = phase_clustered(ops, spatial, kdemod, fp, dev)
+    laplace = phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk,
+                                 fs, fp, fl)
     timings = phase_timings(ops, spatial, mixture, gen, cfg.block_m,
                             cfg.block_n, errors, clustered)
+    fusion = phase_fusion(ops, fk, fl, kdemod, mixture, mix1, gen,
+                          cfg.block_m, cfg.block_n)
     paper = None
     if args.paper_scale:
-        paper = phase_paper_scale(mixture, gen, est_mod, fs, fk, fp)
+        paper = phase_paper_scale(mixture, gen, est_mod, fs, fk, fp, fl)
+    oracle = phase_oracle(est_mod, bw, metrics, mixtures, kdemod, dev)
 
+    # launches: each kernel's count from the path that runs it, with its
+    # counts set to 0 just before and read just after (phases 4 and 4c)
+    lap = laplace["launches"]
+    launches = {**{k: main_path["launches"][k] for k in SOURCES
+                   if k in main_path["launches"]},
+                "flash_laplace": lap["off"]["flash_laplace"],
+                "sq_moment": lap["nonfused"]["sq_moment"]}
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
         tiers = timings["entries"][kname]
         main_tier = tiers["f32"]
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": main_path["launches"][kname],
+            "launches": launches[kname],
             "max_abs_err": main_tier["max_abs_err"],
             "ms": main_tier["ms"], "plain_ms": main_tier["plain_ms"],
             "bound_ms": main_tier["bound_ms"],
             "bound_by": main_tier["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes these sums",
             "tier": "f32", "shape": {"rows": N_TRAIN, "cols": N_TRAIN,
                                      "d": D},
             "tiers": tiers,
-        })
+        }
+        if kname == "flash_kde":
+            entry["launches_laplace_path"] = lap["nonfused"]["flash_kde"]
+        if kname == "flash_kde_pruned":
+            # B4's laplace flag: the fused Laplace pass when pruning
+            entry["laplace"] = {
+                "launches": lap["auto"]["flash_kde_pruned laplace"],
+                "launches_serve": lap["serve"]["flash_kde_pruned laplace"],
+                "tiers": timings["entries"]["flash_kde_pruned laplace"]}
+        kernels.append(entry)
     summary = {k: v for k, v in main_path.items()}
     summary["clustered_occupancy"] = clustered["occupancy"]
     summary["clustered_occupancy_by_seed"] = clustered["occupancy_by_seed"]
     summary["prepass_ms"] = timings["prepass_ms"]
+    summary["laplace"] = laplace
+    summary["fusion"] = fusion
+    summary["oracle"] = oracle
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

@@ -7,9 +7,13 @@ nothing of JAX:
   * ``sdkde_from_state`` — a fitted ``repro.core.estimator.SDKDE``
     (``x_train``, ``x_sd``, ``h``, ``score_h``) becomes a fitted port
     ``SDKDE`` without running the score pass again;
+  * ``laplace_from_state`` — a fitted ``repro.core.estimator.LaplaceKDE``
+    (``x_train``, ``h``, ``fused``) becomes a fitted port ``LaplaceKDE``;
   * ``prepared_from_state`` — a ``repro.serve.registry.PreparedEstimator``
     (``points``, ``h``, ``n_true``, ``d``, ``norm``, block sizes) becomes
-    the port's ``PreparedEstimator``, ready to be adopted by a registry;
+    the port's ``PreparedEstimator``, ready to be adopted by a registry,
+    for any method (``config.method``: ``"kde"``, ``"sdkde"`` or
+    ``"laplace"``);
   * ``index_from_state`` — a fitted ``repro.kernels.spatial.SpatialIndex``
     (``labels``, ``centroids``, ``method``) becomes the port's, so a
     pruned path can run on JAX's clustering (the two packages' k-means
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch.core.estimator import SDKDE, EstimatorConfig
+from repro_torch.core.estimator import SDKDE, EstimatorConfig, LaplaceKDE
 from repro_torch.kernels.spatial import SpatialIndex
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.registry import PreparedEstimator
@@ -45,6 +49,14 @@ def sdkde_from_state(x_train: np.ndarray, x_sd: np.ndarray, h: float,
     est = SDKDE(float(h), cfg)
     est.x_train = est._as_points(np.array(x_train, np.float32))
     est.x_sd = est._as_points(np.array(x_sd, np.float32))
+    return est
+
+
+def laplace_from_state(x_train: np.ndarray, h: float, fused: bool = True,
+                       config: EstimatorConfig | None = None) -> LaplaceKDE:
+    """A fitted port ``LaplaceKDE`` on the given train set."""
+    est = LaplaceKDE(float(h), config or EstimatorConfig(), fused=bool(fused))
+    est.x_train = est._as_points(np.array(x_train, np.float32))
     return est
 
 
@@ -93,4 +105,5 @@ def prepared_from_state(key: str, points: np.ndarray, h: float, n_true: int,
     return prep
 
 
-__all__ = ["sdkde_from_state", "prepared_from_state", "index_from_state"]
+__all__ = ["sdkde_from_state", "laplace_from_state", "prepared_from_state",
+           "index_from_state"]

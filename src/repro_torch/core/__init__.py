@@ -1,2 +1,3 @@
-"""Core SD-KDE library of the port: bandwidths, streaming KDE math,
-benchmark mixtures and the estimator API."""
+"""Core SD-KDE library of the port: bandwidths, streaming KDE and
+Laplace-KDE math, benchmark mixtures with their oracle scores, the
+oracle-error metrics and the estimator API."""

@@ -5,7 +5,9 @@ The counterpart of ``repro.core.estimator``.  Backends:
   * ``flash`` — the hand-written kernels (``repro_torch.kernels.ops``):
                 B1 for the fit's score pass, B2 for every evaluation, or
                 their pruned forms B3 / B4 when ``prune`` engages (by
-                default at ≥16384 train points, ``ops.resolve_prune``).
+                default at ≥16384 train points, ``ops.resolve_prune``);
+                ``LaplaceKDE`` evaluates through B5 (B4 with its
+                ``laplace`` flag when pruning), or B2 + B6 unfused.
                 The default.  On CPU tensors the kernels' plain PyTorch
                 versions run instead.
   * ``torch`` — the streaming plain math of ``core/kde.py``.
@@ -13,8 +15,7 @@ The counterpart of ``repro.core.estimator``.  Backends:
 
 Estimators run on ``config.device`` ("cuda" by default; asking for the
 card where there is none raises).  ``SDKDE.append``/``evict`` wait for the
-streaming delta pass (ROADMAP A8) and ``LaplaceKDE`` for the Laplace
-kernels (ROADMAP A5).
+streaming delta pass (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -138,5 +139,38 @@ class SDKDE(KDE):
         return self.x_sd
 
 
-__all__ = ["Backend", "BACKENDS", "EstimatorConfig", "KDE", "SDKDE",
-           "check_backend"]
+class LaplaceKDE(KDE):
+    """Laplace-corrected KDE (Flash-Laplace-KDE when fused).
+
+    The kernel K_h(u)·(1 + d/2 − ‖u‖²/(2h²)) on the raw train points with
+    the Silverman bandwidth; signed, so densities may dip below zero in
+    the tails.  ``fused=False`` runs the two-pass baseline, which stays
+    dense whatever ``prune`` says, as in ``repro``."""
+
+    def __init__(self, h=None, config: EstimatorConfig | None = None,
+                 fused: bool = True):
+        super().__init__(h, config)
+        self.fused = fused
+
+    def evaluate(self, y) -> torch.Tensor:
+        x = self._train_points()
+        y = self._as_points(y)
+        cfg = self.config
+        if cfg.backend == "flash":
+            if self.fused:
+                return ops.flash_laplace_kde(
+                    x, y, self.h, precision=cfg.precision,
+                    block_m=cfg.block_m, block_n=cfg.block_n,
+                    prune=cfg.prune)
+            return ops.laplace_kde_nonfused(
+                x, y, self.h, precision=cfg.precision, block_m=cfg.block_m,
+                block_n=cfg.block_n)
+        if self.fused:
+            return ref.laplace_kde_eval(x, y, self.h, block=cfg.block)
+        return ref.laplace_kde_eval_nonfused(x, y, self.h, block=cfg.block)
+
+    __call__ = evaluate
+
+
+__all__ = ["Backend", "BACKENDS", "EstimatorConfig", "KDE", "LaplaceKDE",
+           "SDKDE", "check_backend"]

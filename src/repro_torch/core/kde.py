@@ -7,6 +7,7 @@ set, so the n×m pairwise matrices are never materialized.
   p̂(y)  = 1/(n (2π)^{d/2} h^d) · Σ_i exp(-‖y-x_i‖²/(2h²))
   ŝ(x)  = (S1(x) - x·S0(x)) / (h² S0(x)),   S0 = Σφ, S1 = Σφx_j
   x^SD  = x + (h²/2)·ŝ(x)
+  p̂^LC(y) = 1/(n (2π)^{d/2} h^d) · Σ_i φ_i·(1 + d/2 - ‖y-x_i‖²/(2h²))
 
 The train set is padded with far sentinels (``PAD_VALUE``) to a block
 multiple; their kernel weight underflows to exactly 0.0.  Matrix products
@@ -110,5 +111,52 @@ def sdkde_eval(x_train: torch.Tensor, y_query: torch.Tensor, h, *,
     return kde_eval(x_sd, y_query, h, block=block)
 
 
+def sdkde_eval_oracle(x_train: torch.Tensor, y_query: torch.Tensor, h,
+                      oracle_score_fn, *, block: int = 1024) -> torch.Tensor:
+    """SD-KDE with an oracle score (ablation: removes score-estimation
+    error); ``oracle_score_fn`` maps (n, d) points to ∇log p there."""
+    x_sd = x_train + 0.5 * h * h * oracle_score_fn(x_train)
+    return kde_eval(x_sd, y_query, h, block=block)
+
+
+# ---------------------------------------------------------------------------
+# Laplace-corrected KDE (Section 5).
+# ---------------------------------------------------------------------------
+
+
+def laplace_kde_eval(x_train: torch.Tensor, y_query: torch.Tensor, h, *,
+                     block: int = 1024) -> torch.Tensor:
+    """Fused Laplace-corrected KDE: K^LC(u) = K_h(u)·(1 + d/2 − ‖u‖²/(2h²)),
+    the factor applied in the same streaming pass as the distances and
+    exponentials.  Signed: it may be slightly negative in the tails."""
+    n, d = x_train.shape
+    c0 = 1.0 + d / 2.0
+    s = torch.zeros(y_query.shape[0], dtype=y_query.dtype,
+                    device=y_query.device)
+    for xblk in _blocks(x_train, block):
+        sq = sqdist(y_query, xblk)
+        s += torch.sum(_phi(sq, h) * (c0 - sq / (2.0 * h * h)), dim=1)
+    return s / (n * gaussian_norm_const(d, 1.0) * h**d)
+
+
+def laplace_kde_eval_nonfused(x_train: torch.Tensor, y_query: torch.Tensor,
+                              h, *, block: int = 1024) -> torch.Tensor:
+    """Non-fused Laplace correction: the plain KDE, then a second pass that
+    recomputes the distances for Σφ·‖u‖², combined as
+    (1 + d/2)·p̂ − Σφ·‖u‖²/(2h²) (normalized).  The same estimator as the
+    fused one, at two quadratic passes — the Fig. 4 baseline."""
+    n, d = x_train.shape
+    base = kde_eval(x_train, y_query, h, block=block)
+    m2 = torch.zeros(y_query.shape[0], dtype=y_query.dtype,
+                     device=y_query.device)
+    for xblk in _blocks(x_train, block):
+        sq = sqdist(y_query, xblk)
+        m2 += torch.sum(_phi(sq, h) * sq, dim=1)
+    m2 = m2 / (n * gaussian_norm_const(d, 1.0) * h**d)
+    return base * (1.0 + d / 2.0) - m2 / (2.0 * h * h)
+
+
 __all__ = ["PAD_VALUE", "pad_rows", "sqdist", "kde_eval", "kde_eval_naive",
-           "score_stats", "empirical_score", "sdkde_shift", "sdkde_eval"]
+           "score_stats", "empirical_score", "sdkde_shift", "sdkde_eval",
+           "sdkde_eval_oracle", "laplace_kde_eval",
+           "laplace_kde_eval_nonfused"]

@@ -1,10 +1,10 @@
 """Oracle Gaussian-mixture densities used by the paper's benchmarks.
 
 The counterpart of ``repro.core.mixtures``: an isotropic Gaussian mixture
-with an exact log-pdf (the oracle), sampling from a ``torch.Generator``,
-and the paper's benchmark instances.  JAX and PyTorch draw different
-numbers from one seed, so only the densities are comparable across the
-two packages.
+with an exact log-pdf and score (the oracle), sampling from a
+``torch.Generator``, and the paper's benchmark instances.  JAX and
+PyTorch draw different numbers from one seed, so only the densities are
+comparable across the two packages.
 """
 
 from __future__ import annotations
@@ -58,6 +58,22 @@ class GaussianMixture:
 
     def pdf(self, x: torch.Tensor) -> torch.Tensor:
         return torch.exp(self.log_pdf(x))
+
+    def score(self, x: torch.Tensor) -> torch.Tensor:
+        """Exact oracle score ``∇ log p`` at ``x`` (m, d), in ``x``'s
+        dtype (for SD-KDE-with-oracle ablations).
+
+        Closed form: Σ_k r_k(x)·(μ_k − x)/σ_k², with r_k the components'
+        posterior weights, softmax of the weighted component log-pdfs."""
+        mu = torch.as_tensor(self.means, dtype=x.dtype, device=x.device)
+        std = torch.as_tensor(self.stds, dtype=x.dtype, device=x.device)
+        logw = torch.log(torch.as_tensor(self.weights, dtype=x.dtype,
+                                         device=x.device))
+        diff = mu[None] - x[:, None, :]                             # (m, k, d)
+        sqd = torch.sum(diff * diff, dim=-1)
+        log_comp = -0.5 * sqd / std**2 - self.dim * torch.log(std)
+        resp = torch.softmax(log_comp + logw, dim=1)                # (m, k)
+        return torch.einsum("mk,mkd->md", resp / std**2, diff)
 
 
 def benchmark_mixture_16d(separation: float = 4.0) -> GaussianMixture:

@@ -26,11 +26,11 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_score", "flash_kde", "flash_pruned")
+SOURCES = ("flash_score", "flash_kde", "flash_pruned", "flash_laplace")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -98,10 +98,14 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     return seconds
 
 
-def load(name: str, argtypes: Sequence, entry: str = "launch") -> "tuple":
+def load(name: str, argtypes: Sequence, entry: str = "launch",
+         prefix: Optional[str] = None) -> "tuple":
     """(launch, error) C functions of library ``name``, building it first
-    if needed.  ``launch`` is ``<name>_<entry>`` and returns a cudaError_t
-    code; ``error(code)`` is its message."""
+    if needed.  ``launch`` is ``<prefix>_<entry>`` and returns a
+    cudaError_t code; ``error(code)``, ``<prefix>_error``, is its message.
+    ``prefix`` defaults to ``name``; a source with several kernels names
+    each entry's own."""
+    prefix = prefix or name
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -109,14 +113,14 @@ def load(name: str, argtypes: Sequence, entry: str = "launch") -> "tuple":
             if not path.exists():
                 build([name])
             lib = ctypes.CDLL(str(path))
-            err = getattr(lib, f"{name}_error")
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
             _loaded[name] = lib
-        launch = getattr(lib, f"{name}_{entry}")
+        launch = getattr(lib, f"{prefix}_{entry}")
         launch.argtypes = list(argtypes)
         launch.restype = ctypes.c_int
-    return launch, getattr(lib, f"{name}_error")
+        err = getattr(lib, f"{prefix}_error")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return launch, err
 
 
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "nvcc",

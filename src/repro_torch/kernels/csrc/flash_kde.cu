@@ -29,7 +29,7 @@ extern "C" int flash_kde_launch(const void* y, const void* y_lo,
                                 int d, int tier, int block_m, int block_n,
                                 void* stream) {
   if (block_n < 1) return cudaErrorInvalidValue;
-  return flash::kde_dispatch<false>(
+  return flash::kde_dispatch<flash::Weight::kOne>(
       y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, tier,
       block_m, block_n, flash::AllTiles{(n + block_n - 1) / block_n},
       stream);

@@ -45,12 +45,12 @@ extern "C" int flash_pruned_kde_launch(
                                static_cast<const int*>(tile_map),
                                max_visits};
   if (laplace)
-    return flash::kde_dispatch<true>(y, y_lo, nrm_y, xt, xt_lo, nrm_x,
-                                     inv2h2, out, m, n, d, tier, block_m,
-                                     block_n, tiles, stream);
-  return flash::kde_dispatch<false>(y, y_lo, nrm_y, xt, xt_lo, nrm_x,
-                                    inv2h2, out, m, n, d, tier, block_m,
-                                    block_n, tiles, stream);
+    return flash::kde_dispatch<flash::Weight::kLaplace>(
+        y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, tier,
+        block_m, block_n, tiles, stream);
+  return flash::kde_dispatch<flash::Weight::kOne>(
+      y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, tier, block_m,
+      block_n, tiles, stream);
 }
 
 // tier: 0 = f32, 1 = bf16, 2 = bf16x2.  Returns a cudaError_t code.

@@ -1,9 +1,10 @@
-// Shared device code of the flash kernels (B1-B4) for Hopper, sm_90a.
+// Shared device code of the flash kernels (B1-B6) for Hopper, sm_90a.
 //
 // One kernel template per pass, parameterised on the column tiles a block
 // streams:
-//   AllTiles   every column tile in order: the dense kernels B1 (score)
-//              and B2 (KDE), flash_score.cu and flash_kde.cu;
+//   AllTiles   every column tile in order: the dense kernels B1 (score),
+//              B2 (KDE), B5 (fused Laplace) and B6 (square moment),
+//              flash_score.cu, flash_kde.cu and flash_laplace.cu;
 //   VisitList  the block's row tile's visit list, counts[i] entries of
 //              tile_map[i, :]: the pruned kernels B3 and B4,
 //              flash_pruned.cu.  The block reads its own count and tile
@@ -79,12 +80,17 @@ struct VisitList {
 };
 
 // ---------------------------------------------------------------------------
-// KDE pass: out_j = sum_i w(sq_ji) exp(-sq_ji * inv2h2) over the block's
-// column tiles, with w = 1 (B2, B4) or, with LAPLACE, the fused Laplace
-// factor w = 1 + d/2 - sq * inv2h2 (B4's laplace flag).
+// KDE pass: out_j = sum_i w_ji exp(-scaled_ji) over the block's column
+// tiles, scaled = sq * inv2h2, with the per-pair weight w_ji one of:
 // ---------------------------------------------------------------------------
 
-template <typename T, bool X2, int DMAX, bool LAPLACE, typename Tiles>
+enum class Weight : int {
+  kOne = 0,       // w = 1: the KDE sums (B2, B4)
+  kLaplace = 1,   // w = 1 + d/2 - scaled: fused Laplace (B5, B4's flag)
+  kSqMoment = 2,  // w = sq, unscaled: the non-fused second pass (B6)
+};
+
+template <typename T, bool X2, int DMAX, Weight W, typename Tiles>
 __global__ void __launch_bounds__(kMaxRows)
 kde_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
            const float* __restrict__ nrm_y, const T* __restrict__ xt,
@@ -164,8 +170,10 @@ kde_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
       }
       const float sq = fmaxf(nrm_r + s_nrm[c] - 2.f * g, 0.f);
       const float scaled = sq * inv2h2;
-      if constexpr (LAPLACE) {
+      if constexpr (W == Weight::kLaplace) {
         part += expf(-scaled) * (half_d1 - scaled);
+      } else if constexpr (W == Weight::kSqMoment) {
+        part += expf(-scaled) * sq;
       } else {
         part += expf(-scaled);
       }
@@ -175,7 +183,7 @@ kde_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
   if (live) out[row] = acc;
 }
 
-template <typename T, bool X2, int DMAX, bool LAPLACE, typename Tiles>
+template <typename T, bool X2, int DMAX, Weight W, typename Tiles>
 cudaError_t kde_launch(const void* y, const void* y_lo, const void* nrm_y,
                        const void* xt, const void* xt_lo, const void* nrm_x,
                        const void* inv2h2, void* out, int m, int n, int d,
@@ -184,7 +192,7 @@ cudaError_t kde_launch(const void* y, const void* y_lo, const void* nrm_y,
   const size_t smem =
       sizeof(float) * ((size_t)(X2 ? 2 : 1) * block_n * DMAX + block_n);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = kde_kernel<T, X2, DMAX, LAPLACE, Tiles>;
+  auto kernel = kde_kernel<T, X2, DMAX, W, Tiles>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -200,14 +208,14 @@ cudaError_t kde_launch(const void* y, const void* y_lo, const void* nrm_y,
   return cudaGetLastError();
 }
 
-template <typename T, bool X2, bool LAPLACE, typename Tiles>
+template <typename T, bool X2, Weight W, typename Tiles>
 cudaError_t kde_launch_d(const void* y, const void* y_lo, const void* nrm_y,
                          const void* xt, const void* xt_lo,
                          const void* nrm_x, const void* inv2h2, void* out,
                          int m, int n, int d, int block_m, int block_n,
                          Tiles tiles, cudaStream_t s) {
 #define FLASH_KDE_LAUNCH(DM)                                              \
-  return kde_launch<T, X2, DM, LAPLACE, Tiles>(                           \
+  return kde_launch<T, X2, DM, W, Tiles>(                                 \
       y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, block_m, \
       block_n, tiles, s)
   if (d <= 4) FLASH_KDE_LAUNCH(4);
@@ -219,7 +227,7 @@ cudaError_t kde_launch_d(const void* y, const void* y_lo, const void* nrm_y,
 }
 
 // tier: 0 = f32, 1 = bf16, 2 = bf16x2.  Returns a cudaError_t code.
-template <bool LAPLACE, typename Tiles>
+template <Weight W, typename Tiles>
 cudaError_t kde_dispatch(const void* y, const void* y_lo, const void* nrm_y,
                          const void* xt, const void* xt_lo,
                          const void* nrm_x, const void* inv2h2, void* out,
@@ -231,15 +239,15 @@ cudaError_t kde_dispatch(const void* y, const void* y_lo, const void* nrm_y,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tier) {
     case 0:
-      return kde_launch_d<float, false, LAPLACE>(
+      return kde_launch_d<float, false, W>(
           y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, block_m,
           block_n, tiles, s);
     case 1:
-      return kde_launch_d<__nv_bfloat16, false, LAPLACE>(
+      return kde_launch_d<__nv_bfloat16, false, W>(
           y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, block_m,
           block_n, tiles, s);
     case 2:
-      return kde_launch_d<__nv_bfloat16, true, LAPLACE>(
+      return kde_launch_d<__nv_bfloat16, true, W>(
           y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, block_m,
           block_n, tiles, s);
     default:

@@ -23,12 +23,13 @@ and ``tile_map`` (mt, max_visits) int32 first, then the dense kernels'
 operands; ``max_visits`` is ``tile_map``'s width.  ``flash_kde_pruned``
 takes ``laplace`` (the fused Laplace factor ``1 + d/2 − sq/2h²``).
 
-Each kernel keeps its counts, ``score_counts`` (B3) and ``kde_counts``
-(B4): a launch adds one to ``launches``, the tiles it visits (``Σ
-counts``) to ``tiles_visited`` and the tiles a dense pass would visit
-(``mt × n/block_n``) to ``tiles_total``; their ratio is the occupancy of
-the launches (``repro``'s ``kernels.prune.visit_fraction``, until the
-metrics registry is ported).
+Each pass keeps its counts, ``score_counts`` (B3), ``kde_counts`` (B4)
+and ``laplace_counts`` (B4 with ``laplace``): a launch adds one to
+``launches``, the tiles it visits (``Σ counts``) to ``tiles_visited`` and
+the tiles a dense pass would visit (``mt × n/block_n``) to
+``tiles_total``; their ratio is the occupancy of the launches (``repro``'s
+``kernels.prune.visit_fraction``, until the metrics registry is
+ported).
 """
 
 from __future__ import annotations
@@ -86,6 +87,7 @@ class LaunchCounts:
 #: Counts of the ``*_cuda`` launches; ``reset()`` starts a count.
 score_counts = LaunchCounts()
 kde_counts = LaunchCounts()
+laplace_counts = LaunchCounts()
 
 
 def _check_visits(counts, tile_map, rows, cols, block_m, block_n):
@@ -199,7 +201,7 @@ def flash_kde_pruned_cuda(
                            f"{error(rc).decode()} [m={m} n={n} d={d} "
                            f"tier={tier} block_m={block_m} block_n={block_n} "
                            f"max_visits={tile_map.shape[1]}]")
-    kde_counts.add(counts, mt * t)
+    (laplace_counts if laplace else kde_counts).add(counts, mt * t)
     return out
 
 
@@ -353,7 +355,8 @@ def flash_score_pruned(
 
 
 __all__ = [
-    "LaunchCounts", "score_counts", "kde_counts", "flash_kde_pruned",
+    "LaunchCounts", "score_counts", "kde_counts", "laplace_counts",
+    "flash_kde_pruned",
     "flash_kde_pruned_cuda", "flash_kde_pruned_plain",
     "flash_score_pruned", "flash_score_pruned_cuda",
     "flash_score_pruned_plain",

@@ -25,10 +25,13 @@ Three launch knobs thread through every wrapper:
 
 Each wrapper runs where its tensors are: the kernels on the card, their
 plain PyTorch versions on the CPU (``flash_score``, ``flash_kde``,
-``flash_pruned``).  The pruned path syncs once per pass to size its visit
-lists.  Not ported: ``repro``'s occupancy profile for the autotuner
-(ROADMAP A6), the prune telemetry (A10) and the fallback to dense under
-JAX tracing (PyTorch does not trace).  Spans carry ``repro``'s names
+``flash_laplace``, ``flash_pruned``).  The Laplace-corrected estimator
+runs fused, one pass of B5 (B4 with ``laplace`` when pruning), or
+non-fused, B2 then B6, always dense (``laplace_kde_nonfused``).  The
+pruned path syncs once per pass to size its visit lists.  Not ported:
+``repro``'s occupancy profile for the autotuner (ROADMAP A6), the prune
+telemetry (A10) and the fallback to dense under JAX tracing (PyTorch
+does not trace).  Spans carry ``repro``'s names
 (``kernels.pruned_score``, ``kernels.pruned_eval``).
 """
 
@@ -46,6 +49,8 @@ from repro_torch.core.bandwidth import gaussian_norm_const
 from repro_torch.kernels import flash_pruned, spatial
 from repro_torch.kernels import precision as prec
 from repro_torch.kernels.flash_kde import flash_kde as _kde_kernel
+from repro_torch.kernels.flash_laplace import flash_laplace as _laplace_kernel
+from repro_torch.kernels.flash_laplace import sq_moment as _sq_moment_kernel
 from repro_torch.kernels.flash_score import flash_score as _score_kernel
 
 PAD_VALUE = 1.0e6
@@ -253,7 +258,7 @@ def flash_sdkde_shift(x: torch.Tensor, h, *, score_h=None,
 
 
 # ---------------------------------------------------------------------------
-# KDE evaluation.
+# KDE / Laplace-KDE evaluation.
 # ---------------------------------------------------------------------------
 
 
@@ -274,13 +279,10 @@ def _prep_eval(x, y, block_m, block_n, precision):
     return y_ops, xt_ops, nrm_y, nrm_x
 
 
-def flash_kde(x: torch.Tensor, y: torch.Tensor, h, *,
-              precision: str = "f32", block_m: int = 128,
-              block_n: int = 128, prune: PruneArg = "auto",
-              seed: int = 0) -> torch.Tensor:
-    """Normalized Gaussian KDE densities at ``y`` (train set ``x``), via
-    B2, or B4 when ``prune`` engages (the clustered columns of ``x`` are
-    cached while ``x`` lives)."""
+def _flash_eval(x, y, h, *, laplace, precision, block_m, block_n, prune,
+                seed) -> torch.Tensor:
+    """Normalized KDE or fused-Laplace densities: B2 / B5 dense, B4 (its
+    ``laplace`` flag) when ``prune`` engages."""
     prec.validate(precision)
     check_blocks(block_m, block_n)
     n, d = x.shape
@@ -290,15 +292,64 @@ def flash_kde(x: torch.Tensor, y: torch.Tensor, h, *,
         cols = _cached_columns(x, block_n=block_n, precision=precision,
                                seed=seed)
         sums = _pruned_eval_sums(y, cols, h, eps, precision=precision,
-                                 block_m=block_m, block_n=block_n)
+                                 block_m=block_m, block_n=block_n,
+                                 laplace=laplace)
         return _normalize(sums, n, d, h)
     y_ops, xt_ops, nrm_y, nrm_x = _prep_eval(x, y, block_m, block_n,
                                              precision)
-    sums = _kde_kernel(
+    kernel = _laplace_kernel if laplace else _kde_kernel
+    sums = kernel(
         y_ops[0], nrm_y, xt_ops[0], nrm_x, _inv2h2(h, y.device), y_ops[1],
         xt_ops[1], block_m=block_m, block_n=block_n,
     )
     return _normalize(sums[:m, 0], n, d, h)
+
+
+def flash_kde(x: torch.Tensor, y: torch.Tensor, h, *,
+              precision: str = "f32", block_m: int = 128,
+              block_n: int = 128, prune: PruneArg = "auto",
+              seed: int = 0) -> torch.Tensor:
+    """Normalized Gaussian KDE densities at ``y`` (train set ``x``), via
+    B2, or B4 when ``prune`` engages (the clustered columns of ``x`` are
+    cached while ``x`` lives)."""
+    return _flash_eval(x, y, h, laplace=False, precision=precision,
+                       block_m=block_m, block_n=block_n, prune=prune,
+                       seed=seed)
+
+
+def flash_laplace_kde(x: torch.Tensor, y: torch.Tensor, h, *,
+                      precision: str = "f32", block_m: int = 128,
+                      block_n: int = 128, prune: PruneArg = "auto",
+                      seed: int = 0) -> torch.Tensor:
+    """Fused Flash-Laplace-KDE densities at ``y`` — one quadratic pass:
+    B5, or B4 with ``laplace`` (and the Laplace bound kind in its prepass)
+    when ``prune`` engages."""
+    return _flash_eval(x, y, h, laplace=True, precision=precision,
+                       block_m=block_m, block_n=block_n, prune=prune,
+                       seed=seed)
+
+
+def laplace_kde_nonfused(x: torch.Tensor, y: torch.Tensor, h, *,
+                         precision: str = "f32", block_m: int = 128,
+                         block_n: int = 128) -> torch.Tensor:
+    """Non-fused Laplace baseline (Fig. 4): two quadratic launches, B2 for
+    S = Σφ and B6 for M = Σφ·sq, combined as (1 + d/2)·S − M/(2h²).
+
+    Stays dense on purpose, as in ``repro``: it is the measured baseline
+    of the fusion."""
+    prec.validate(precision)
+    check_blocks(block_m, block_n)
+    n, d = x.shape
+    m = y.shape[0]
+    y_ops, xt_ops, nrm_y, nrm_x = _prep_eval(x, y, block_m, block_n,
+                                             precision)
+    args = (y_ops[0], nrm_y, xt_ops[0], nrm_x, _inv2h2(h, y.device),
+            y_ops[1], xt_ops[1])
+    kde_sums = _kde_kernel(*args, block_m=block_m, block_n=block_n)
+    sq_mom = _sq_moment_kernel(*args, block_m=block_m, block_n=block_n)
+    hf = torch.as_tensor(h, dtype=torch.float32).to(y.device)
+    combined = (1.0 + d / 2.0) * kde_sums - sq_mom / (2.0 * hf * hf)
+    return _normalize(combined[:m, 0], n, d, h)
 
 
 # ---------------------------------------------------------------------------
@@ -373,9 +424,11 @@ def _cast_queries(yp: torch.Tensor, precision: str):
 
 def _pruned_eval_sums(y: torch.Tensor, cols: TrainColumns, h,
                       epsilon: float, *, precision: str, block_m: int,
-                      block_n: int,
+                      block_n: int, laplace: bool = False,
                       n_real: Optional[int] = None) -> torch.Tensor:
-    """Pruned kernel sums (len(y),) for queries against prepared columns.
+    """Pruned kernel sums (len(y),) for queries against prepared columns:
+    KDE sums, or with ``laplace`` the fused Laplace sums, whose prepass
+    certifies with the Laplace bound kind.
 
     ``y`` may carry sentinel padding rows past ``n_real`` (the serving
     path); only real rows enter the query layout and the tail sums are 0.
@@ -400,12 +453,13 @@ def _pruned_eval_sums(y: torch.Tensor, cols: TrainColumns, h,
     y_hi, y_lo, nrm_y, yrec = _cast_queries(qlayout.points, precision)
     inv = _inv2h2(h, y.device)
     tm = spatial.tile_map(yrec, cols.meta, inv, epsilon, block_m=block_m,
-                          kind="kde")
+                          kind="laplace" if laplace else "kde")
     vl = spatial.visit_lists(tm.keep)
     with record_function("kernels.pruned_eval"):
         sums = flash_pruned.flash_kde_pruned(
             vl.counts, vl.tile_map, y_hi, nrm_y, cols.xt, cols.nrm_x, inv,
-            y_lo, cols.xt_lo, block_m=block_m, block_n=block_n)
+            y_lo, cols.xt_lo, block_m=block_m, block_n=block_n,
+            laplace=laplace)
     out = sums[qlayout.slots, 0]                 # back to request order
     if nr < m_in:                                # caller's sentinel tail
         out = torch.cat([out, out.new_zeros((m_in - nr,))])
@@ -416,12 +470,14 @@ def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
                        nrm_x: torch.Tensor, h,
                        xt_lo: Optional[torch.Tensor] = None, *,
                        precision: str = "f32", block_m: int = 128,
-                       block_n: int = 128, prune: PruneArg = "off",
+                       block_n: int = 128, laplace: bool = False,
+                       prune: PruneArg = "off",
                        columns: Optional[TrainColumns] = None,
                        n_real: Optional[int] = None) -> torch.Tensor:
     """Unnormalized kernel sums (m,) for queries already padded to a
     ``block_m`` multiple against prepared columns; the caller divides by
-    ``n_true · (2π)^{d/2} h^d`` and slices off padding rows.
+    ``n_true · (2π)^{d/2} h^d`` and slices off padding rows.  KDE sums
+    (B2), or with ``laplace`` the fused Laplace sums (B5).
 
     ``prune`` ≠ "off" takes the cluster-pruned path (B4): pass the full
     ``columns`` (prepared with ``clustered=True``) and ``n_real``, the
@@ -443,10 +499,11 @@ def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
                 "clustered TrainColumns) for the tile metadata")
         return _pruned_eval_sums(yp, columns, h, eps, precision=precision,
                                  block_m=block_m, block_n=block_n,
-                                 n_real=n_real)
+                                 laplace=laplace, n_real=n_real)
     y_hi, y_lo, nrm_y, _ = _cast_queries(yp, precision)
-    sums = _kde_kernel(y_hi, nrm_y, xt, nrm_x, _inv2h2(h, yp.device), y_lo,
-                       xt_lo, block_m=block_m, block_n=block_n)
+    kernel = _laplace_kernel if laplace else _kde_kernel
+    sums = kernel(y_hi, nrm_y, xt, nrm_x, _inv2h2(h, yp.device), y_lo,
+                  xt_lo, block_m=block_m, block_n=block_n)
     return sums[:, 0]
 
 
@@ -498,7 +555,7 @@ def flash_sdkde(x: torch.Tensor, y: torch.Tensor, h, *, score_h=None,
 __all__ = [
     "PAD_VALUE", "PRUNE_AUTO_MIN_COLS", "PRUNE_AUTO_MIN_TILES", "PruneArg",
     "resolve_prune", "check_prune", "check_blocks", "flash_score_stats",
-    "flash_sdkde_shift",
-    "flash_kde", "TrainColumns", "prepare_train_columns",
+    "flash_sdkde_shift", "flash_kde", "flash_laplace_kde",
+    "laplace_kde_nonfused", "TrainColumns", "prepare_train_columns",
     "flash_kde_prepared", "flash_sdkde",
 ]

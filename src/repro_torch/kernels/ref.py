@@ -29,6 +29,15 @@ def ref_kde_sums(x: torch.Tensor, y: torch.Tensor, h: float) -> torch.Tensor:
     return torch.sum(torch.exp(-_sqdist(y, x) / (2.0 * h * h)), dim=1)
 
 
+def ref_laplace_sums(x: torch.Tensor, y: torch.Tensor,
+                     h: float) -> torch.Tensor:
+    """Unnormalized Laplace-corrected sums: Σ_i φ·(1 + d/2 − sqd/(2h²))."""
+    d = x.shape[-1]
+    sq = _sqdist(y, x)
+    phi = torch.exp(-sq / (2.0 * h * h))
+    return torch.sum(phi * (1.0 + d / 2.0 - sq / (2.0 * h * h)), dim=1)
+
+
 def ref_sdkde_shift(x: torch.Tensor, h: float, score_h: float | None = None):
     """Debiased samples via the empirical score (as ops.flash_sdkde_shift)."""
     sh = h if score_h is None else score_h
@@ -38,4 +47,5 @@ def ref_sdkde_shift(x: torch.Tensor, h: float, score_h: float | None = None):
     return x32 + 0.5 * h * h * score
 
 
-__all__ = ["ref_score_stats", "ref_kde_sums", "ref_sdkde_shift"]
+__all__ = ["ref_score_stats", "ref_kde_sums", "ref_laplace_sums",
+           "ref_sdkde_shift"]

@@ -16,8 +16,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.precision import validate as _validate_precision
 
 Backend = Literal["flash", "torch"]
-Method = Literal["kde", "sdkde"]
-METHODS = ("kde", "sdkde")
+Method = Literal["kde", "sdkde", "laplace"]
+METHODS = ("kde", "sdkde", "laplace")
 
 
 def _round_up(n: int, mult: int) -> int:
@@ -61,10 +61,6 @@ class ServeConfig:
 
     def __post_init__(self):
         check_backend(self.backend)
-        if self.method == "laplace":
-            raise NotImplementedError(
-                "method='laplace' needs the Laplace kernels B5/B6, not "
-                "ported yet (ROADMAP A5)")
         if self.method not in METHODS:
             raise ValueError(f"unknown method {self.method!r} (choose from "
                              f"{METHODS})")

@@ -15,10 +15,12 @@ kept in a small LRU:
 
   * ``flash`` — prepared fast path (``kernels.ops.flash_kde_prepared``,
                 kernel B2, or B4 when ``prune`` engages for the train
-                set): train columns transposed and normed once at fit
+                set; ``method="laplace"``: B5, or B4 with its ``laplace``
+                flag): train columns transposed and normed once at fit
                 (clustered for B4), queries arrive padded to a
                 ``block_m`` multiple;
-  * ``torch`` — the streaming plain math of ``core/kde.py``.
+  * ``torch`` — the streaming plain math of ``core/kde.py``
+                (``laplace_kde_eval`` for ``method="laplace"``).
 
 Spans are ``torch.profiler.record_function`` ranges with ``repro``'s
 names (``serve.request``, ``serve.dispatch``, ``serve.bucket``); they cost
@@ -222,16 +224,18 @@ class ServeEngine:
         callable: "auto" below the size threshold is the dense path for
         every request."""
         cfg = prep.config
+        laplace = cfg.method == "laplace"
         if cfg.backend == "flash":
             cols = prep.columns_for(tier)
             prune = cfg.prune if ops.resolve_prune(
                 cfg.prune, prep.n_true, prep.block_n) is not None else "off"
             return lambda yp, n_real: ops.flash_kde_prepared(
                 yp, cols.xt, cols.nrm_x, prep.h, cols.xt_lo, precision=tier,
-                block_m=prep.block_m, block_n=prep.block_n, prune=prune,
-                columns=cols, n_real=n_real) / prep.norm
-        return lambda yp, n_real: ref.kde_eval(prep.points, yp, prep.h,
-                                               block=cfg.block)
+                block_m=prep.block_m, block_n=prep.block_n, laplace=laplace,
+                prune=prune, columns=cols, n_real=n_real) / prep.norm
+        eval_fn = ref.laplace_kde_eval if laplace else ref.kde_eval
+        return lambda yp, n_real: eval_fn(prep.points, yp, prep.h,
+                                          block=cfg.block)
 
 
 __all__ = ["ServeEngine"]

@@ -5,9 +5,11 @@ set is O(n²·d) and depends only on the dataset, while each query batch is
 an O(n·m·d) pass against the fixed debiased points.  The registry runs the
 expensive pass once per dataset and caches a prepared estimator: debiased
 points, the padded transposed column layout per precision tier, and the
-normalization constant.  When the config's ``prune`` engages for the
-train set (``ops.resolve_prune``), every tier's columns are clustered, and
-all tiers share ONE spatial index, clustered once.
+normalization constant.  ``kde`` and ``laplace`` serve the raw points
+with the Silverman bandwidth (no debias), as ``repro`` does.  When the
+config's ``prune`` engages for the train set (``ops.resolve_prune``),
+every tier's columns are clustered, and all tiers share ONE spatial
+index, clustered once.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ class PreparedEstimator:
     d: int
     generation: int          # bumped per fit; bucket keys include it so a
                              # refit never serves stale callables
-    points: torch.Tensor     # (n, d) train points (debiased for sdkde)
+    points: torch.Tensor     # (n, d) train points (debiased for sdkde;
+                             # raw for kde and laplace)
     norm: float              # n_true · (2π)^{d/2} · h^d
     block_m: Optional[int] = None   # flash: kernel tiles
     block_n: Optional[int] = None

@@ -39,26 +39,32 @@ def test_port_has_cuda_sources_for_both_kernels():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.stem for p in csrc.glob("*.cu")} >= {"flash_score",
                                                    "flash_kde",
-                                                   "flash_pruned"}
+                                                   "flash_pruned",
+                                                   "flash_laplace"}
 
 
 def test_every_loaded_entry_point_is_defined_in_its_source():
-    """``_build.load(name, argtypes, entry)`` resolves ``<name>_<entry>``
-    and ``<name>_error`` in ``csrc/<name>.cu``: a misnamed C function
-    would only fail on the card."""
+    """``_build.load(name, argtypes, entry, prefix=...)`` resolves
+    ``<prefix>_<entry>`` and ``<prefix>_error`` (prefix defaults to the
+    name) in ``csrc/<name>.cu``: a misnamed C function would only fail on
+    the card."""
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     kernels = ROOT / "src" / "repro_torch" / "kernels"
     loads = set()
     for path in kernels.glob("*.py"):
         for m in re.finditer(
-                r'_build\.load\(\s*"(\w+)"\s*,\s*\w+(?:\s*,\s*"(\w+)")?',
+                r'_build\.load\(\s*"(\w+)"\s*,\s*\w+'
+                r'(?:\s*,\s*"(\w+)")?(?:\s*,\s*prefix="(\w+)")?\)',
                 path.read_text()):
-            loads.add((m.group(1), m.group(2) or "launch"))
-    assert {name for name, _ in loads} == {"flash_score", "flash_kde",
-                                           "flash_pruned"}
-    for name, entry in loads:
+            loads.add((m.group(1), m.group(2) or "launch",
+                       m.group(3) or m.group(1)))
+    assert {name for name, _, _ in loads} == {
+        "flash_score", "flash_kde", "flash_pruned", "flash_laplace"}
+    assert {p for n, _, p in loads if n == "flash_laplace"} == {
+        "flash_laplace", "sq_moment"}
+    for name, entry, prefix in loads:
         src = (csrc / f"{name}.cu").read_text()
-        for fn in (f"{name}_{entry}", f"{name}_error"):
+        for fn in (f"{prefix}_{entry}", f"{prefix}_error"):
             assert re.search(rf'extern "C" [\w\s*]+\b{fn}\(', src), fn
 
 
@@ -155,6 +161,12 @@ def test_prune_defaults_to_auto_as_in_repro():
         ServeConfig(device="cpu", prune=ok)
 
 
-def test_laplace_method_waits_for_its_kernels():
-    with pytest.raises(NotImplementedError, match="A5"):
-        ServeConfig(method="laplace")
+def test_laplace_method_builds_and_ring_still_raises():
+    cfg = ServeConfig(method="laplace")
+    assert cfg.method == "laplace" and cfg.device == "cuda"
+    assert ServeConfig(method="laplace", backend="torch",
+                       device="cpu").row_multiple() == 1
+    with pytest.raises(NotImplementedError, match="A13"):
+        ServeConfig(method="laplace", backend="ring")
+    with pytest.raises(ValueError, match="method"):
+        ServeConfig(method="bogus", device="cpu")
