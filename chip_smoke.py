@@ -9,8 +9,8 @@
 Run from the repository root.  Phases, each printing its lines:
 
   1. device       the card's name and power limit (nvidia-smi);
-  2. build        the four CUDA sources (B1, B2, B3/B4, B5/B6) compiled
-                  with nvcc for sm_90a, in parallel;
+  2. build        the five CUDA sources (B1, B2, B3/B4, B5/B6, B7)
+                  compiled with nvcc for sm_90a, in parallel;
   3. kernels      each kernel against its plain PyTorch version on the
                   card, every tier: B1 flash_score, B2 flash_kde, B5
                   flash_laplace and B6 sq_moment, then B3
@@ -18,6 +18,11 @@ Run from the repository root.  Phases, each printing its lines:
                   and on), at a ragged small shape whose visit lists hold
                   a zero-count row tile, and at the main path's shape;
                   B1, B2, B5 and B6 also at d = 1 (Fig. 4's dimension);
+                  B7 selective_scan (y and h_final) at a ragged shape
+                  (S 200, D 1000, N 4 and 16, nonzero h0) and at
+                  Falcon-Mamba-7B's layer shape (B 4, S 1024, D 8192,
+                  N 16), f32 and bf16 inputs, each element within
+                  MASS_BAR·(its mass) of the scan's error model;
   4. main path    32768 x 16 train and 16384 queries from the paper's 16-d
                   mixture.  The default path (prune="auto", which prunes
                   at this size): SDKDE(backend="flash").fit(x).evaluate(y)
@@ -49,7 +54,7 @@ Run from the repository root.  Phases, each printing its lines:
                   apart from the kernels; the fusion comparison, fused
                   (B5) against non-fused (B2 + B6), kernels alone and
                   through ops, at the main shape and Fig. 4's four 1-D
-                  shapes;
+                  shapes; B7 at Falcon-Mamba-7B's layer shape;
   6. paper scale  (--paper-scale only) fit + evaluate at the paper's size,
                   prune="auto" and prune="off";
   7. oracle       MISE, MIAE and negative mass against the known mixture
@@ -59,7 +64,21 @@ Run from the repository root.  Phases, each printing its lines:
                   sampling), Silverman h, one seed.  Fused must agree with
                   non-fused per point, and each flash estimator's MISE and
                   MIAE with the "torch" backend's within the bound its
-                  per-point bar implies; the ordering is printed.
+                  per-point bar implies; the ordering is printed;
+  8. SSM serving  falcon_mamba_7b at full width (bf16, 7.27e9
+                  parameters, 64 layers) initialised on the card from a
+                  seed, served through launch.serve.generate: batch 4,
+                  prompt 1024, 32 greedy tokens, the SD-KDE activation
+                  monitor on.  B7 must launch exactly once per layer in
+                  the prefill, no other scan path may run, and only B1,
+                  B2 (the monitor) and B7 may launch; prefill ms, decode
+                  tok/s and peak memory are printed.  The monitor's B1
+                  and B2 launches are held against their plain versions
+                  on the same operands (d 8, fewer than 128 fit rows) at
+                  phase 3's bars.  Then, at full width
+                  and a depth of 2 in f32: prefill(p[:S]) plus one decode
+                  step against prefill(p[:S+1]), and the B7 prefill
+                  against the associative-scan branch.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -99,6 +118,26 @@ FIG4_NS, FIG4_H = (4096, 8192, 16384, 32768), 0.3
 # Fig. 3 (1-D grid) and Fig. 2 (16-d importance sampling) oracle errors
 ORACLE_N_1D, N_MC = 8192, 8192
 ORACLE_METHODS = ("kde", "sdkde", "laplace", "laplace_nonfused")
+# B7: (B, S, D, N) of a ragged shape (S not a multiple of the Pallas
+# kernel's chunk, D not of 128) and of Falcon-Mamba-7B's layer at the
+# serving batch and prompt
+SCAN_RAGGED = ((2, 200, 1000, 4), (2, 200, 1000, 16))
+SCAN_MAIN = (4, 1024, 8192, 16)
+SCAN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# phase 8: Falcon-Mamba-7B served at full width, depth cut only if it must
+SERVE_ARCH = "falcon_mamba_7b"
+SERVE_LAYERS = 64
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
+MONITOR_LEN = 256        # the monitor's 8 x 16 reference sequences
+CHECK_LAYERS, CHECK_BATCH, CHECK_PROMPT = 2, 2, 512
+# prefill-vs-decode and kernel-vs-associative-scan logits and states, f32:
+# rtol 2e-4 with atol 2e-5 of the largest magnitude (the CPU tests' bars,
+# tests/test_torch_ssm.py).  Both sides are f32 throughout; they differ by
+# the order cuBLAS sums products of width up to 16384 for S tokens and for
+# one, and by the scan's order (B7 sequential, the associative branch a
+# doubling scan): rounding of ~sqrt(K)·eps ≈ 1e-5 of the operands'
+# magnitude per product, carried through two layers and the head.
+MODEL_RTOL, MODEL_ATOL = 2e-4, 2e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): FP32
 # outside the tensor cores, bf16 on the tensor cores, HBM3 bandwidth.
@@ -271,6 +310,7 @@ _PTXAS_NAME = re.compile(
     r"(kde|score)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E"
     r"(?:LN\w*?WeightE(\d)E)?N\w*?(AllTiles|VisitList)")
 _WEIGHTS = {None: "", "0": "", "1": ",laplace", "2": ",sq_moment"}
+_PTXAS_SCAN = re.compile(r"selective_scan_kernelI(f|13__nv_bfloat16)Li(\d+)E")
 
 
 def ptxas_summary(text: str) -> list:
@@ -288,12 +328,17 @@ def ptxas_summary(text: str) -> list:
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn:
             t = _PTXAS_NAME.search(fn)
+            sc = _PTXAS_SCAN.search(fn)
             key = fn if t is None else (
                 f"{t.group(1)}<"
                 f"{'f32' if t.group(2) == 'f' else 'bf16'}"
                 f"{'x2' if t.group(3) == '1' else ''},{t.group(4)}"
                 f"{_WEIGHTS[t.group(5)]}"
                 f"{',visits' if t.group(6) == 'VisitList' else ''}>")
+            if sc:
+                key = (f"selective_scan<"
+                       f"{'f32' if sc.group(1) == 'f' else 'bf16'},"
+                       f"{sc.group(2)}>")
             out.append((key, int(m.group(1)), spill))
             fn = None
     return out
@@ -474,6 +519,57 @@ def check_kernel(name, c, precision, h, label) -> dict:
     return compare(got, want, rtol, what)
 
 
+def scan_inputs(shape, dtype, gen):
+    """B7's operands on the card, drawn as tests/test_selective_scan_kernel
+    draws them: xi, B, C normal, dt softplus(normal), a = −exp(normal/2),
+    h0 normal/10."""
+    bsz, s, d, n = shape
+    dev = gen.device
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=dev)
+
+    xi = randn(bsz, s, d).to(dtype)
+    dt = torch.nn.functional.softplus(randn(bsz, s, d)).to(dtype)
+    b, c = randn(bsz, s, n).to(dtype), randn(bsz, s, n).to(dtype)
+    a = -torch.exp(randn(d, n) * 0.5)
+    h0 = randn(bsz, d, n) * 0.1
+    return xi, dt, b, c, a, h0
+
+
+def scan_bound_ms(shape, dtype) -> tuple:
+    """(ms, "bytes" | "operations") for B7: each input read once (xi, dt,
+    B, C in ``dtype``, a and h0 f32), y and h_final written once in f32;
+    per (b, t, d, n) one exp on the SFU and 6 FP32 operations (the exp's
+    argument, decay·h, dx·B, the add, C·h and the sum)."""
+    bsz, s, d, n = shape
+    size = torch.finfo(dtype).bits // 8
+    moved = (2 * bsz * s * d + 2 * bsz * s * n) * size + \
+        (d * n + 2 * bsz * d * n + bsz * s * d) * 4
+    terms = bsz * s * d * n
+    ops_s = max(terms / PEAK_EXP, 6 * terms / PEAK_F32)
+    bytes_s = moved / PEAK_BYTES
+    return (1e3 * max(ops_s, bytes_s),
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def check_scan(ss, args, label) -> dict:
+    """B7 against its plain version on the card, y and h_final, each
+    element within MASS_BAR·(its mass): the error model of
+    kernels/selective_scan.py (32·eps of Σ_n |C_n|·(G_n + |h_n|), where G
+    carries the rounding of every step through the state's memory)."""
+    y, h = ss.selective_scan_cuda(*args)
+    py, ph, my, mh = ss.selective_scan_plain(*args, mass=True)
+    sync()
+    out = {"y": compare_mass(y, py, my, ss.MASS_BAR, f"selective_scan y "
+                             f"{label}"),
+           "h_final": compare_mass(h, ph, mh, ss.MASS_BAR,
+                                   f"selective_scan h_final {label}")}
+    out["max_abs_err"] = max(out["y"]["max_abs_err"],
+                             out["h_final"]["max_abs_err"])
+    return out
+
+
 def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
     log("== phase 3: kernels against their plain versions on the card")
     results = {}
@@ -516,10 +612,23 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
         for name, c in opnds.items():
             check_kernel(name, c, precision, FIG4_H, f"d=1 n={n} m={m}")
         del opnds
+    # B7: the ragged shapes, then Falcon-Mamba-7B's layer shape
+    from repro_torch.kernels import selective_scan as ss
+
+    for shape in SCAN_RAGGED + (SCAN_MAIN,):
+        for tname, dtype in SCAN_DTYPES.items():
+            args = scan_inputs(shape, dtype, gen)
+            res = check_scan(ss, args, f"{tname} (B, S, D, N)={shape}")
+            if shape == SCAN_MAIN:
+                results.setdefault("selective_scan", {})[tname] = res
+            del args
     return results
 
 
 def reset_counts(fs, fk, fp, fl) -> None:
+    from repro_torch.kernels import selective_scan as ss
+
+    ss.launches = 0
     fs.launches = 0
     fk.launches = 0
     fl.laplace_launches = 0
@@ -530,12 +639,15 @@ def reset_counts(fs, fk, fp, fl) -> None:
 
 
 def read_counts(fs, fk, fp, fl) -> dict:
+    from repro_torch.kernels import selective_scan as ss
+
     return {"flash_score": fs.launches, "flash_kde": fk.launches,
             "flash_score_pruned": fp.score_counts.launches,
             "flash_kde_pruned": fp.kde_counts.launches,
             "flash_laplace": fl.laplace_launches,
             "sq_moment": fl.sq_moment_launches,
-            "flash_kde_pruned laplace": fp.laplace_counts.launches}
+            "flash_kde_pruned laplace": fp.laplace_counts.launches,
+            "selective_scan": ss.launches}
 
 
 def check_launches(counts: dict, ran, what: str) -> None:
@@ -918,6 +1030,22 @@ def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
     log("  host prepass on the clustered set, f32 (ms, synchronized): "
         + ", ".join(f"{k} {v:.2f}"
                     for k, v in prep_times["clustered"].items()))
+
+    from repro_torch.kernels import selective_scan as ss
+
+    for tname, dtype in SCAN_DTYPES.items():
+        args = scan_inputs(SCAN_MAIN, dtype, gen)
+        ms = cuda_ms(lambda: ss.selective_scan_cuda(*args), 10)
+        plain = cuda_ms(lambda: ss.selective_scan_plain(*args), 3)
+        bms, by = scan_bound_ms(SCAN_MAIN, dtype)
+        log(f"  selective_scan {tname} (B, S, D, N)={SCAN_MAIN}: kernel "
+            f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), "
+            f"{bms / ms * 100:.1f}% of bound")
+        entries.setdefault("selective_scan", {})[tname] = dict(
+            ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            **{k: v for k, v in errors["selective_scan"][tname].items()
+               if k == "max_abs_err"})
+        del args
     return {"entries": entries, "prepass_ms": prep_times}
 
 
@@ -1115,6 +1243,226 @@ def phase_paper_scale(mixture, gen, est_mod, fs, fk, fp, fl) -> dict:
     return out
 
 
+def compare_model(got, want, what: str) -> dict:
+    """f32 logits or states of two forms of one model: rtol MODEL_RTOL,
+    atol MODEL_ATOL of the largest magnitude (see MODEL_RTOL)."""
+    return compare(got, want, MODEL_RTOL, what, atol_frac=MODEL_ATOL)
+
+
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "gemv")
+
+
+def device_breakdown(fn, label: str) -> dict:
+    """One warm call of ``fn`` under torch.profiler: the device kernels'
+    time summed by class (GEMMs, B7, everything else) and the device's
+    busy time (the union of the kernels' intervals), beside the call's
+    host-clock time; the idle share is 1 − busy / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA], acc_events=True) as prof:
+        _, wall_ms = host_ms(fn)
+    classes = {"gemm": 0.0, "selective_scan": 0.0, "other": 0.0}
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        spans.append((t0, t1))
+        name = e.name.lower()
+        kind = ("selective_scan" if "selective_scan" in name else
+                "gemm" if any(k in name for k in GEMM_KERNELS) else "other")
+        classes[kind] += (t1 - t0) / 1e3
+        ms, count = by_name.get(e.name[:60], (0.0, 0))
+        by_name[e.name[:60]] = (ms + (t1 - t0) / 1e3, count + 1)
+    busy, end = 0.0, float("-inf")
+    for t0, t1 in sorted(spans):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    busy /= 1e3
+    top = sorted(((ms, c, k) for k, (ms, c) in by_name.items()),
+                 reverse=True)
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms if busy else None,
+           "by_class_ms": classes,
+           "top": [{"ms": t, "count": c, "kernel": k} for t, c, k in top[:6]]}
+    if not busy:
+        log(f"  {label}: the profiler recorded no device time (not "
+            f"measured); host clock {wall_ms:.1f} ms")
+        return out
+    log(f"  {label}: host clock {wall_ms:.1f} ms, device busy {busy:.1f} ms"
+        f" (idle share {out['idle_share']:.3f}); kernel time by class: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items())
+        + "; top kernels: "
+        + "; ".join(f"{k} {t:.2f} ms x{c}" for t, c, k in top[:4]))
+    return out
+
+
+def check_monitor(ops, mon: dict) -> dict:
+    """The monitor's launches on the serving path, held against their
+    plain versions on the same operands: B1 on the projected reference's
+    fit rows, B2 on the debiased fit rows against the held-out rows and
+    against the scored requests.  d is the monitor's projection width (8:
+    the dense kernels' DMAX = 8 build, which no other phase runs) and the
+    fit rows fill less than one 128-row tile.  Bars as ``check_kernel``
+    holds every dense launch: the tier's, never below the f32 norm-trick
+    model."""
+    m = mon["fitted"]
+    est, cfg = m._est, m.config
+    _, held_z = m.split(m._project(mon["ref_acts"]))
+    score_z = m._project(mon["acts"])
+    cases = (("flash_score", est.x_train, est.x_train, cfg.score_h or est.h,
+              "fit rows"),
+             ("flash_kde", est.x_sd, held_z, est.h, "held-out rows"),
+             ("flash_kde", est.x_sd, score_z, est.h, "scored requests"))
+    out = {}
+    for name, x, y, h, label in cases:
+        c = kernel_operands(ops, x, y, cfg.precision, cfg.block_m,
+                            cfg.block_n, h)[name]
+        out[f"{name} {label}"] = check_kernel(
+            name, c, cfg.precision, h, f"monitor {label}: n={x.shape[0]} "
+            f"m={y.shape[0]} d={x.shape[1]}")
+    return out
+
+
+def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
+    import dataclasses
+
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import common, transformer
+    from repro_torch.models import ssm as ssm_mod
+
+    cfg = serve_mod.build_config(SERVE_ARCH, layers=SERVE_LAYERS)
+    full = serve_mod.build_config(SERVE_ARCH)
+    log(f"== phase 8: SSM serving path, {SERVE_ARCH} at full width "
+        f"(d_model {cfg.d_model}, d_inner {cfg.d_inner}, N "
+        f"{cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}), "
+        f"{cfg.n_layers} of {full.n_layers} layers")
+    if cfg.n_layers < full.n_layers:
+        log(f"  depth cut to {cfg.n_layers} layers (width kept)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params, init_ms = host_ms(lambda: common.init_params(cfg, gen, "cuda"))
+    n_params = common.param_count(cfg)
+    gb = sum(nbytes(t) for t in params.values()) / 1e9
+    log(f"  {n_params} parameters ({gb:.2f} GB) initialised on the card "
+        f"in {init_ms:.0f} ms")
+    reset_counts(fs, fk, fp, fl)
+    ss.plain_calls = 0
+    ssm_mod.assoc_scans = 0
+    r, gen_ms = host_ms(lambda: serve_mod.generate(
+        SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        gen=SERVE_GEN, seed=SEED, layers=SERVE_LAYERS, monitor=True,
+        monitor_len=MONITOR_LEN, params=params))
+    counts = read_counts(fs, fk, fp, fl)
+    scans = r["scan_counts"]
+    n_l = cfg.n_layers
+    log(f"  launches: {json.dumps(counts)}; scan paths per stage: "
+        f"{json.dumps(scans)}")
+    want = {"prefill": {"selective_scan": n_l, "selective_scan_plain": 0,
+                        "assoc_scan": 0},
+            "decode": {"selective_scan": 0, "selective_scan_plain": 0,
+                       "assoc_scan": 0},
+            "monitor": {"selective_scan": 9 * n_l,
+                        "selective_scan_plain": 0, "assoc_scan": 0}}
+    if scans != want:
+        raise AssertionError(f"scan paths {scans}, expected {want}")
+    if counts["selective_scan"] != 10 * n_l or ss.plain_calls or \
+            ssm_mod.assoc_scans:
+        raise AssertionError("another scan path ran on the serving path")
+    check_launches(counts, ("selective_scan", "flash_score", "flash_kde"),
+                   "the SSM serving path")
+    mon_checks = check_monitor(ops, r["monitor"])
+    toks = r["tokens"]
+    if tuple(toks.shape) != (SERVE_BATCH, SERVE_GEN + 1) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.padded_vocab:
+        raise AssertionError(f"generated ids {tuple(toks.shape)} out of "
+                             "range")
+    mon = r["monitor"]
+    ids = lm_batch(cfg, SEED, 0, SERVE_BATCH, SERVE_PROMPT, "cuda")["tokens"]
+    with torch.inference_mode():
+        _, warm_ms = host_ms(lambda: transformer.prefill(params, ids, cfg))
+        prof_prefill = device_breakdown(
+            lambda: transformer.prefill(params, ids, cfg),
+            f"prefill {SERVE_BATCH} x {SERVE_PROMPT}, profiled")
+        _, cache = transformer.prefill(params, ids, cfg)
+        tok = ids[:, -1:]
+        prof_decode = device_breakdown(
+            lambda: transformer.decode_step(params, cache, tok, cfg),
+            f"one decode step, batch {SERVE_BATCH}, profiled")
+        del cache
+    out = {"layers": n_l, "params": n_params, "init_ms": init_ms,
+           "prefill_ms": r["prefill_ms"], "prefill_warm_ms": warm_ms,
+           "decode_s": r["decode_s"], "decode_tok_s": r["decode_tok_s"],
+           "generate_ms": gen_ms,
+           "peak_memory_gib": r["peak_memory_bytes"] / 2**30,
+           "peak_memory_gib_by_stage": {
+               k: v / 2**30 for k, v in r["peak_memory_by_stage"].items()},
+           "monitor_ms": mon["ms"], "monitor_len": mon["monitor_len"],
+           "monitor_flags": int(mon["flags"].sum()),
+           "monitor_checks": mon_checks, "launches": counts,
+           "prefill_launches": scans["prefill"]["selective_scan"],
+           "profile": {"prefill": prof_prefill, "decode_step": prof_decode}}
+    log(f"  prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens: "
+        f"{r['prefill_ms']:.1f} ms (first call), {warm_ms:.1f} ms (again); "
+        f"decode {SERVE_GEN} steps x batch {SERVE_BATCH}: "
+        f"{r['decode_s']:.3f} s, {r['decode_tok_s']:.1f} tok/s; peak memory "
+        f"{out['peak_memory_gib']:.2f} GiB ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in
+                    out["peak_memory_gib_by_stage"].items())
+        + f"); monitor ({mon['ref_rows']} "
+        f"reference sequences of {mon['monitor_len']} tokens) "
+        f"{mon['ms']:.0f} ms, {out['monitor_flags']}/{SERVE_BATCH} flagged; "
+        f"logits finite; generate {gen_ms:.0f} ms in all")
+    del params, r, mon
+    torch.cuda.empty_cache()
+
+    # the two checks of the path at full width, depth 2, f32
+    c32 = dataclasses.replace(
+        serve_mod.build_config(SERVE_ARCH, layers=CHECK_LAYERS),
+        dtype=torch.float32, param_dtype=torch.float32)
+    p32 = common.init_params(c32, gen, "cuda")
+    ids = lm_batch(c32, SEED, 1, CHECK_BATCH, CHECK_PROMPT + 1,
+                   "cuda")["tokens"]
+    log(f"  checks at full width, {CHECK_LAYERS} layers, f32, batch "
+        f"{CHECK_BATCH}, prompt {CHECK_PROMPT}:")
+    with torch.inference_mode():
+        k_logits, k_cache = transformer.prefill(p32, ids[:, :-1], c32)
+        a_logits, a_cache = transformer.prefill(
+            p32, ids[:, :-1], dataclasses.replace(c32, ssm_kernel=False))
+        sync()
+        out["checks"] = {
+            "kernel_vs_assoc_logits": compare_model(
+                k_logits, a_logits, "prefill through B7 vs the associative "
+                "scan, logits"),
+            "kernel_vs_assoc_ssm": compare_model(
+                k_cache["ssm"], a_cache["ssm"], "prefill through B7 vs the "
+                "associative scan, SSM states")}
+        del a_cache
+        # decode_step advances k_cache in place
+        step, cache = transformer.decode_step(p32, k_cache, ids[:, -1:],
+                                              c32)
+        longer, lcache = transformer.prefill(p32, ids, c32)
+        sync()
+        out["checks"].update({
+            "decode_vs_prefill_logits": compare_model(
+                step, longer, "prefill(p[:S]) + one decode step vs "
+                "prefill(p[:S+1]), logits"),
+            "decode_vs_prefill_ssm": compare_model(
+                cache["ssm"], lcache["ssm"], "prefill(p[:S]) + one decode "
+                "step vs prefill(p[:S+1]), SSM states"),
+            "decode_vs_prefill_conv": compare_model(
+                cache["conv"], lcache["conv"], "prefill(p[:S]) + one "
+                "decode step vs prefill(p[:S+1]), conv windows")})
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
 SOURCES = {
     "flash_score": ("src/repro_torch/kernels/csrc/flash_score.cu",
                     "src/repro/kernels/flash_score.py:78"),
@@ -1128,6 +1476,8 @@ SOURCES = {
                       "src/repro/kernels/flash_laplace.py:127"),
     "sq_moment": ("src/repro_torch/kernels/csrc/flash_laplace.cu",
                   "src/repro/kernels/flash_laplace.py:138"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:89"),
 }
 
 
@@ -1177,6 +1527,7 @@ def main(argv=None) -> int:
     if args.paper_scale:
         paper = phase_paper_scale(mixture, gen, est_mod, fs, fk, fp, fl)
     oracle = phase_oracle(est_mod, bw, metrics, mixtures, kdemod, dev)
+    ssm_serve = phase_ssm_serve(ops, fs, fk, fp, fl)
 
     # launches: each kernel's count from the path that runs it, with its
     # counts set to 0 just before and read just after (phases 4 and 4c)
@@ -1184,9 +1535,26 @@ def main(argv=None) -> int:
     launches = {**{k: main_path["launches"][k] for k in SOURCES
                    if k in main_path["launches"]},
                 "flash_laplace": lap["off"]["flash_laplace"],
-                "sq_moment": lap["nonfused"]["sq_moment"]}
+                "sq_moment": lap["nonfused"]["sq_moment"],
+                "selective_scan": ssm_serve["launches"]["selective_scan"]}
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
+        if kname == "selective_scan":
+            tiers = timings["entries"][kname]
+            b, s_, d_, n_ = SCAN_MAIN
+            kernels.append({
+                "name": kname, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launches[kname],
+                "launches_prefill": ssm_serve["prefill_launches"],
+                **{k: tiers["bf16"][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")},
+                "library_ms": None,
+                "library_note": "no single PyTorch call computes this scan",
+                "dtype": "bf16", "shape": {"B": b, "S": s_, "D": d_,
+                                           "N": n_},
+                "dtypes": tiers})
+            continue
         tiers = timings["entries"][kname]
         main_tier = tiers["f32"]
         entry = {
@@ -1218,6 +1586,7 @@ def main(argv=None) -> int:
     summary["laplace"] = laplace
     summary["fusion"] = fusion
     summary["oracle"] = oracle
+    summary["ssm_serve"] = ssm_serve
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

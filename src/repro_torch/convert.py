@@ -17,7 +17,11 @@ nothing of JAX:
   * ``index_from_state`` — a fitted ``repro.kernels.spatial.SpatialIndex``
     (``labels``, ``centroids``, ``method``) becomes the port's, so a
     pruned path can run on JAX's clustering (the two packages' k-means
-    draw different random numbers from the same seed).
+    draw different random numbers from the same seed);
+  * ``lm_params_from_state`` — ``repro.models.common.init_params``'
+    output (or any parameter dict of that layout) becomes the port's
+    parameter dict for ``repro_torch.models``, so both packages compute
+    the same model.
 
 With these the KDE pass can be held against JAX's on a debiased set that
 JAX computed, apart from the score pass, and the pruned path on
@@ -35,6 +39,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.core.estimator import SDKDE, EstimatorConfig, LaplaceKDE
 from repro_torch.kernels.spatial import SpatialIndex
+from repro_torch.models.common import ModelConfig, param_shapes
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.registry import PreparedEstimator
 
@@ -105,5 +110,27 @@ def prepared_from_state(key: str, points: np.ndarray, h: float, n_true: int,
     return prep
 
 
+def lm_params_from_state(params: "dict[str, np.ndarray]", cfg: ModelConfig,
+                         device: str = "cuda") -> "dict[str, torch.Tensor]":
+    """The port's parameter dict for a ``repro`` one given as numpy
+    arrays (``{k: np.asarray(v)}``): the same names and shapes, each
+    tensor in ``cfg.param_dtype`` on ``device``.  Raises when a name is
+    missing or extra, or a shape differs from ``param_shapes(cfg)``."""
+    dev = device_mod.resolve(device)
+    shapes = param_shapes(cfg)
+    missing, extra = set(shapes) - set(params), set(params) - set(shapes)
+    if missing or extra:
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(missing)}, extra {sorted(extra)}")
+    out = {}
+    for name, (shape, dtype) in shapes.items():
+        # bf16 numpy arrays (ml_dtypes) widen exactly to float32
+        arr = np.asarray(params[name]).astype(np.float32)
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected {shape}")
+        out[name] = torch.as_tensor(arr, device=dev).to(dtype)
+    return out
+
+
 __all__ = ["sdkde_from_state", "laplace_from_state", "prepared_from_state",
-           "index_from_state"]
+           "index_from_state", "lm_params_from_state"]

@@ -30,7 +30,8 @@ from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_score", "flash_kde", "flash_pruned", "flash_laplace")
+SOURCES = ("flash_score", "flash_kde", "flash_pruned", "flash_laplace",
+           "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -47,5 +47,22 @@ def ref_sdkde_shift(x: torch.Tensor, h: float, score_h: float | None = None):
     return x32 + 0.5 * h * h * score
 
 
+def ref_selective_scan(xi, dt, b, c, a, h0):
+    """Oracle for kernel B7: the plain sequential recurrence in f32.
+
+    h_t = exp(Δ_t A) ⊙ h_{t-1} + (Δ_t x_t)·B_t ;  y_t = C_t · h_t.
+    Shapes: xi/dt (B,S,D), b/c (B,S,N), a (D,N), h0 (B,D,N).
+    Returns (y (B,S,D) f32, h_final (B,D,N) f32).
+    """
+    xi, dt, b, c, a = (t.to(torch.float32) for t in (xi, dt, b, c, a))
+    h = h0.to(torch.float32)
+    ys = []
+    for t in range(xi.shape[1]):
+        decay = torch.exp(dt[:, t, :, None] * a[None])          # (B,D,N)
+        h = decay * h + (dt[:, t] * xi[:, t])[:, :, None] * b[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
 __all__ = ["ref_score_stats", "ref_kde_sums", "ref_laplace_sums",
-           "ref_sdkde_shift"]
+           "ref_sdkde_shift", "ref_selective_scan"]

@@ -1,0 +1,245 @@
+"""Serving driver: batched prefill, then greedy decode, for an LM.
+
+    python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+        --batch 4 --prompt-len 1024 --gen 32          # full width, the card
+    python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+        --device cpu --reduced --monitor              # the CPU, small
+
+``generate`` prefills a batch of prompts (building the SSM cache), copies
+the prefill cache into a fresh ``init_cache``, greedy-decodes ``gen``
+tokens per sequence with ``decode_step``, and checks that every logit is
+finite.  It reports prefill ms (host clock, synchronized), decode tokens
+per second, the launches of each scan path per stage and, on the card,
+peak memory per stage.  The model runs at the architecture's full width unless
+``reduced`` asks for ``repro``'s small CPU configuration; ``layers`` cuts
+depth only.  ``ssm_kernel`` (on by default) runs the Mamba blocks
+through kernel B7; off, through the associative-scan branch.  With
+``monitor`` it fits the SD-KDE activation monitor (kernels B1/B2 on the
+card) on 8 × 16 reference sequences of ``monitor_len`` tokens and flags
+the batch's requests.  Runs on the card unless ``device="cpu"``; asking
+for the card where there is none raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.configs import get_arch
+from repro_torch.core.estimator import EstimatorConfig
+from repro_torch.data.synthetic import lm_batch
+from repro_torch.kernels import selective_scan as scan_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import ModelConfig, init_params, param_count
+from repro_torch.models.transformer import (decode_step, forward_hidden,
+                                            init_cache, prefill)
+
+MONITOR_BATCHES, MONITOR_ROWS = 8, 16     # repro's reference corpus
+
+
+def build_config(arch: str = "falcon_mamba_7b", *, reduced: bool = False,
+                 layers: Optional[int] = None,
+                 ssm_kernel: bool = True) -> ModelConfig:
+    """The architecture's model config, at full width unless ``reduced``
+    (``repro``'s CPU configuration, f32), with depth cut to ``layers``."""
+    cfg = get_arch(arch).model
+    if reduced:
+        cfg = cfg.reduced(dtype=torch.float32)
+    if layers is not None:
+        if not 1 <= layers <= cfg.n_layers:
+            raise ValueError(f"layers must be in [1, {cfg.n_layers}], got "
+                             f"{layers}")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, ssm_kernel=ssm_kernel)
+
+
+def _counts() -> dict:
+    return {"selective_scan": scan_mod.launches,
+            "selective_scan_plain": scan_mod.plain_calls,
+            "assoc_scan": ssm_mod.assoc_scans}
+
+
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+def _peak(dev: torch.device, report: dict, stage: str) -> None:
+    """Record the stage's peak allocated bytes on the card, then reset."""
+    if dev.type == "cuda":
+        report["peak_memory_by_stage"][stage] = \
+            torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def generate(arch: str = "falcon_mamba_7b", *, batch: int = 4,
+             prompt_len: int = 32, gen: int = 32, seed: int = 0,
+             device: str = "cuda", reduced: bool = False,
+             layers: Optional[int] = None, ssm_kernel: bool = True,
+             monitor: bool = False, monitor_len: Optional[int] = None,
+             params: Optional[dict] = None, tokens=None) -> dict:
+    """Prefill + greedy decode (module docstring); returns the report.
+
+    ``params`` (the port's parameter dict, e.g. from
+    ``convert.lm_params_from_state``) and ``tokens`` ((batch, prompt_len)
+    ids) replace the seeded ones; ``tokens`` then sets batch and
+    prompt_len.  The report holds ``cfg``, ``tokens`` (B, gen + 1) the
+    greedy ids, ``logits`` the prefill logits and each step's, timings,
+    ``scan_counts`` per stage, and with ``monitor`` the ``monitor``
+    scores and flags, beside the fitted ``ActivationMonitor`` and the
+    pooled activations it was fitted on and scored (``ref_acts``,
+    ``acts``)."""
+    dev = device_mod.resolve(device)
+    cfg = build_config(arch, reduced=reduced, layers=layers,
+                       ssm_kernel=ssm_kernel)
+    if params is None:
+        params = init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    if tokens is None:
+        tokens = lm_batch(cfg, seed, 0, batch, prompt_len, dev)["tokens"]
+    tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(
+        tokens) else tokens, dtype=torch.int64, device=dev)
+    batch, prompt_len = tokens.shape
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    report = {"cfg": cfg, "params": param_count(cfg), "batch": batch,
+              "prompt_len": prompt_len, "gen": gen, "scan_counts": {},
+              "peak_memory_by_stage": {}}
+
+    with torch.inference_mode():
+        before = _counts()
+        device_mod.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, pcache = prefill(params, tokens, cfg)
+        device_mod.synchronize(dev)
+        report["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        report["scan_counts"]["prefill"] = _delta(before)
+        _peak(dev, report, "prefill")
+
+        cache = init_cache(cfg, batch, prompt_len + gen, dev)
+        for k in ("conv", "ssm"):
+            cache[k].copy_(pcache[k])
+        cache["pos"] = pcache["pos"]
+        del pcache
+
+        all_logits = [logits]
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out_tokens = [tok]
+        before = _counts()
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            logits, cache = decode_step(params, cache, tok, cfg)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            all_logits.append(logits)
+            out_tokens.append(tok)
+        device_mod.synchronize(dev)
+        decode_s = time.perf_counter() - t0
+        report["scan_counts"]["decode"] = _delta(before)
+        _peak(dev, report, "decode")
+        report.update(decode_s=decode_s,
+                      decode_tok_s=gen * batch / decode_s if gen else 0.0,
+                      tokens=torch.cat(out_tokens, dim=1), logits=all_logits,
+                      cache=cache)
+
+        if monitor:
+            report["monitor"] = _monitor(params, cfg, tokens, seed,
+                                         monitor_len or prompt_len, dev)
+            report["scan_counts"]["monitor"] = report["monitor"].pop(
+                "scan_counts")
+            _peak(dev, report, "monitor")
+
+    if dev.type == "cuda":
+        report["peak_memory_bytes"] = max(
+            report["peak_memory_by_stage"].values())
+    bad = [i for i, lg in enumerate(all_logits)
+           if not bool(torch.isfinite(lg).all())]
+    if bad:
+        raise FloatingPointError(f"non-finite logits at steps {bad} "
+                                 "(0 = prefill)")
+    return report
+
+
+def _monitor(params, cfg, tokens, seed, monitor_len, dev) -> dict:
+    """The SD-KDE activation monitor on pooled final hidden states."""
+    from repro_torch.core.monitor import ActivationMonitor, pool_activations
+
+    def acts(toks):
+        return pool_activations(forward_hidden(params, toks, cfg))
+
+    before = _counts()
+    t0 = time.perf_counter()
+    ref = torch.cat([
+        acts(lm_batch(cfg, seed, s, MONITOR_ROWS, monitor_len,
+                      dev)["tokens"])
+        for s in range(MONITOR_BATCHES)])
+    mon = ActivationMonitor(proj_dim=8, quantile=0.02,
+                            config=EstimatorConfig(device=dev.type))
+    mon.fit(ref)
+    req = acts(tokens)
+    scores = mon.score(req)
+    flags = scores < mon._threshold
+    device_mod.synchronize(dev)
+    return {"monitor_len": monitor_len, "ref_rows": ref.shape[0],
+            "scores": scores, "flags": flags,
+            "threshold": mon._threshold,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "scan_counts": _delta(before),
+            "fitted": mon, "ref_acts": ref, "acts": req}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="falcon_mamba_7b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=device_mod.DEVICES)
+    ap.add_argument("--reduced", action="store_true",
+                    help="repro's small CPU configuration (f32)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut depth to this many layers (width is kept)")
+    ap.add_argument("--ssm-kernel", choices=("on", "off"), default="on",
+                    help="Mamba scan through kernel B7 (on) or the "
+                         "associative-scan branch (off)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="SD-KDE activation-density OOD monitor")
+    ap.add_argument("--monitor-len", type=int, default=None,
+                    help="reference sequence length (default: prompt)")
+    args = ap.parse_args(argv)
+    r = generate(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                 gen=args.gen, seed=args.seed, device=args.device,
+                 reduced=args.reduced, layers=args.layers,
+                 ssm_kernel=args.ssm_kernel == "on", monitor=args.monitor,
+                 monitor_len=args.monitor_len)
+    cfg = r["cfg"]
+    print(f"arch={args.arch} params={r['params'] / 1e6:.2f}M "
+          f"layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"dtype={cfg.dtype} ssm_kernel={cfg.ssm_kernel} "
+          f"device={args.device}")
+    print(f"prefill: {r['batch']}x{r['prompt_len']} in "
+          f"{r['prefill_ms']:.1f} ms")
+    print(f"decode: {r['gen']} steps x batch {r['batch']} in "
+          f"{r['decode_s']:.2f} s ({r['decode_tok_s']:.1f} tok/s)")
+    print(f"scan calls per stage: {r['scan_counts']}")
+    if "monitor" in r:
+        m = r["monitor"]
+        print(f"monitor: {int(m['flags'].sum())}/{r['batch']} requests "
+              f"flagged OOD (reference {m['ref_rows']} x "
+              f"{m['monitor_len']} tokens)")
+    if "peak_memory_bytes" in r:
+        print(f"peak memory: {r['peak_memory_bytes'] / 2**30:.2f} GiB")
+    print("sample generations (token ids):")
+    for row in r["tokens"][: min(2, r["batch"])]:
+        print("  ", row[:16].tolist(), "...")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,251 @@
+"""Model configuration and parameters (``repro.models.common``).
+
+One ``ModelConfig`` carries every field of ``repro``'s, with dtypes as
+``torch.dtype``.  ``param_shapes(cfg)`` is the single source of truth for
+every parameter's shape and dtype: ``param_count`` sums it without
+allocating, ``init_params`` materializes it on a device from a
+``torch.Generator``.  Sharding (``repro``'s PartitionSpecs) waits for
+ROADMAP A13; only the SSM family's shapes are ported (A15 holds the
+others).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Literal, Optional, Tuple
+
+import torch
+
+Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
+PORTED_FAMILIES = ("ssm",)
+
+
+#: Fields that only the families the port lacks read (and training, for
+#: ``seq_shard_attn``).  The SSM path takes each at its default only, so
+#: a value set there raises rather than changing nothing.  The widths
+#: n_heads, n_kv_heads, head_dim and d_ff stay free: ``repro``'s
+#: Falcon-Mamba carries them unused and ``reduced()`` shrinks them; so do
+#: remat and loss_chunk, which shape only a train step.
+UNPORTED_FIELDS = (
+    "act", "post_norms", "rope_variant", "rope_theta", "attn_softcap",
+    "sliding_window", "local_global_alt", "n_experts", "top_k", "moe_dff",
+    "n_shared_experts", "capacity_factor", "expert_2d_sharding",
+    "n_enc_layers", "enc_frames", "n_patches", "seq_shard_attn",
+    "kv_quant")
+
+
+def check_family(cfg: "ModelConfig") -> None:
+    """Raise unless the port has ``cfg``'s family and ``cfg`` sets none
+    of ``UNPORTED_FIELDS`` away from its default."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
+            "(ROADMAP A15); the port has " + ", ".join(PORTED_FAMILIES))
+    odd = [f for f in UNPORTED_FIELDS
+           if getattr(cfg, f) != _DEFAULTS[f]]
+    if odd:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(odd)} select features of families "
+            "the port does not have yet (ROADMAP A15)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Family
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                  # 0 -> d_model // n_heads
+    act: str = "swiglu"                # swiglu | geglu | gelu | relu2
+    rms_one_plus: bool = False         # gemma-style (1 + w) RMSNorm scale
+    post_norms: bool = False           # gemma2 sandwich norms
+    rope_variant: str = "full"         # full | half (chatglm 2d rope)
+    rope_theta: float = 10000.0
+    attn_softcap: Optional[float] = None
+    final_softcap: Optional[float] = None
+    sliding_window: Optional[int] = None
+    local_global_alt: bool = False     # gemma2 alternating local/global
+    tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_dff: int = 0                   # per-expert FFN width
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    expert_2d_sharding: bool = False
+    # SSM (mamba1)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    attn_free: bool = False            # falcon-mamba: no attention at all
+    # enc-dec (whisper) — frontend is a stub
+    n_enc_layers: int = 0
+    enc_frames: int = 1500
+    # VLM (llava) — patch frontend is a stub
+    n_patches: int = 0
+    # numerics
+    dtype: Any = torch.bfloat16        # activations
+    param_dtype: Any = torch.float32
+    remat: str = "full"                # none | full
+    loss_chunk: int = 512              # sequence chunking for the vocab loss
+    seq_shard_attn: Optional[bool] = None
+    kv_quant: bool = False
+    # Mamba path: kernel B7 (kernels/selective_scan.py) instead of the
+    # associative scan over the materialized (B, S, d_inner, N) tensors.
+    ssm_kernel: bool = False
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to 256, as in ``repro`` (lane alignment; padded ids
+        are never produced and their logits are free to float)."""
+        return -(-self.vocab_size // 256) * 256
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.hd
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.hd
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, math.ceil(self.d_model / 16))
+
+    @property
+    def gated(self) -> bool:
+        return self.act in ("swiglu", "geglu")
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """Small same-family variant for CPU tests (``repro``'s sizes)."""
+        shrink = dict(
+            n_layers=2,
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            d_ff=128,
+            vocab_size=256,
+            head_dim=16,
+            n_experts=min(self.n_experts, 8) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            moe_dff=32 if self.n_experts else 0,
+            n_shared_experts=min(self.n_shared_experts, 1),
+            sliding_window=8 if self.sliding_window else None,
+            n_enc_layers=2 if self.n_enc_layers else 0,
+            enc_frames=16 if self.n_enc_layers else 1500,
+            n_patches=8 if self.n_patches else 0,
+            dtype=torch.float32,
+            param_dtype=torch.float32,
+            remat="none",
+            loss_chunk=0,
+        )
+        shrink.update(overrides)
+        return dataclasses.replace(self, **shrink)
+
+
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+
+ShapeSpec = Tuple[Tuple[int, ...], Any]  # (shape, dtype)
+
+
+def _ssm_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+    d, pd = cfg.d_model, cfg.param_dtype
+    di, n, dtr, dc = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    return {
+        "ssm_norm": ((d,), pd),
+        "in_proj": ((d, 2 * di), pd),
+        "conv_w": ((dc, di), pd),
+        "conv_b": ((di,), pd),
+        "x_proj": ((di, dtr + 2 * n), pd),
+        "dt_proj": ((dtr, di), pd),
+        "dt_bias": ((di,), pd),
+        "A_log": ((di, n), pd),
+        "D": ((di,), pd),
+        "out_proj": ((di, d), pd),
+    }
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+    """Flat dict path -> (shape, dtype); per-layer parameters are stacked
+    on a leading layer axis under ``layers/``, as in ``repro``."""
+    check_family(cfg)
+    d, v, pd = cfg.d_model, cfg.padded_vocab, cfg.param_dtype
+    shapes: Dict[str, ShapeSpec] = {
+        "embed": ((v, d), pd),
+        "final_norm": ((d,), pd),
+    }
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = ((d, v), pd)
+    for k, (shape, dt) in _ssm_shapes(cfg).items():
+        shapes[f"layers/{k}"] = ((cfg.n_layers, *shape), dt)
+    return shapes
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(math.prod(s) for s, _ in param_shapes(cfg).values())
+
+
+def _init_one(gen: torch.Generator, name: str, shape, dtype,
+              device: torch.device) -> torch.Tensor:
+    """``repro``'s rules: ones for norms, conv_b, dt_bias and D; A_log =
+    log(1..N) on every channel; normal/√fan_in elsewhere (drawn in f32, one leading slice at a time, then cast)."""
+    if not shape or shape[-1] == 0:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    last = name.split("/")[-1]
+    if "norm" in last or last in ("conv_b", "dt_bias", "D"):
+        return torch.ones(shape, dtype=dtype, device=device)
+    if last == "A_log":
+        n = shape[-1]
+        a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
+        return torch.log(a).expand(shape).to(dtype).contiguous()
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = 1.0 / math.sqrt(max(fan_in, 1))
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out if len(shape) > 2 else out[None]
+    for part in rows:       # a stacked parameter one layer at a time
+        part.copy_(torch.randn(part.shape, generator=gen, device=device,
+                               dtype=torch.float32) * scale)
+    return out
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device: "str | torch.device" = "cuda"
+                ) -> Dict[str, torch.Tensor]:
+    """Every parameter of ``param_shapes(cfg)``, allocated on ``device``
+    and drawn from ``gen`` (a generator on that device) in sorted name
+    order.  The values differ from ``repro``'s for the same seed; carry
+    ``repro``'s over with ``convert.lm_params_from_state``."""
+    dev = torch.device(device)
+    return {name: _init_one(gen, name, shape, dt, dev)
+            for name, (shape, dt) in sorted(param_shapes(cfg).items())}
+
+
+def layer_tree(params: Dict[str, torch.Tensor], prefix: str = "layers/"):
+    """Sub-dict of stacked per-layer params (leading axis = layer)."""
+    plen = len(prefix)
+    return {k[plen:]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def layer_params(params: Dict[str, torch.Tensor], i: int,
+                 prefix: str = "layers/") -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s parameters: a view of each stacked tensor."""
+    return {k: v[i] for k, v in layer_tree(params, prefix).items()}
+
+
+__all__ = ["Family", "PORTED_FAMILIES", "UNPORTED_FIELDS", "ModelConfig",
+           "ShapeSpec",
+           "check_family", "param_shapes", "param_count", "init_params",
+           "layer_tree", "layer_params"]

@@ -1,0 +1,70 @@
+"""Shared building blocks: norms, MLPs, embeddings, logits
+(``repro.models.layers``)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, one_plus: bool = False,
+            eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    w = w.to(torch.float32)
+    scale = 1.0 + w if one_plus else w
+    return (x * scale).to(dt)
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        return F.silu(x)
+    if kind in ("geglu", "gelu"):
+        # jax.nn.gelu's default is the tanh approximation
+        return F.gelu(x, approximate="tanh")
+    if kind == "relu2":
+        r = F.relu(x)
+        return r * r
+    raise ValueError(kind)
+
+
+def mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig,
+        prefix: str = "") -> torch.Tensor:
+    """Gated (SwiGLU/GeGLU) or plain (GELU/ReLU²) feed-forward."""
+    up = x @ lp[prefix + "w_up"].to(x.dtype)
+    if cfg.gated:
+        h = _act(x @ lp[prefix + "w_gate"].to(x.dtype), cfg.act) * up
+    else:
+        h = _act(up, cfg.act)
+    return h @ lp[prefix + "w_down"].to(x.dtype)
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    x = params["embed"][tokens].to(cfg.dtype)
+    # common convention (gemma/whisper): scale by sqrt(d)
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype)
+    return x
+
+
+def logits_head(params: dict, x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        w = params["embed"].to(x.dtype).T
+    else:
+        w = params["lm_head"].to(x.dtype)
+    return softcap((x @ w).to(torch.float32), cfg.final_softcap)
+
+
+__all__ = ["rmsnorm", "softcap", "mlp", "embed_tokens", "logits_head"]

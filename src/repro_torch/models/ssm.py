@@ -1,0 +1,133 @@
+"""Mamba-1 selective-SSM block (``repro.models.ssm``): Falcon-Mamba's
+layer, and the SSM half of hybrids.
+
+Recurrence (per channel c, state index n):
+
+    h_t = exp(Δ_t A) ⊙ h_{t-1} + Δ_t B_t x_t ,   y_t = C_t · h_t + D x_t
+
+with A diagonal (d_inner, N) and B, C input-dependent.  ``mamba_block``
+runs a whole sequence: with ``cfg.ssm_kernel`` through kernel B7
+(``kernels.selective_scan``), else as ``repro``'s associative scan over
+the materialized (B, S, d_inner, N) decay and drive tensors, written here
+as a log-depth doubling scan over the sequence.  ``mamba_decode_step``
+carries (conv_state, ssm_state) and costs O(1) per token.  The layouts
+are ``repro``'s: activations (B, S, d), conv weight (dc, d_inner).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.models.common import ModelConfig
+
+#: Calls of the associative-scan branch of ``mamba_block``; set to 0 to
+#: start a count (a path that should run B7 must leave it at 0).
+assoc_scans = 0
+
+
+def _ssm_proj(x_in: torch.Tensor, lp: dict, cfg: ModelConfig):
+    """Input-dependent Δ, B, C from the x-projection."""
+    n, dtr = cfg.ssm_state, cfg.dt_rank
+    xbc = x_in @ lp["x_proj"].to(x_in.dtype)               # (..., dtr+2N)
+    dt, b, c = torch.split(xbc, [dtr, n, n], dim=-1)
+    dt = F.softplus(dt @ lp["dt_proj"].to(x_in.dtype)
+                    + lp["dt_bias"].to(x_in.dtype))        # (..., d_inner)
+    return dt, b, c
+
+
+def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over the sequence. x: (B,S,di), w: (dc,di)."""
+    dc, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, dc - 1, 0))
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, dc):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + b
+
+
+def _doubling_scan(decay: torch.Tensor, drive: torch.Tensor) -> torch.Tensor:
+    """All states of h_t = decay_t ⊙ h_{t-1} + drive_t (h_0 = 0) over dim
+    1, in log2(S) steps: after the step of stride k each position holds
+    the composition of its last 2k updates."""
+    a, h = decay, drive
+    k = 1
+    while k < h.shape[1]:
+        h = torch.cat([h[:, :k], a[:, k:] * h[:, :-k] + h[:, k:]], dim=1)
+        a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
+        k *= 2
+    return h
+
+
+def mamba_block(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
+                return_state: bool = False):
+    """Full-sequence Mamba-1 block.  With ``return_state`` also returns
+    (conv_state (B, dc-1, d_inner), ssm_state (B, d_inner, N) f32) at the
+    end of the sequence: the prefill path for serving."""
+    global assoc_scans
+    xz = x @ lp["in_proj"].to(x.dtype)                     # (B,S,2di)
+    xi_pre, z = xz.chunk(2, dim=-1)
+    xi = F.silu(_conv1d(xi_pre, lp["conv_w"].to(x.dtype),
+                        lp["conv_b"].to(x.dtype)))
+    dt, b, c = _ssm_proj(xi, lp, cfg)                      # (B,S,di),(B,S,N)
+    a = -torch.exp(lp["A_log"].to(torch.float32))          # (di, N)
+
+    if cfg.ssm_kernel:
+        h0 = torch.zeros((x.shape[0], cfg.d_inner, cfg.ssm_state),
+                         dtype=torch.float32, device=x.device)
+        y, h_last = selective_scan(xi, dt, b.contiguous(), c.contiguous(),
+                                   a, h0)
+    else:
+        assoc_scans += 1
+        dt32 = dt.to(torch.float32)
+        decay = torch.exp(dt32[..., None] * a)              # (B,S,di,N)
+        drive = (dt32 * xi.to(torch.float32))[..., None] * \
+            b.to(torch.float32)[..., None, :]
+        hs = _doubling_scan(decay, drive)
+        y = torch.einsum("bsdn,bsn->bsd", hs, c.to(torch.float32))
+        h_last = hs[:, -1].clone()      # not a view that pins hs
+    y = y + lp["D"].to(torch.float32) * xi.to(torch.float32)
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ lp["out_proj"].to(x.dtype)
+    if return_state:
+        # a copy: a view of xz would keep the whole (B, S, 2·d_inner)
+        # projection alive in every layer's cache entry
+        conv_state = xi_pre[:, -(cfg.ssm_conv - 1):, :].clone()
+        return out, conv_state, h_last
+    return out
+
+
+def mamba_decode_step(
+    x: torch.Tensor,            # (B, 1, d_model)
+    conv_state: torch.Tensor,   # (B, dc-1, d_inner)
+    ssm_state: torch.Tensor,    # (B, d_inner, N) f32
+    lp: dict,
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """O(1) single-token decode; returns (out, conv_state', ssm_state')."""
+    xz = x[:, 0] @ lp["in_proj"].to(x.dtype)               # (B,2di)
+    xi, z = xz.chunk(2, dim=-1)
+    w = lp["conv_w"].to(x.dtype)                           # (dc, di)
+    window = torch.cat([conv_state.to(x.dtype), xi[:, None, :]], dim=1)
+    conv = torch.einsum("bcd,cd->bd", window, w) + lp["conv_b"].to(x.dtype)
+    xi = F.silu(conv)
+    conv_state = window[:, 1:]
+
+    dt, b, c = _ssm_proj(xi, lp, cfg)                      # (B,di),(B,N)
+    a = -torch.exp(lp["A_log"].to(torch.float32))
+    dt32 = dt.to(torch.float32)
+    decay = torch.exp(dt32[..., None] * a)                 # (B,di,N)
+    drive = (dt32 * xi.to(torch.float32))[..., None] * \
+        b.to(torch.float32)[:, None, :]
+    ssm_state = decay * ssm_state + drive
+    y = torch.einsum("bdn,bn->bd", ssm_state, c.to(torch.float32))
+    y = y + lp["D"].to(torch.float32) * xi.to(torch.float32)
+    y = y.to(x.dtype) * F.silu(z)
+    out = (y @ lp["out_proj"].to(x.dtype))[:, None, :]
+    return out, conv_state, ssm_state
+
+
+__all__ = ["mamba_block", "mamba_decode_step"]

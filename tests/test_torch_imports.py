@@ -40,7 +40,8 @@ def test_port_has_cuda_sources_for_both_kernels():
     assert {p.stem for p in csrc.glob("*.cu")} >= {"flash_score",
                                                    "flash_kde",
                                                    "flash_pruned",
-                                                   "flash_laplace"}
+                                                   "flash_laplace",
+                                                   "selective_scan"}
 
 
 def test_every_loaded_entry_point_is_defined_in_its_source():
@@ -59,7 +60,8 @@ def test_every_loaded_entry_point_is_defined_in_its_source():
             loads.add((m.group(1), m.group(2) or "launch",
                        m.group(3) or m.group(1)))
     assert {name for name, _, _ in loads} == {
-        "flash_score", "flash_kde", "flash_pruned", "flash_laplace"}
+        "flash_score", "flash_kde", "flash_pruned", "flash_laplace",
+        "selective_scan"}
     assert {p for n, _, p in loads if n == "flash_laplace"} == {
         "flash_laplace", "sq_moment"}
     for name, entry, prefix in loads:
