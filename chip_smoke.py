@@ -10,13 +10,22 @@ Run from the repository root.  Phases, each printing its lines:
 
   1. device       the card's name and power limit (nvidia-smi);
   2. build        the five CUDA sources (B1, B2, B3/B4, B5/B6, B7)
-                  compiled with nvcc for sm_90a, in parallel;
+                  compiled with nvcc for sm_90a, in parallel; ptxas's
+                  registers and spills; the HMMA/HGMMA instructions in
+                  the SASS of each B2/B4 instantiation (cuobjdump; the
+                  bf16 tiers must have them, f32 none);
   3. kernels      each kernel against its plain PyTorch version on the
                   card, every tier: B1 flash_score, B2 flash_kde, B5
                   flash_laplace and B6 sq_moment, then B3
                   flash_score_pruned and B4 flash_kde_pruned (laplace off
                   and on), at a ragged small shape whose visit lists hold
                   a zero-count row tile, and at the main path's shape;
+                  B2 and B4 also at serving requests of 1, 3 and 17 rows
+                  against the main train set, at blocks (96, 100) and
+                  (64, 200) on the ragged shape, and on the clustered set
+                  (with a zero-count row tile), and bit for bit: B2 rows
+                  alone equal the same rows in a 4096-row batch, and two
+                  launches of B2 or B4 on the same inputs are equal;
                   B1, B2, B5 and B6 also at d = 1 (Fig. 4's dimension);
                   B7 selective_scan (y and h_final) at a ragged shape
                   (S 200, D 1000, N 4 and 16, nonzero h0) and at
@@ -29,7 +38,8 @@ Run from the repository root.  Phases, each printing its lines:
                   and a ServeEngine answering ragged QueryRequests and one
                   query_many; B3 and B4 must launch, B1 and B2 must not.
                   Then the same with prune="off", which must launch B1
-                  and B2 only.  Pruned densities are held against dense,
+                  and B2 only.  Serving latency is printed by request
+                  size.  Pruned densities are held against dense,
                   against the "torch" backend on the card, and both
                   against float64 on 2048 queries;
   4b. clustered   32768 x 16 from 32 centres uniform in [0, 20]^16, sigma
@@ -46,15 +56,18 @@ Run from the repository root.  Phases, each printing its lines:
                   non-fused, dense, the "torch" backend and float64 on
                   2048 queries are held against each other per row within
                   bar·(the row's absolute mass);
-  5. timings      CUDA-event medians of each kernel and its plain version
-                  at the main path's shape (and B3/B4 on the clustered
-                  set), beside the least time the card could take for the
-                  work (for B3/B4: the visited pairs only); the host-side
-                  prepass (k-means, layout, tile map, visit lists) timed
-                  apart from the kernels; the fusion comparison, fused
-                  (B5) against non-fused (B2 + B6), kernels alone and
-                  through ops, at the main shape and Fig. 4's four 1-D
-                  shapes; B7 at Falcon-Mamba-7B's layer shape;
+  5. timings      each kernel's device time (CUDA-graph replays), its
+                  wrapper call's time and its plain version's (CUDA-event
+                  medians) at the main path's shape (and B3/B4 on the
+                  clustered set), beside the least time the card could
+                  take for the work (for B3/B4: the visited pairs only);
+                  B2 and B4 at one 128-row serving request against
+                  n = 32768; the host-side prepass (k-means, layout, tile
+                  map, visit lists) timed apart from the kernels; the
+                  fusion comparison, fused (B5) against non-fused (B2 +
+                  B6), kernels alone and through ops, at the main shape
+                  and Fig. 4's four 1-D shapes; B7 at Falcon-Mamba-7B's
+                  layer shape;
   6. paper scale  (--paper-scale only) fit + evaluate at the paper's size,
                   prune="auto" and prune="off";
   7. oracle       MISE, MIAE and negative mass against the known mixture
@@ -106,6 +119,8 @@ SMALL = (1000, 300, 16)                 # ragged (n, m, d)
 TIERS = ("f32", "bf16x2", "bf16")
 TIER_BAR = {"f32": 1e-5, "bf16x2": 5e-4, "bf16": 5e-2}
 SERVE_SIZES = (1, 3, 17, 100, 333, 640, 1000, 2048, 2500, 4096)
+REQUEST_ROWS = 128                      # one row tile: a serving request
+ODD_BLOCKS = ((96, 100), (64, 200))     # (block_m, block_n) off the main
 N_F64 = 2048                            # queries held against float64
 MANY_SIZES = (7, 120, 900, 2000)
 SEED = 0
@@ -250,6 +265,34 @@ def cuda_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+def graph_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, the graph replayed ``reps`` times between two events each;
+    the median over the replays, per call.  Unlike ``cuda_ms`` no host
+    work (the wrapper's checks and allocations) sits between launches,
+    which matters for a kernel shorter than its wrapper's host time."""
+    fn()
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    sync()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        sync()
+        times.append(e0.elapsed_time(e1) / calls)
+    del graph
+    times.sort()
+    return times[len(times) // 2]
+
+
 def host_ms(fn) -> tuple:
     """(result, ms) of one call on the host clock, synchronized."""
     sync()
@@ -307,10 +350,28 @@ def phase_device() -> tuple:
 
 
 _PTXAS_NAME = re.compile(
-    r"(kde|score)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E"
+    r"(kde_pass|kde|score)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E"
     r"(?:LN\w*?WeightE(\d)E)?N\w*?(AllTiles|VisitList)")
 _WEIGHTS = {None: "", "0": "", "1": ",laplace", "2": ",sq_moment"}
 _PTXAS_SCAN = re.compile(r"selective_scan_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+# the tensor-core instructions counted in the SASS of each instantiation
+_TENSOR_OPS = re.compile(r"\b(HMMA|HGMMA)\b")
+
+
+def kernel_key(fn: str) -> str:
+    """kernel<tier,DMAX[,weight][,visits]> for a mangled kernel name
+    (the name itself when it is none of the flash kernels)."""
+    t = _PTXAS_NAME.search(fn)
+    if t is not None:
+        return (f"{t.group(1)}<{'f32' if t.group(2) == 'f' else 'bf16'}"
+                f"{'x2' if t.group(3) == '1' else ''},{t.group(4)}"
+                f"{_WEIGHTS[t.group(5)]}"
+                f"{',visits' if t.group(6) == 'VisitList' else ''}>")
+    sc = _PTXAS_SCAN.search(fn)
+    if sc is not None:
+        return (f"selective_scan<{'f32' if sc.group(1) == 'f' else 'bf16'},"
+                f"{sc.group(2)}>")
+    return fn
 
 
 def ptxas_summary(text: str) -> list:
@@ -327,24 +388,33 @@ def ptxas_summary(text: str) -> list:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn:
-            t = _PTXAS_NAME.search(fn)
-            sc = _PTXAS_SCAN.search(fn)
-            key = fn if t is None else (
-                f"{t.group(1)}<"
-                f"{'f32' if t.group(2) == 'f' else 'bf16'}"
-                f"{'x2' if t.group(3) == '1' else ''},{t.group(4)}"
-                f"{_WEIGHTS[t.group(5)]}"
-                f"{',visits' if t.group(6) == 'VisitList' else ''}>")
-            if sc:
-                key = (f"selective_scan<"
-                       f"{'f32' if sc.group(1) == 'f' else 'bf16'},"
-                       f"{sc.group(2)}>")
-            out.append((key, int(m.group(1)), spill))
+            out.append((kernel_key(fn), int(m.group(1)), spill))
             fn = None
     return out
 
 
-def phase_build(_build) -> None:
+def tensor_op_counts(_build, name: str):
+    """{kernel<...>: HMMA/HGMMA instructions} in the SASS of library
+    ``name`` (cuobjdump -sass), or None where the toolkit has no
+    cuobjdump."""
+    exe = Path(_build.nvcc()).with_name("cuobjdump")
+    if not exe.exists():
+        return None
+    sass = subprocess.run([str(exe), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\w+)", ln)
+        if m:
+            fn = kernel_key(m.group(1))
+            counts[fn] = 0
+        elif fn is not None:
+            counts[fn] += len(_TENSOR_OPS.findall(ln))
+    return counts
+
+
+def phase_build(_build) -> dict:
     log("== phase 2: build")
     t0 = time.perf_counter()
     secs = _build.build()
@@ -365,6 +435,26 @@ def phase_build(_build) -> None:
                 f"{max((r for _, r, _ in rows), default=0)}; spills: "
                 f"{', '.join(spills) or 'none'}")
     log(f"  build wall time {time.perf_counter() - t0:.1f} s")
+    # B2 and B4: the bf16 tiers' Gram runs on the tensor cores, f32's not
+    hmma = {}
+    for name in ("flash_kde", "flash_pruned"):
+        counts = tensor_op_counts(_build, name)
+        if counts is None:
+            log(f"  {name}: tensor-core instructions in the SASS: not "
+                "available (no cuobjdump)")
+            continue
+        passes = {k: v for k, v in counts.items()
+                  if k.startswith("kde_pass<")}
+        log(f"  {name}: HMMA/HGMMA instructions per KDE-pass "
+            "instantiation: " + ", ".join(f"{k} {v}"
+                                          for k, v in sorted(passes.items())))
+        wrong = [k for k, v in passes.items()
+                 if (v > 0) != (not k.startswith("kde_pass<f32"))]
+        if not passes or wrong:
+            raise AssertionError(f"{name}: the bf16 tiers must use tensor "
+                                 f"cores and f32 none: {wrong or counts}")
+        hmma[name] = passes
+    return hmma
 
 
 def kernel_operands(ops, x, y, precision, block_m, block_n, h):
@@ -399,7 +489,7 @@ def kernel_operands(ops, x, y, precision, block_m, block_n, h):
             kernel=lambda: fk.flash_kde_cuda(*k_args, block_m=block_m,
                                              block_n=block_n),
             plain=lambda: fk.flash_kde_plain(*k_args, block_n=512),
-            real=slice(0, m), pairs=m * n,
+            args=k_args, real=slice(0, m), pairs=m * n,
             moved=nbytes(*k_args) + m * 4,
             pts=torch.cat([xrec[:n], y.float()])),
     }
@@ -570,6 +660,76 @@ def check_scan(ss, args, label) -> dict:
     return out
 
 
+def clustered_set(dev) -> tuple:
+    """The clustered check's points (phase 4b): 32 centres uniform in
+    [0, 20]^16, sigma 1, train and queries drawn with numpy from SEED."""
+    rng = np.random.default_rng(SEED)
+    centres = rng.uniform(0.0, CLU_SPREAD, (CLU_K, D))
+    return (clustered_points(rng, centres, N_TRAIN, dev),
+            clustered_points(rng, centres, N_QUERY, dev))
+
+
+KDE_PASSES = ("flash_kde", "flash_kde_pruned", "flash_kde_pruned laplace")
+
+
+def check_zero_tile(pruned, block_m, precision, keys) -> None:
+    """Row tile 1, emptied in both visit lists, sums to exactly 0."""
+    for key in keys:
+        tile1 = pruned[key]["kernel"]()[block_m:2 * block_m]
+        sync()
+        if bool((tile1 != 0).any()):
+            raise AssertionError(f"{key}: a zero-count row tile did not "
+                                 "sum to zero")
+    log(f"  zero-count row tile sums to 0.0 in {', '.join(keys)} "
+        f"({precision})")
+
+
+def check_bitwise(ops, sp, x, y, index, block_m, block_n, h) -> dict:
+    """On the card, bit for bit: B2 on rows served alone (1, 3, 17 and
+    128 of them, padded to one row tile with other rows) and the same
+    rows inside a 4096-row batch, on operands sliced from the batch's;
+    B2 and B4 (both flags) launched twice on the same inputs."""
+    from repro_torch.kernels import flash_kde as fk
+
+    out = {}
+    for precision in TIERS:
+        c = kernel_operands(ops, x, y[:4096], precision, block_m, block_n,
+                            h)["flash_kde"]
+        args = c["args"]
+        batch = fk.flash_kde_cuda(*args, block_m=block_m, block_n=block_n)
+        for k in (1, 3, 17, 128):
+            off = 1234 + k               # not on a warp or tile boundary
+            rows = torch.cat([torch.arange(off, off + k),
+                              torch.arange(0, block_m - k)]).to(x.device)
+            alone = list(args)
+            for i in (0, 1, 5):          # y, nrm_y, y_lo
+                if alone[i] is not None:
+                    alone[i] = alone[i][rows].contiguous()
+            got = fk.flash_kde_cuda(*alone, block_m=block_m,
+                                    block_n=block_n)[:k]
+            sync()
+            if not torch.equal(got, batch[off:off + k]):
+                raise AssertionError(
+                    f"flash_kde {precision}: {k} rows alone differ from the "
+                    "same rows in a 4096-row batch")
+        log(f"  flash_kde {precision}: rows alone (1, 3, 17, 128) equal "
+            "the same rows in a 4096-row batch, bit for bit")
+        twice = dict(kernel_operands(ops, x, y, precision, block_m, block_n,
+                                     h), **pruned_operands(
+            ops, sp, x, y, precision, block_m, block_n, h, index))
+        for name in KDE_PASSES:
+            a, b = twice[name]["kernel"](), twice[name]["kernel"]()
+            sync()
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} {precision}: two launches on "
+                                     "the same inputs differ")
+        log(f"  {', '.join(KDE_PASSES)} {precision}: two launches equal, "
+            "bit for bit")
+        out[precision] = True
+        del twice
+    return out
+
+
 def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
     log("== phase 3: kernels against their plain versions on the card")
     results = {}
@@ -587,14 +747,8 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
                 ops, sp, x, y, precision, block_m, block_n, h, index,
                 empty_row=1 if label == "ragged" else None)
             if label == "ragged":
-                for key in ("flash_score_pruned", "flash_kde_pruned"):
-                    tile1 = pruned[key]["kernel"]()[block_m:2 * block_m]
-                    sync()
-                    if bool((tile1 != 0).any()):
-                        raise AssertionError(f"{key}: a zero-count row "
-                                             "tile did not sum to zero")
-                log(f"  zero-count row tile sums to 0.0 in both pruned "
-                    f"kernels ({precision})")
+                check_zero_tile(pruned, block_m, precision,
+                                ("flash_score_pruned",) + KDE_PASSES[1:])
             opnds.update(pruned)
             for name, c in opnds.items():
                 res = check_kernel(name, c, precision, h,
@@ -602,6 +756,50 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
                 if label == "main":
                     results.setdefault(name, {})[precision] = res
             del opnds, pruned
+        if label != "main":
+            continue
+        # serving requests: B2 and B4 at 1, 3 and 17 query rows (real
+        # rows only) against the main shape's train set
+        for k in (1, 3, 17):
+            for precision in TIERS:
+                opnds = dict(kernel_operands(
+                    ops, x, y[:k], precision, block_m, block_n, h),
+                    **pruned_operands(ops, sp, x, y[:k], precision, block_m,
+                                      block_n, h, index))
+                for name in KDE_PASSES:
+                    check_kernel(name, opnds[name], precision, h,
+                                 f"request of {k} rows, n={n} d={d}")
+                del opnds
+        results["bitwise"] = check_bitwise(ops, sp, x, y, index, block_m,
+                                           block_n, h)
+    # B2 and B4 at tiles that do not fill the kernel's own 64 rows x 128
+    # columns: block_m 96 (a half-idle block), block_n 100 (element
+    # copies, one masked chunk a tile) and 200 (two chunks, one masked)
+    n, m, d = SMALL
+    x, y = mixture.sample(n, gen), mixture.sample(m, gen)
+    index = sp.build_index(x, seed=SEED)
+    for bm, bn in ODD_BLOCKS:
+        for precision in TIERS:
+            opnds = dict(kernel_operands(ops, x, y, precision, bm, bn, h),
+                         **pruned_operands(ops, sp, x, y, precision, bm, bn,
+                                           h, index))
+            for name in KDE_PASSES:
+                check_kernel(name, opnds[name], precision, h,
+                             f"blocks {bm} x {bn}, n={n} m={m} d={d}")
+            del opnds
+    # the clustered set, where B4 skips most tiles; row tile 1's lists
+    # emptied
+    cx, cy = clustered_set(gen.device)
+    cindex = sp.build_index(cx, seed=SEED)
+    for precision in TIERS:
+        pruned = pruned_operands(ops, sp, cx, cy, precision, block_m,
+                                 block_n, CLU_H, cindex, empty_row=1)
+        check_zero_tile(pruned, block_m, precision, KDE_PASSES[1:])
+        for name in KDE_PASSES[1:]:
+            check_kernel(name, pruned[name], precision, CLU_H,
+                         f"clustered n={N_TRAIN} m={N_QUERY} d={D}, "
+                         f"occupancy {pruned[name]['occupancy']:.4f}")
+        del pruned
     # d = 1, Fig. 4's largest shape: the dense kernels' DMAX = 4 build,
     # with coordinates past d zero in shared memory
     n, m = FIG4_NS[-1], FIG4_NS[-1] // 8
@@ -680,7 +878,7 @@ def drive_engine(serve, x, y, method, prune, h=None) -> dict:
                                               method=method, prune=prune))
     _, out["register_ms"] = host_ms(lambda: eng.register("bench", x, h=h))
     out["h"] = eng.registry.get("bench").h
-    answers, latencies, served = [], [], []
+    answers, latencies, served, by_size = [], [], [], {}
     off = 0
     for rnd in range(2):        # round 0 builds bucket callables
         for m in SERVE_SIZES:
@@ -692,6 +890,7 @@ def drive_engine(serve, x, y, method, prune, h=None) -> dict:
             if rnd == 1:
                 latencies.append(ans.latency_s)
                 served.append(m)
+                by_size[m] = ans.latency_s * 1e3
     many_sl, start = [], 0
     for m in MANY_SIZES:
         many_sl.append(slice(start, start + m))
@@ -701,7 +900,8 @@ def drive_engine(serve, x, y, method, prune, h=None) -> dict:
     answers += [(s, a.value) for s, a in zip(many_sl, many)]
     lat = sorted(latencies)
     out.update(
-        answers=answers, p50_ms=lat[len(lat) // 2] * 1e3,
+        answers=answers, latency_ms_by_rows=by_size,
+        p50_ms=lat[len(lat) // 2] * 1e3,
         p99_ms=lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)] * 1e3,
         qps=sum(served) / sum(latencies))
     return out
@@ -735,6 +935,9 @@ def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
             f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, "
             f"{r['qps']:.0f} query rows/s; query_many "
             f"{r['query_many_ms']:.3f} ms for {sum(MANY_SIZES)} rows")
+        log(f"  prune={prune!r} ServeEngine latency by request rows (warm "
+            "round, ms): " + ", ".join(f"{k}: {v:.3f}" for k, v in
+                                       r["latency_ms_by_rows"].items()))
         log(f"  prune={prune!r} launches: {json.dumps(counts)}")
         if prune == "auto":
             occupancy = {"flash_score_pruned": fp.score_counts.occupancy,
@@ -787,7 +990,8 @@ def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
     log(f"  mean relative error vs the mixture's pdf (information): "
         f"SD-KDE {sd_err:.4f}, KDE {kde_err:.4f}")
     keep = ("fit_ms", "evaluate_ms", "evaluate_first_ms", "register_ms",
-            "p50_ms", "p99_ms", "qps", "query_many_ms")
+            "p50_ms", "p99_ms", "qps", "query_many_ms",
+            "latency_ms_by_rows")
     return {
         "launches": {**{k: launches["off"][k]
                         for k in ("flash_score", "flash_kde")},
@@ -846,6 +1050,9 @@ def phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
         f"{eng['qps']:.0f} query rows/s; query_many "
         f"{eng['query_many_ms']:.3f} ms for {sum(MANY_SIZES)} rows; "
         f"launches {json.dumps(counts)}")
+    log("  ServeEngine(method='laplace') latency by request rows (warm "
+        "round, ms): " + ", ".join(f"{k}: {v:.3f}" for k, v in
+                                   eng["latency_ms_by_rows"].items()))
     check_launches(counts, ("flash_kde_pruned laplace",),
                    "ServeEngine(method='laplace')")
     if eng["h"] != h:
@@ -902,17 +1109,15 @@ def phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
                   for label in runs},
                "serve": {k: eng[k] for k in ("register_ms", "p50_ms",
                                              "p99_ms", "qps",
-                                             "query_many_ms")}},
+                                             "query_many_ms",
+                                             "latency_ms_by_rows")}},
     }
 
 
 def phase_clustered(ops, sp, kdemod, fp, dev) -> dict:
     log(f"== phase 4b: clustered check, {N_TRAIN} x {D} from {CLU_K} "
         f"centres in [0, {CLU_SPREAD:g}]^{D}, sigma 1, h {CLU_H}")
-    rng = np.random.default_rng(SEED)
-    centres = rng.uniform(0.0, CLU_SPREAD, (CLU_K, D))
-    x = clustered_points(rng, centres, N_TRAIN, dev)
-    y = clustered_points(rng, centres, N_QUERY, dev)
+    x, y = clustered_set(dev)
     h = CLU_H
     bar = f32_bar(torch.cat([x, y]), 1 / (2 * h * h))
     fp.score_counts.reset()
@@ -975,15 +1180,20 @@ def phase_clustered(ops, sp, kdemod, fp, dev) -> dict:
 
 
 def timed_entry(name, c, precision, h, errors) -> dict:
-    ms = cuda_ms(c["kernel"], 10)
+    """The kernel's device time (``graph_ms``) and its wrapper call's time
+    (CUDA events around one call, host work included), the plain
+    version's call time and the bound."""
+    ms = graph_ms(c["kernel"])
+    call = cuda_ms(c["kernel"], 10)
     plain = cuda_ms(c["plain"], 3)
     bms, by = bound_ms(c["kind"], precision, c["pairs"], D, c["moved"])
     occ = (f", occupancy {c['occupancy']:.4f}, max_visits "
            f"{c['max_visits']}" if "occupancy" in c else "")
-    log(f"  {name} {precision}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"bound {bms:.4f} ms ({by}), {bms / ms * 100:.1f}% of bound{occ}")
-    entry = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-             "pairs": c["pairs"]}
+    log(f"  {name} {precision}: kernel {ms:.4f} ms (call {call:.4f} ms), "
+        f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), "
+        f"{bms / ms * 100:.1f}% of bound{occ}")
+    entry = {"ms": ms, "call_ms": call, "plain_ms": plain, "bound_ms": bms,
+             "bound_by": by, "pairs": c["pairs"]}
     if "occupancy" in c:
         entry.update(occupancy=c["occupancy"], max_visits=c["max_visits"])
     if errors is not None:
@@ -1012,6 +1222,23 @@ def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
     log("  host prepass at the main shape, f32 (ms, synchronized): "
         + ", ".join(f"{k} {v:.2f}" for k, v in prep_times["main"].items()))
 
+    log(f"  one serving request of {REQUEST_ROWS} query rows against "
+        f"n={N_TRAIN}:")
+    for precision in TIERS:
+        opnds = dict(kernel_operands(ops, x, x[:REQUEST_ROWS], precision,
+                                     block_m, block_n, h),
+                     **pruned_operands(ops, sp, x, x[:REQUEST_ROWS],
+                                       precision, block_m, block_n, h,
+                                       index))
+        for name in KDE_PASSES:
+            c = opnds[name]
+            rows = c["args"][0].shape[0] if name == "flash_kde" else \
+                c["real"].shape[0]
+            entry = timed_entry(f"{name} request", c, precision, h, None)
+            entry["rows_launched"] = rows
+            entries[name].setdefault("request", {})[precision] = entry
+        del opnds
+
     log(f"  clustered set (h={CLU_H}):")
     cx, cy = clustered["x"], clustered["y"]
     cindex, cms = host_ms(lambda: sp.build_index(cx, seed=SEED))
@@ -1035,14 +1262,15 @@ def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
 
     for tname, dtype in SCAN_DTYPES.items():
         args = scan_inputs(SCAN_MAIN, dtype, gen)
-        ms = cuda_ms(lambda: ss.selective_scan_cuda(*args), 10)
+        ms = graph_ms(lambda: ss.selective_scan_cuda(*args))
+        call = cuda_ms(lambda: ss.selective_scan_cuda(*args), 10)
         plain = cuda_ms(lambda: ss.selective_scan_plain(*args), 3)
         bms, by = scan_bound_ms(SCAN_MAIN, dtype)
         log(f"  selective_scan {tname} (B, S, D, N)={SCAN_MAIN}: kernel "
-            f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), "
-            f"{bms / ms * 100:.1f}% of bound")
+            f"{ms:.4f} ms (call {call:.4f} ms), plain {plain:.3f} ms, bound "
+            f"{bms:.4f} ms ({by}), {bms / ms * 100:.1f}% of bound")
         entries.setdefault("selective_scan", {})[tname] = dict(
-            ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+            ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
             **{k: v for k, v in errors["selective_scan"][tname].items()
                if k == "max_abs_err"})
         del args
@@ -1506,7 +1734,7 @@ def main(argv=None) -> int:
 
     dev = device_mod.resolve("cuda")
     name, _ = phase_device()
-    phase_build(_build)
+    hmma = phase_build(_build)
     mixture = mixtures.benchmark_mixture_16d()
     mix1 = mixtures.benchmark_mixture_1d()
     gen = torch.Generator(device=dev)
@@ -1570,6 +1798,10 @@ def main(argv=None) -> int:
                                      "d": D},
             "tiers": tiers,
         }
+        if kname in ("flash_kde", "flash_kde_pruned"):
+            lib = "flash_kde" if kname == "flash_kde" else "flash_pruned"
+            entry["tensor_ops_in_sass"] = hmma.get(lib, "not available")
+            entry["bitwise"] = errors["bitwise"]
         if kname == "flash_kde":
             entry["launches_laplace_path"] = lap["nonfused"]["flash_kde"]
         if kname == "flash_kde_pruned":

@@ -9,30 +9,37 @@
 // bf16x2 tier.
 //
 // Bound on this card: operations.  Per (query, train) pair the kernel
-// does 2d flops of Gram, a few of distance, one exp and one add, on a
-// few bytes per pair that stay in shared memory; the bytes it must move
-// (the operands once, the sums once) are a few MB.  At d = 16 the f32
-// tier's floor is the FP32 rate (67 TFLOP/s), the exp floor is the SFU
-// rate (16 per clock per SM).
+// does 2d flops of Gram (8d at bf16x2), a few of distance, one exp and
+// one add; the bytes it must move (the operands once, the sums once) are
+// a few MB.  At the main shape (32768 x 32768 x 16, h 0.78) the f32 tier
+// is bounded by the FP32 rate (67 TFLOP/s: 0.577 ms), the bf16 tiers by
+// the SFU's exp (16 per clock per SM: 0.257 ms).
 //
-// Design: flash_tiles.cuh's kde_kernel streaming every column tile
-// (AllTiles): one thread per query row, the column tiles staged through
-// shared memory, a per-tile partial added to the running sum.
+// Design: flash_kde_pass.cuh's split-column body over every column tile
+// (AllTiles, Weight::kOne): a grid of 64-row blocks x column splits,
+// 4 x 8 FP32 register tiles (f32) or mma.sync bf16 tensor-core tiles
+// (bf16, bf16x2), cp.async staging three chunks deep, and a second pass
+// that adds each row's split partials in order.  part is the
+// (splits, m) f32 scratch the wrapper allocates.
 
-#include "flash_tiles.cuh"
+#include "flash_kde_pass.cuh"
 
 // tier: 0 = f32, 1 = bf16, 2 = bf16x2.  Returns a cudaError_t code.
 extern "C" int flash_kde_launch(const void* y, const void* y_lo,
                                 const void* nrm_y, const void* xt,
                                 const void* xt_lo, const void* nrm_x,
-                                const void* inv2h2, void* out, int m, int n,
-                                int d, int tier, int block_m, int block_n,
+                                const void* inv2h2, void* part, void* out,
+                                int m, int n, int d, int tier, int block_m,
+                                int block_n, int per_split, int splits,
                                 void* stream) {
-  if (block_n < 1) return cudaErrorInvalidValue;
-  return flash::kde_dispatch<flash::Weight::kOne>(
-      y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, tier,
-      block_m, block_n, flash::AllTiles{(n + block_n - 1) / block_n},
-      stream);
+  if (block_n < 1 || n % block_n) return cudaErrorInvalidValue;
+  const int tiles = n / block_n;
+  if (per_split < 1 || (long long)splits * per_split < tiles ||
+      (long long)(splits - 1) * per_split >= tiles)
+    return cudaErrorInvalidValue;
+  return flash::kde_pass_dispatch<flash::Weight::kOne>(
+      y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, part, out, m, n, d, tier,
+      block_m, block_n, per_split, splits, flash::AllTiles{tiles}, stream);
 }
 
 extern "C" const char* flash_kde_error(int code) {

@@ -15,42 +15,50 @@
 //
 // Bound on this card: operations on the VISITED pairs,
 // sum_i counts[i] * block_m * block_n of them, at B1's or B2's cost per
-// pair (FP32 rate for the products at the f32 tier, the SFU for exp).
-// The bytes are the operands once plus the outputs, as for B1/B2; the
-// counts and tile_map are (mt) and (mt, max_visits) int32.
+// pair.  For B4 at the main shape (32768 x 32768 x 16, h 0.78): the FP32
+// rate at the f32 tier, the SFU's exp at the bf16 tiers (B2's 0.577 and
+// 0.257 ms times the occupancy).  The bytes are the operands once plus
+// the outputs, as for B1/B2; the counts and tile_map are (mt) and
+// (mt, max_visits) int32.
 //
-// Design: flash_tiles.cuh's kernels with a VisitList in place of
-// AllTiles.  One block per row tile (blockIdx.x = i, block_m threads);
-// the block reads counts[i] and walks tile_map[i, k] for k < counts[i],
-// staging each column tile through shared memory as the dense kernels do.
-// This replaces the TPU's scalar-prefetched (mt, max_visits) grid: the
-// padded visit slots are simply not run, and a row tile with no visits
-// writes zeros (the TPU initialised its output at k == 0).  Each visited
-// tile's terms go into a partial added to the running total, as in B1/B2.
-// Cost is proportional to occupancy; blocks with short lists finish early
-// and free their SM for the next row tile.
+// Design.  B4: flash_kde_pass.cuh's split-column body with a VisitList:
+// block (b, s) takes 64 rows of row tile i and visit slots
+// [s * per_split, (s + 1) * per_split) of its list, reads counts[i] and
+// the tile indices itself (the TPU scalar-prefetched them), stages the
+// visited tiles with cp.async and writes a partial row; a block whose
+// slots start past counts[i] writes zeros, so a row tile with no visits
+// sums to zero and the longest list is walked by many blocks at once.
+// The second pass adds the splits in order (no atomics).  B3:
+// flash_tiles.cuh's one-thread-per-row score body with a VisitList, one
+// block per row tile walking its whole list, each visited tile's terms
+// in a partial added to the running total.
 
-#include "flash_tiles.cuh"
+#include "flash_kde_pass.cuh"
 
-// tier: 0 = f32, 1 = bf16, 2 = bf16x2.  Returns a cudaError_t code.
+// tier: 0 = f32, 1 = bf16, 2 = bf16x2.  part is the (splits, m) f32
+// scratch; the splits of per_split slots cover the max_visits slots.
+// Returns a cudaError_t code.
 extern "C" int flash_pruned_kde_launch(
     const void* counts, const void* tile_map, int max_visits, const void* y,
     const void* y_lo, const void* nrm_y, const void* xt, const void* xt_lo,
-    const void* nrm_x, const void* inv2h2, void* out, int m, int n, int d,
-    int tier, int block_m, int block_n, int laplace, void* stream) {
+    const void* nrm_x, const void* inv2h2, void* part, void* out, int m,
+    int n, int d, int tier, int block_m, int block_n, int laplace,
+    int per_split, int splits, void* stream) {
   if (max_visits < 1 || block_m < 1 || block_n < 1 || m % block_m ||
-      n % block_n)
+      n % block_n || per_split < 1 ||
+      (long long)splits * per_split < max_visits ||
+      (long long)(splits - 1) * per_split >= max_visits)
     return cudaErrorInvalidValue;
   const flash::VisitList tiles{static_cast<const int*>(counts),
                                static_cast<const int*>(tile_map),
                                max_visits};
   if (laplace)
-    return flash::kde_dispatch<flash::Weight::kLaplace>(
-        y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, tier,
-        block_m, block_n, tiles, stream);
-  return flash::kde_dispatch<flash::Weight::kOne>(
-      y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, out, m, n, d, tier, block_m,
-      block_n, tiles, stream);
+    return flash::kde_pass_dispatch<flash::Weight::kLaplace>(
+        y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, part, out, m, n, d, tier,
+        block_m, block_n, per_split, splits, tiles, stream);
+  return flash::kde_pass_dispatch<flash::Weight::kOne>(
+      y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, part, out, m, n, d, tier,
+      block_m, block_n, per_split, splits, tiles, stream);
 }
 
 // tier: 0 = f32, 1 = bf16, 2 = bf16x2.  Returns a cudaError_t code.

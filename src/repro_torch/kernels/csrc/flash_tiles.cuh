@@ -1,11 +1,13 @@
-// Shared device code of the flash kernels (B1-B6) for Hopper, sm_90a.
+// Shared device code of the flash kernels for Hopper, sm_90a: the score
+// pass of B1 and B3 and the KDE pass of B5 and B6 (B2 and B4 run the
+// split-column body of flash_kde_pass.cuh, which includes this header).
 //
 // One kernel template per pass, parameterised on the column tiles a block
 // streams:
 //   AllTiles   every column tile in order: the dense kernels B1 (score),
-//              B2 (KDE), B5 (fused Laplace) and B6 (square moment),
-//              flash_score.cu, flash_kde.cu and flash_laplace.cu;
-//   VisitList  the block's row tile's visit list, counts[i] entries of
+//              B5 (fused Laplace) and B6 (square moment), flash_score.cu
+//              and flash_laplace.cu, and B2 (KDE, flash_kde.cu);
+//   VisitList  a row tile's visit list, counts[i] entries of
 //              tile_map[i, :]: the pruned kernels B3 and B4,
 //              flash_pruned.cu.  The block reads its own count and tile
 //              indices (the TPU scalar-prefetched them); the visit slots
@@ -24,21 +26,23 @@
 // precision, <= 2 ulp), not __expf, so a kernel agrees with its plain
 // PyTorch version to f32 summation order.
 //
-// Design, simple first: one thread per row, block_m rows per block; the
-// row (d values, two planes at bf16x2) and its accumulators live in
-// registers.  The block loops over its column tiles of block_n points,
-// staged through shared memory as f32 (bf16 widens exactly), and every
-// thread reads each staged column as float4 broadcasts.  That loop takes
-// the place of the TPU's sequential inner grid axis: each output row is
-// written once by one thread, no atomics, deterministic sums.  As on the
-// TPU, a tile's terms go into a partial that is added to the running
-// total once per tile: one f32 accumulator over all n terms would round
-// like sqrt(n)·eps (6e-5 against float64 at n = 32768 on an H100).
-// Padding is the caller's sentinel padding; a ragged last dense tile is
-// masked by the loop bound.  Coordinates past d stay zero in shared
-// memory for the whole launch, so any d <= DMAX uses one instantiation.
-// Later work: wgmma for both products, TMA staging, split-column
-// parallelism for small query batches.
+// Design of the two bodies here, simple first: one thread per row,
+// block_m rows per block (so block_m <= kMaxRows); the row (d values, two
+// planes at bf16x2) and its accumulators live in registers.  The block
+// loops over its column tiles of block_n points, staged through shared
+// memory as f32 (bf16 widens exactly), and every thread reads each staged
+// column as float4 broadcasts.  That loop takes the place of the TPU's
+// sequential inner grid axis: each output row is written once by one
+// thread, no atomics, deterministic sums.  As on the TPU, a tile's terms
+// go into a partial that is added to the running total once per tile: one
+// f32 accumulator over all n terms would round like sqrt(n)·eps (6e-5
+// against float64 at n = 32768 on an H100).  Padding is the caller's
+// sentinel padding; a ragged last dense tile is masked by the loop bound.
+// Coordinates past d stay zero in shared memory for the whole launch, so
+// any d <= DMAX uses one instantiation.  One block per row tile leaves a
+// small request on one SM walking every column; flash_kde_pass.cuh's
+// body (split columns, register and tensor-core tiles, cp.async staging)
+// is the redesign, so far for B2 and B4.
 
 #pragma once
 
@@ -61,21 +65,29 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Every column tile of an n-column set, in order.
+// Every column tile of an n-column set, in order.  count_at / tile_at
+// take the row tile (the same for every row tile here); count / tile are
+// those of the row tile blockIdx.x, for one block per row tile.
 struct AllTiles {
   int n_tiles;
+  __device__ __forceinline__ int count_at(int) const { return n_tiles; }
+  __device__ __forceinline__ int tile_at(int, int v) const { return v; }
   __device__ __forceinline__ int count() const { return n_tiles; }
   __device__ __forceinline__ int tile(int v) const { return v; }
 };
 
-// The visit list of this block's row tile (row tile i = blockIdx.x).
+// The visit list of row tile i: counts[i] entries of tile_map[i, :].
 struct VisitList {
   const int* counts;    // (mt,)
   const int* tile_map;  // (mt, max_visits)
   int max_visits;
-  __device__ __forceinline__ int count() const { return counts[blockIdx.x]; }
+  __device__ __forceinline__ int count_at(int i) const { return counts[i]; }
+  __device__ __forceinline__ int tile_at(int i, int v) const {
+    return tile_map[(size_t)i * max_visits + v];
+  }
+  __device__ __forceinline__ int count() const { return count_at(blockIdx.x); }
   __device__ __forceinline__ int tile(int v) const {
-    return tile_map[(size_t)blockIdx.x * max_visits + v];
+    return tile_at(blockIdx.x, v);
   }
 };
 
@@ -85,8 +97,8 @@ struct VisitList {
 // ---------------------------------------------------------------------------
 
 enum class Weight : int {
-  kOne = 0,       // w = 1: the KDE sums (B2, B4)
-  kLaplace = 1,   // w = 1 + d/2 - scaled: fused Laplace (B5, B4's flag)
+  kOne = 0,       // w = 1: the KDE sums (B2, B4 on flash_kde_pass.cuh)
+  kLaplace = 1,   // w = 1 + d/2 - scaled: fused Laplace (B5; B4's flag)
   kSqMoment = 2,  // w = sq, unscaled: the non-fused second pass (B6)
 };
 

@@ -5,7 +5,8 @@ against the train columns ``xt`` (d, n), with ``sq`` clamped at 0.  Three
 functions:
 
   * ``flash_kde_cuda`` launches the hand-written CUDA kernel
-    (``csrc/flash_kde.cu``) on CUDA tensors and counts the launch;
+    (``csrc/flash_kde.cu`` over ``csrc/flash_kde_pass.cuh``) on CUDA
+    tensors and counts the launch;
   * ``flash_kde_plain`` is the same function in plain PyTorch, streaming
     column blocks of ``block_n`` so n×m is never materialized;
   * ``flash_kde`` takes the plain version for CPU tensors and the kernel
@@ -14,26 +15,82 @@ functions:
 Arguments follow ``repro.kernels.flash_kde.flash_kde_pallas``: padded
 operands, norms (m, 1) and (1, n) in f32, ``inv2h2`` a (1, 1) f32 tensor,
 the bf16x2 tier given by both lo planes; the result is (m, 1) f32 sums.
+
+The kernel splits the columns: each block sums 64 rows over one split of
+``plan_splits(n, block_n).per_split`` column tiles into an (splits, m)
+f32 scratch, and a second pass in the same launch adds each row's
+splits in order.  The plan depends on n and block_n only, so a row's sum
+does not depend on the other rows of its request.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import precision as prec
 
-MAX_D = 64          # the widest d the kernel is built for
-MAX_BLOCK_M = 256   # threads (rows) per block
+MAX_D = 64          # the widest d the kernels are built for
+# the largest row tile: B1, B3, B5 and B6 run one thread per row of it
+MAX_BLOCK_M = 256
 TIER_CODES = {"f32": 0, "bf16": 1, "bf16x2": 2}
+# Column splits of the KDE pass (B2, B4): a split covers at least
+# SPLIT_COLUMNS columns, and a row tile has at most MAX_SPLITS splits
+# (beyond that the splits grow, which bounds the (splits, m) scratch).
+SPLIT_COLUMNS = 256
+MAX_SPLITS = 128
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 #: Kernel launches made by ``flash_kde_cuda``; set to 0 to start a count.
 launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the KDE pass splits one row tile's column tiles (B2) or visit
+    slots (B4): ``splits`` consecutive runs of ``per_split``, the last one
+    possibly shorter."""
+
+    per_split: int
+    splits: int
+    slots: int
+
+    def ranges(self, count: Optional[int] = None) -> List[Tuple[int, int]]:
+        """[start, stop) of the slots each split sums, in split order, as
+        the kernel walks them: ``count`` (a row tile's visit count, at
+        most ``slots``) cuts the runs, and a split that starts past it
+        sums nothing (start == stop)."""
+        end = self.slots if count is None else count
+        out = []
+        for s in range(self.splits):
+            start = s * self.per_split
+            out.append((start, max(start, min(start + self.per_split,
+                                              end))))
+        return out
+
+    def scratch_shape(self, m: int) -> Tuple[int, int]:
+        """The (splits, m) f32 partial sums the wrapper allocates."""
+        return (self.splits, m)
+
+
+def plan_splits(n: int, block_n: int,
+                visits: Optional[int] = None) -> SplitPlan:
+    """The column splits of the KDE pass for n columns in tiles of
+    ``block_n``: ``per_split`` from n and block_n only (never from the
+    number of query rows), over the n/block_n column tiles (B2) or over
+    ``visits`` visit slots, the visit lists' width (B4)."""
+    if n < 1 or block_n < 1 or (visits is not None and visits < 1):
+        raise ValueError(f"bad split plan input n={n} block_n={block_n} "
+                         f"visits={visits}")
+    tiles = -(-n // block_n)
+    per_split = max(-(-SPLIT_COLUMNS // block_n), -(-tiles // MAX_SPLITS))
+    slots = tiles if visits is None else visits
+    return SplitPlan(per_split, -(-slots // per_split), slots)
 
 
 def _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n):
@@ -125,14 +182,18 @@ def flash_kde_cuda(
     block_m: int = 128,
     block_n: int = 128,
 ) -> torch.Tensor:
-    """Launch kernel B2 on the current stream; returns (m, 1) f32 sums."""
+    """Launch kernel B2 (both of its passes) on the current stream;
+    returns (m, 1) f32 sums."""
     global launches
     m, n, d = _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
                      block_m, block_n)
     tier = prec.tier_of(y, y_lo)
     dev = check_cuda("flash_kde_cuda", tier, (y, xt, y_lo, xt_lo),
                      (nrm_y, nrm_x, inv2h2), d, block_m)
+    plan = plan_splits(n, block_n)
     launch, error = _build.load("flash_kde", _ARGTYPES)
+    part = torch.empty(plan.scratch_shape(m), dtype=torch.float32,
+                       device=dev)
     out = torch.empty((m, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -140,13 +201,14 @@ def flash_kde_cuda(
             y.data_ptr(), y_lo.data_ptr() if y_lo is not None else None,
             nrm_y.data_ptr(), xt.data_ptr(),
             xt_lo.data_ptr() if xt_lo is not None else None,
-            nrm_x.data_ptr(), inv2h2.data_ptr(), out.data_ptr(),
-            m, n, d, TIER_CODES[tier], block_m, block_n, stream)
+            nrm_x.data_ptr(), inv2h2.data_ptr(), part.data_ptr(),
+            out.data_ptr(), m, n, d, TIER_CODES[tier], block_m, block_n,
+            plan.per_split, plan.splits, stream)
     if rc != 0:
         raise RuntimeError(f"flash_kde kernel launch failed ({rc}): "
                            f"{error(rc).decode()} [m={m} n={n} d={d} "
                            f"tier={tier} block_m={block_m} "
-                           f"block_n={block_n}]")
+                           f"block_n={block_n} splits={plan.splits}]")
     launches += 1
     return out
 
@@ -173,5 +235,6 @@ def flash_kde(
                           block_m=block_m, block_n=block_n)
 
 
-__all__ = ["MAX_D", "MAX_BLOCK_M", "TIER_CODES", "check_cuda", "flash_kde",
-           "flash_kde_cuda", "flash_kde_plain"]
+__all__ = ["MAX_D", "MAX_BLOCK_M", "TIER_CODES", "SPLIT_COLUMNS",
+           "MAX_SPLITS", "SplitPlan", "plan_splits", "check_cuda",
+           "flash_kde", "flash_kde_cuda", "flash_kde_plain"]

@@ -9,8 +9,9 @@ of ``block_n``.  Visit slots past ``counts[i]`` are never run, and a row
 tile with no visits sums to zero.  Three functions per kernel:
 
   * ``flash_score_pruned_cuda`` / ``flash_kde_pruned_cuda`` launch the
-    hand-written CUDA kernels (``csrc/flash_pruned.cu``) on CUDA tensors
-    and count the launch;
+    hand-written CUDA kernels (``csrc/flash_pruned.cu``; B4 is the
+    split-column body of ``csrc/flash_kde_pass.cuh``) on CUDA tensors and
+    count the launch;
   * ``flash_score_pruned_plain`` / ``flash_kde_pruned_plain`` are the same
     functions in plain PyTorch: one visit slot at a time for all row tiles
     at once, each visited tile's terms summed into a partial that is added
@@ -44,10 +45,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash_kde as _dense_kde
 from repro_torch.kernels import flash_score as _dense_score
 from repro_torch.kernels import precision as prec
-from repro_torch.kernels.flash_kde import TIER_CODES, check_cuda
+from repro_torch.kernels.flash_kde import TIER_CODES, check_cuda, plan_splits
 
 _KDE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
 _SCORE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
@@ -180,7 +181,9 @@ def flash_kde_pruned_cuda(
     block_n: int = 128,
     laplace: bool = False,
 ) -> torch.Tensor:
-    """Launch kernel B4 on the current stream; returns (m, 1) f32 sums."""
+    """Launch kernel B4 (both of its passes) on the current stream;
+    returns (m, 1) f32 sums.  The visit slots are split as
+    ``plan_splits(n, block_n, max_visits)`` plans them."""
     m, n, d = _dense_kde._check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
                                 block_m, block_n)
     mt, t = _check_visits(counts, tile_map, m, n, block_m, block_n)
@@ -188,19 +191,24 @@ def flash_kde_pruned_cuda(
     dev = check_cuda("flash_kde_pruned_cuda", tier, (y, xt, y_lo, xt_lo),
                      (nrm_y, nrm_x, inv2h2), d, block_m,
                      ints=(counts, tile_map))
+    plan = plan_splits(n, block_n, tile_map.shape[1])
     launch, error = _build.load("flash_pruned", _KDE_ARGTYPES, "kde_launch")
+    part = torch.empty(plan.scratch_shape(m), dtype=torch.float32,
+                       device=dev)
     out = torch.empty((m, 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(_ptr(counts), _ptr(tile_map), tile_map.shape[1],
                     _ptr(y), _ptr(y_lo), _ptr(nrm_y), _ptr(xt), _ptr(xt_lo),
-                    _ptr(nrm_x), _ptr(inv2h2), _ptr(out), m, n, d,
-                    TIER_CODES[tier], block_m, block_n, int(laplace), stream)
+                    _ptr(nrm_x), _ptr(inv2h2), _ptr(part), _ptr(out), m, n,
+                    d, TIER_CODES[tier], block_m, block_n, int(laplace),
+                    plan.per_split, plan.splits, stream)
     if rc != 0:
         raise RuntimeError(f"flash_kde_pruned launch failed ({rc}): "
                            f"{error(rc).decode()} [m={m} n={n} d={d} "
                            f"tier={tier} block_m={block_m} block_n={block_n} "
-                           f"max_visits={tile_map.shape[1]}]")
+                           f"max_visits={tile_map.shape[1]} "
+                           f"splits={plan.splits}]")
     (laplace_counts if laplace else kde_counts).add(counts, mt * t)
     return out
 

@@ -11,10 +11,10 @@ Three launch knobs thread through every wrapper:
   * ``precision`` — the GEMM-operand tier (``"f32"`` / ``"bf16"`` /
     ``"bf16x2"``, ``kernels/precision.py``).  Norms come from the
     tier-cast operands; distances, ``exp`` and sums stay f32.
-  * ``block_m`` / ``block_n`` — the kernels' row tile (threads per block)
-    and column tile (train points staged per shared-memory pass), both
-    explicit ints.  Rows are padded to ``block_m`` and columns to
-    ``block_n`` multiples, as the JAX wrappers pad.
+  * ``block_m`` / ``block_n`` — the kernels' row tile and column tile
+    (the unit of the visit lists and of each partial sum), both explicit
+    ints.  Rows are padded to ``block_m`` and columns to ``block_n``
+    multiples, as the JAX wrappers pad.
   * ``prune`` — cluster pruning (``kernels/spatial.py``): ``"off"``
     streams every tile pair (B1 / B2), a float ``epsilon ≥ 0`` reorders
     the train set spatially and skips column tiles whose certified

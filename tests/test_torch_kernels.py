@@ -16,6 +16,9 @@ Tolerances (per tier):
   * bf16x2: 5e-4;  bf16: 5e-2 — the tiers' documented bars.
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +27,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels.flash_kde import flash_kde_pallas
 from repro.kernels.flash_score import flash_score_pallas
-from repro_torch.kernels import flash_kde, flash_score
+from repro_torch.kernels import _build, flash_kde, flash_laplace
+from repro_torch.kernels import flash_pruned, flash_score, selective_scan
 from repro_torch.kernels import ops as tops
 
 TIERS = ["f32", "bf16x2", "bf16"]
@@ -224,3 +228,85 @@ def test_wrappers_reject_ragged_operands():
                             torch.from_numpy(x).T.contiguous(),
                             torch.zeros(1, 100), torch.ones(1, 1),
                             block_m=32, block_n=64)
+
+
+# ---------------------------------------------------------------------------
+# The launch geometry of the KDE pass (B2, B4) is planned in Python, and
+# the kernels are bound through ctypes: both are held here on the CPU.
+# ---------------------------------------------------------------------------
+
+PLAN_CASES = [(32768, 128), (1_048_576, 128), (4096, 4096), (1000, 8),
+              (300, 64), (333, 7), (64, 128)]
+
+
+@pytest.mark.parametrize("n,block_n", PLAN_CASES)
+def test_split_plan_covers_every_column_tile_once_in_order(n, block_n):
+    """The splits walk column tiles 0 .. ceil(n / block_n) once each, in
+    order, none empty, at most MAX_SPLITS of them, each at least
+    SPLIT_COLUMNS columns wide where there are that many."""
+    plan = flash_kde.plan_splits(n, block_n)
+    tiles = -(-n // block_n)
+    ranges = plan.ranges()
+    assert len(ranges) == plan.splits <= flash_kde.MAX_SPLITS
+    assert [v for a, b in ranges for v in range(a, b)] == list(range(tiles))
+    assert all(b > a for a, b in ranges)
+    assert plan.per_split * block_n >= flash_kde.SPLIT_COLUMNS
+    assert plan.slots == tiles
+
+
+@pytest.mark.parametrize("n,block_n", PLAN_CASES[:4])
+def test_split_plan_is_independent_of_the_rows(n, block_n):
+    """Nothing of the plan depends on m: the same per_split and splits for
+    every request size from 1 to 4096 rows, so a row's sum is built from
+    the same runs of tiles whatever rows share its launch; only the
+    scratch grows with m."""
+    ms = [1, 2, 3, 17, 63, 64, 65, 127, 128, 129, 1000, 4095, 4096]
+    plans = {flash_kde.plan_splits(n, block_n) for _ in ms}
+    assert len(plans) == 1
+    plan = plans.pop()
+    for m in ms:
+        assert plan.scratch_shape(m) == (plan.splits, m)
+
+
+def test_a_request_spreads_over_the_card_at_the_main_shape():
+    """One 128-row request (two 64-row blocks) against n = 32768 in tiles
+    of 128 launches at least one block for each of the H100's 132 SMs."""
+    plan = flash_kde.plan_splits(32768, 128)
+    assert plan.per_split == 2 and plan.splits == 128
+    assert 2 * plan.splits >= 132
+
+
+@pytest.mark.parametrize("bad", [(0, 128, None), (128, 0, None),
+                                 (128, 128, 0)])
+def test_split_plan_rejects_empty_shapes(bad):
+    with pytest.raises(ValueError, match="split plan"):
+        flash_kde.plan_splits(*bad)
+
+
+def _c_argtypes(source, fn):
+    """ctypes types of a C entry point's parameters, read from its
+    source: pointers as c_void_p, ints as c_int."""
+    text = (_build.CSRC / source).read_text()
+    m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", text, re.S)
+    assert m, f"{fn} not found in {source}"
+    params = [p.strip() for p in m.group(1).split(",")]
+    assert all(re.fullmatch(r"(const )?(void\*|int) \w+", p) for p in params)
+    return [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+
+
+@pytest.mark.parametrize("argtypes,source,fn", [
+    (flash_kde._ARGTYPES, "flash_kde.cu", "flash_kde_launch"),
+    (flash_pruned._KDE_ARGTYPES, "flash_pruned.cu",
+     "flash_pruned_kde_launch"),
+    (flash_pruned._SCORE_ARGTYPES, "flash_pruned.cu",
+     "flash_pruned_score_launch"),
+    (flash_score._ARGTYPES, "flash_score.cu", "flash_score_launch"),
+    (flash_laplace._ARGTYPES, "flash_laplace.cu", "flash_laplace_launch"),
+    (flash_laplace._ARGTYPES, "flash_laplace.cu", "sq_moment_launch"),
+    (selective_scan._ARGTYPES, "selective_scan.cu",
+     "selective_scan_launch"),
+])
+def test_ctypes_bindings_match_the_c_entry_points(argtypes, source, fn):
+    """Each wrapper's argtypes list the C function's parameters in order:
+    a pointer passed as an int would be cut to 32 bits."""
+    assert list(argtypes) == _c_argtypes(source, fn)

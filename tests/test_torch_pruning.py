@@ -28,6 +28,7 @@ Tolerances, and why:
 """
 
 import dataclasses
+import functools
 import math
 
 import jax
@@ -45,6 +46,7 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch import convert
 from repro_torch.core import kde as tkde
 from repro_torch.core.estimator import SDKDE, EstimatorConfig
+from repro_torch.kernels import flash_kde as tfk
 from repro_torch.kernels import flash_pruned as tfp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import spatial as tsp
@@ -384,6 +386,46 @@ def test_pruned_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="row tiles"):
         tfp.flash_kde_pruned(counts[:-1], tmap[:-1], y_hi, nrm_y, cols.xt,
                              cols.nrm_x, inv, block_m=BM, block_n=BN)
+
+
+@functools.lru_cache(maxsize=None)
+def _clustered_columns():
+    x = torch.from_numpy(_clustered(4096, 4, k=16, seed=31))
+    return tops.prepare_train_columns(x, block_n=BN, clustered=True)
+
+
+@pytest.mark.parametrize("m", [1, 3, 17, 128, 1000, 4096])
+def test_pruned_split_plan_walks_each_visit_list_once(m):
+    """B4's splits as the kernel walks them (``SplitPlan.ranges(count)``):
+    every row tile's slots 0 .. counts[i] once each and in order, a count
+    of 0 walking nothing and the largest count every column tile, in runs
+    whose length comes from n and block_n alone — not from m, the visit
+    width or the counts."""
+    cols = _clustered_columns()
+    n = cols.xt.shape[1]
+    y = torch.from_numpy(_clustered(m, 4, k=16, seed=32))
+    ql = tsp.cluster_layout(y, tsp.assign(y, cols.index), BM,
+                            bucket_rows=True)
+    _, _, _, yrec = tops._cast_queries(ql.points, "f32")
+    keep = tsp.tile_map(yrec, cols.meta, tops._inv2h2(0.5, y.device), 0.0,
+                        block_m=BM, kind="kde").keep
+    # and two row tiles more: one that visits nothing, one everything
+    keep = torch.cat([keep, torch.zeros_like(keep[:1]),
+                      torch.ones_like(keep[:1])])
+    vl = tsp.visit_lists(keep)
+    counts = vl.counts.tolist()
+    assert min(counts) == 0 and max(counts) == vl.max_visits == n // BN
+    plan = tfk.plan_splits(n, BN, vl.max_visits)
+    assert plan.per_split == tfk.plan_splits(n, BN).per_split
+    assert plan.scratch_shape(ql.points.shape[0]) == (
+        plan.splits, ql.points.shape[0])
+    for i, count in enumerate(counts):
+        ranges = plan.ranges(count)
+        assert len(ranges) == plan.splits
+        assert [v for a, b in ranges for v in range(a, b)] == \
+            list(range(count))
+        tiles = vl.tile_map[i, :count].tolist()
+        assert tiles == sorted(set(tiles))
 
 
 # ---------------------------------------------------------------------------
