@@ -11,9 +11,10 @@ Run from the repository root.  Phases, each printing its lines:
   1. device       the card's name and power limit (nvidia-smi);
   2. build        the five CUDA sources (B1, B2, B3/B4, B5/B6, B7)
                   compiled with nvcc for sm_90a, in parallel; ptxas's
-                  registers and spills; the HMMA/HGMMA instructions in
-                  the SASS of each B2/B4 instantiation (cuobjdump; the
-                  bf16 tiers must have them, f32 none);
+                  registers and spills (a score-pass instantiation at
+                  d <= 32 must not spill); the HMMA/HGMMA instructions
+                  in the SASS of each B1-B4 instantiation (cuobjdump;
+                  the bf16 tiers must have them, f32 none);
   3. kernels      each kernel against its plain PyTorch version on the
                   card, every tier: B1 flash_score, B2 flash_kde, B5
                   flash_laplace and B6 sq_moment, then B3
@@ -21,12 +22,15 @@ Run from the repository root.  Phases, each printing its lines:
                   and on), at a ragged small shape whose visit lists hold
                   a zero-count row tile, and at the main path's shape;
                   B2 and B4 also at serving requests of 1, 3 and 17 rows
-                  against the main train set, at blocks (96, 100) and
-                  (64, 200) on the ragged shape, and on the clustered set
-                  (with a zero-count row tile), and bit for bit: B2 rows
-                  alone equal the same rows in a 4096-row batch, and two
-                  launches of B2 or B4 on the same inputs are equal;
-                  B1, B2, B5 and B6 also at d = 1 (Fig. 4's dimension);
+                  against the main train set; B1-B4 at blocks (96, 100)
+                  and (64, 200) on the ragged shape, and B3/B4 on the
+                  clustered set (with a zero-count row tile), and bit for
+                  bit: B2 rows alone equal the same rows in a 4096-row
+                  batch, and two launches of B1, B2, B3 or B4 on the same
+                  inputs are equal; B1 and B3 also at d = 24 and 64 (the
+                  DMAX 32 and 64 builds); B1, B2, B5 and B6 also at d = 1
+                  (Fig. 4's dimension).  Score sums are held per value
+                  to bar times their absolute mass, sum phi |[x | 1]|;
                   B7 selective_scan (y and h_final) at a ragged shape
                   (S 200, D 1000, N 4 and 16, nonzero h0) and at
                   Falcon-Mamba-7B's layer shape (B 4, S 1024, D 8192,
@@ -69,7 +73,8 @@ Run from the repository root.  Phases, each printing its lines:
                   and Fig. 4's four 1-D shapes; B7 at Falcon-Mamba-7B's
                   layer shape;
   6. paper scale  (--paper-scale only) fit + evaluate at the paper's size,
-                  prune="auto" and prune="off";
+                  prune="auto" and prune="off", each fit timed; the
+                  score pass must plan one split and no scratch;
   7. oracle       MISE, MIAE and negative mass against the known mixture
                   for KDE, SD-KDE, Laplace fused and non-fused, flash and
                   "torch" backends: Fig. 3's 1-D setting at n = 8192 (grid)
@@ -350,7 +355,7 @@ def phase_device() -> tuple:
 
 
 _PTXAS_NAME = re.compile(
-    r"(kde_pass|kde|score)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E"
+    r"(kde_pass|kde|score_pass)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E"
     r"(?:LN\w*?WeightE(\d)E)?N\w*?(AllTiles|VisitList)")
 _WEIGHTS = {None: "", "0": "", "1": ",laplace", "2": ",sq_moment"}
 _PTXAS_SCAN = re.compile(r"selective_scan_kernelI(f|13__nv_bfloat16)Li(\d+)E")
@@ -434,27 +439,53 @@ def phase_build(_build) -> dict:
             log(f"    {len(rows)} instantiations, most registers "
                 f"{max((r for _, r, _ in rows), default=0)}; spills: "
                 f"{', '.join(spills) or 'none'}")
+            score = [(k, r, sp) for k, r, sp in rows
+                     if k.startswith("score_pass<")]
+            if score:
+                log("    score pass registers / spill-store bytes: "
+                    + ", ".join(f"{k} {r}/{sp}" for k, r, sp in score))
+            # the score pass may not spill at d <= 32 (DMAX 4 .. 32)
+            narrow = [k for k, _, sp in score
+                      if sp and int(k.split(",")[1].rstrip(">")) <= 32]
+            if narrow:
+                raise AssertionError(f"{name}: score-pass instantiations "
+                                     f"spill at d <= 32: {narrow}")
     log(f"  build wall time {time.perf_counter() - t0:.1f} s")
-    # B2 and B4: the bf16 tiers' Gram runs on the tensor cores, f32's not
+    # B1-B4: the bf16 tiers' products run on the tensor cores, f32's not
     hmma = {}
-    for name in ("flash_kde", "flash_pruned"):
+    for name in ("flash_score", "flash_kde", "flash_pruned"):
         counts = tensor_op_counts(_build, name)
         if counts is None:
             log(f"  {name}: tensor-core instructions in the SASS: not "
                 "available (no cuobjdump)")
             continue
         passes = {k: v for k, v in counts.items()
-                  if k.startswith("kde_pass<")}
-        log(f"  {name}: HMMA/HGMMA instructions per KDE-pass "
+                  if k.startswith(("kde_pass<", "score_pass<"))}
+        log(f"  {name}: HMMA/HGMMA instructions per split-column "
             "instantiation: " + ", ".join(f"{k} {v}"
                                           for k, v in sorted(passes.items())))
         wrong = [k for k, v in passes.items()
-                 if (v > 0) != (not k.startswith("kde_pass<f32"))]
+                 if (v > 0) != ("<f32," not in k)]
         if not passes or wrong:
             raise AssertionError(f"{name}: the bf16 tiers must use tensor "
                                  f"cores and f32 none: {wrong or counts}")
         hmma[name] = passes
     return hmma
+
+
+def score_mass_args(args, i):
+    """B1's or B3's arguments with |[X|1]| for xaug (at ``args[i]``) and
+    its lo plane (the last argument): the plain pass then gives each
+    value's absolute mass, sum_j phi_ij |[x_j | 1]_k| (at bf16x2 an upper
+    bound, |hi| + |lo|).  S1 cancels between points on either side of
+    x_i, so the score pass's error is absolute, bar times this mass (as
+    the Laplace sums are held); for the ones column, S0, the mass is S0
+    itself."""
+    out = list(args)
+    for k in (i, len(out) - 1):
+        if out[k] is not None:
+            out[k] = out[k].abs()
+    return out
 
 
 def kernel_operands(ops, x, y, precision, block_m, block_n, h):
@@ -481,6 +512,8 @@ def kernel_operands(ops, x, y, precision, block_m, block_n, h):
             kernel=lambda: fs.flash_score_cuda(*s_args, block_m=block_m,
                                                block_n=block_n),
             plain=lambda: fs.flash_score_plain(*s_args, block_n=512),
+            mass=lambda: fs.flash_score_plain(*score_mass_args(s_args, 3),
+                                              block_n=512),
             real=slice(0, n), pairs=n * n,
             moved=nbytes(*s_args) + n * (d + 1) * 4,
             pts=xrec[:n]),
@@ -571,6 +604,8 @@ def pruned_operands(ops, sp, x, y, precision, block_m, block_n, h, index,
             kind="score",
             kernel=lambda: fp.flash_score_pruned_cuda(*s_args, **bk),
             plain=lambda: fp.flash_score_pruned_plain(*s_args, **bk),
+            mass=lambda: fp.flash_score_pruned_plain(
+                *score_mass_args(s_args, 5), **bk),
             real=pre["score_real"], pairs=s_pairs,
             moved=nbytes(*s_args) + rows_s * (d + 1) * 4,
             occupancy=pre["score_vl"].occupancy,
@@ -670,6 +705,10 @@ def clustered_set(dev) -> tuple:
 
 
 KDE_PASSES = ("flash_kde", "flash_kde_pruned", "flash_kde_pruned laplace")
+SCORE_PASSES = ("flash_score", "flash_score_pruned")
+# B1 and B3 at d = 24 and 64 (the DMAX 32 and 64 builds; at bf16x2 two
+# and three groups of output tiles), h 0.5 sqrt(d), on normal points
+WIDE_DS = (24, 64)
 
 
 def check_zero_tile(pruned, block_m, precision, keys) -> None:
@@ -688,7 +727,7 @@ def check_bitwise(ops, sp, x, y, index, block_m, block_n, h) -> dict:
     """On the card, bit for bit: B2 on rows served alone (1, 3, 17 and
     128 of them, padded to one row tile with other rows) and the same
     rows inside a 4096-row batch, on operands sliced from the batch's;
-    B2 and B4 (both flags) launched twice on the same inputs."""
+    B1, B2, B3 and B4 (both flags) launched twice on the same inputs."""
     from repro_torch.kernels import flash_kde as fk
 
     out = {}
@@ -717,14 +756,14 @@ def check_bitwise(ops, sp, x, y, index, block_m, block_n, h) -> dict:
         twice = dict(kernel_operands(ops, x, y, precision, block_m, block_n,
                                      h), **pruned_operands(
             ops, sp, x, y, precision, block_m, block_n, h, index))
-        for name in KDE_PASSES:
+        for name in SCORE_PASSES + KDE_PASSES:
             a, b = twice[name]["kernel"](), twice[name]["kernel"]()
             sync()
             if not torch.equal(a, b):
                 raise AssertionError(f"{name} {precision}: two launches on "
                                      "the same inputs differ")
-        log(f"  {', '.join(KDE_PASSES)} {precision}: two launches equal, "
-            "bit for bit")
+        log(f"  {', '.join(SCORE_PASSES + KDE_PASSES)} {precision}: two "
+            "launches equal, bit for bit")
         out[precision] = True
         del twice
     return out
@@ -772,7 +811,7 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
                 del opnds
         results["bitwise"] = check_bitwise(ops, sp, x, y, index, block_m,
                                            block_n, h)
-    # B2 and B4 at tiles that do not fill the kernel's own 64 rows x 128
+    # B1-B4 at tiles that do not fill the kernels' own 64 rows x 128
     # columns: block_m 96 (a half-idle block), block_n 100 (element
     # copies, one masked chunk a tile) and 200 (two chunks, one masked)
     n, m, d = SMALL
@@ -783,23 +822,40 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
             opnds = dict(kernel_operands(ops, x, y, precision, bm, bn, h),
                          **pruned_operands(ops, sp, x, y, precision, bm, bn,
                                            h, index))
-            for name in KDE_PASSES:
+            for name in SCORE_PASSES + KDE_PASSES:
                 check_kernel(name, opnds[name], precision, h,
                              f"blocks {bm} x {bn}, n={n} m={m} d={d}")
             del opnds
-    # the clustered set, where B4 skips most tiles; row tile 1's lists
-    # emptied
+    # the clustered set, where B3 and B4 skip most tiles; row tile 1's
+    # lists emptied
     cx, cy = clustered_set(gen.device)
     cindex = sp.build_index(cx, seed=SEED)
+    clustered_passes = ("flash_score_pruned",) + KDE_PASSES[1:]
     for precision in TIERS:
         pruned = pruned_operands(ops, sp, cx, cy, precision, block_m,
                                  block_n, CLU_H, cindex, empty_row=1)
-        check_zero_tile(pruned, block_m, precision, KDE_PASSES[1:])
-        for name in KDE_PASSES[1:]:
+        check_zero_tile(pruned, block_m, precision, clustered_passes)
+        for name in clustered_passes:
             check_kernel(name, pruned[name], precision, CLU_H,
                          f"clustered n={N_TRAIN} m={N_QUERY} d={D}, "
                          f"occupancy {pruned[name]['occupancy']:.4f}")
         del pruned
+    # B1 and B3 at d = 24 and 64 on the ragged shape
+    for wd in WIDE_DS:
+        n, m = SMALL[0], SMALL[1]
+        x = torch.randn(n, wd, generator=gen, device=gen.device)
+        y = torch.randn(m, wd, generator=gen, device=gen.device)
+        hw = 0.5 * math.sqrt(wd)
+        windex = sp.build_index(x, seed=SEED)
+        for precision in TIERS:
+            opnds = dict(kernel_operands(ops, x, y, precision, block_m,
+                                         block_n, hw),
+                         **pruned_operands(ops, sp, x, y, precision, block_m,
+                                           block_n, hw, windex))
+            for name in SCORE_PASSES:
+                check_kernel(name, opnds[name], precision, hw,
+                             f"n={n} d={wd} h={hw:.3f}")
+            del opnds
     # d = 1, Fig. 4's largest shape: the dense kernels' DMAX = 4 build,
     # with coordinates past d zero in shared memory
     n, m = FIG4_NS[-1], FIG4_NS[-1] // 8
@@ -1439,6 +1495,19 @@ def phase_oracle(est_mod, bw, metrics, mixtures, kdemod, dev) -> dict:
 def phase_paper_scale(mixture, gen, est_mod, fs, fk, fp, fl) -> dict:
     n, m = 1_048_576, 131_072
     log(f"== phase 6: paper scale, {n} x {D} train, {m} queries")
+    # the fit's score pass (B1, and B3 at any visit width) runs one split:
+    # the row blocks alone fill the card, no scratch, no second pass
+    cfg = est_mod.EstimatorConfig()
+    plans = {"off": fs.plan_score_splits(n, cfg.block_n, D),
+             "auto": fs.plan_score_splits(n, cfg.block_n, D,
+                                          n // cfg.block_n)}
+    for prune, plan in plans.items():
+        log(f"  score-pass plan, prune={prune!r}: {plan.splits} split(s) "
+            f"of {plan.per_split} slots, scratch "
+            f"{plan.scratch_shape(n)}")
+        if plan.splits != 1 or plan.scratch_shape(n) is not None:
+            raise AssertionError(f"paper-scale score pass must run one "
+                                 f"split with no scratch: {plan}")
     x = mixture.sample(n, gen)
     y = mixture.sample(m, gen)
     sync()
@@ -1455,6 +1524,7 @@ def phase_paper_scale(mixture, gen, est_mod, fs, fk, fp, fl) -> dict:
             raise AssertionError("paper-scale densities are not finite")
         err = float(((d - true).abs() / true).mean())
         out[prune] = {"fit_s": fit_ms / 1e3, "evaluate_s": eval_ms / 1e3,
+                      "score_splits": plans[prune].splits,
                       "total_s": (fit_ms + eval_ms) / 1e3,
                       "launches": read_counts(fs, fk, fp, fl),
                       "mean_rel_err_vs_pdf": err}
@@ -1798,9 +1868,13 @@ def main(argv=None) -> int:
                                      "d": D},
             "tiers": tiers,
         }
-        if kname in ("flash_kde", "flash_kde_pruned"):
-            lib = "flash_kde" if kname == "flash_kde" else "flash_pruned"
-            entry["tensor_ops_in_sass"] = hmma.get(lib, "not available")
+        if kname in SCORE_PASSES + KDE_PASSES[:2]:
+            lib = {"flash_score": "flash_score",
+                   "flash_kde": "flash_kde"}.get(kname, "flash_pruned")
+            body = "score_pass<" if kname in SCORE_PASSES else "kde_pass<"
+            entry["tensor_ops_in_sass"] = (
+                {k: v for k, v in hmma[lib].items() if k.startswith(body)}
+                if lib in hmma else "not available")
             entry["bitwise"] = errors["bitwise"]
         if kname == "flash_kde":
             entry["launches_laplace_path"] = lap["nonfused"]["flash_kde"]

@@ -51,6 +51,10 @@
 //    per pair (norm sum, clamp, scale, expf's 8, the add) make the bf16
 //    tiers bound by instruction issue, not by the SFU's exp, and the f32
 //    tier adds the Gram's 16 FMAs per pair.
+//  * Shared with the score pass (flash_score_pass.cuh, B1 and B3): the
+//    staging cursor, the chunk loop (walk), the column staging and the
+//    Gram of each tier, defined below, so each tier has one
+//    implementation.
 //  * As in every kernel of the port: expf (not __expf), the caller's far
 //    sentinels for padding, the sq clamp, norms computed by the caller
 //    from the tier-cast operands, and each column tile's terms summed
@@ -131,6 +135,16 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// Two 8x8 bf16 matrices, transposed: the B fragment of one m16n8k16
+// product from a [k][n] tile (lanes 0..15 give the 16 row addresses).
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
 // c += a . b, 16x8 f32 += 16x16 bf16 . 16x8 bf16.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -161,6 +175,243 @@ __device__ __forceinline__ float pass_term(float sq, float inv2h2,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Pieces shared by the KDE pass (below) and the score pass
+// (flash_score_pass.cuh): the staging cursor, the chunk loop, the staging
+// of a chunk's columns, and the Gram of each tier.
+// ---------------------------------------------------------------------------
+
+// Where a block's staging stands: the next chunk to copy is chunk c of
+// slot v (column tile `tile`) into ring buffer buf; the slot after it
+// (`next`) is read one slot ahead, so a visit list's index load is not
+// waited on.  Built only for a block with slots to walk (nv >= 1).
+template <typename Tiles>
+struct Cursor {
+  Tiles tiles;
+  int tile_row, v0, nv, cpt;
+  int v = 0, c = 0, buf = 0, tile, next;
+  __device__ __forceinline__ Cursor(Tiles t, int tile_row_, int v0_, int nv_,
+                                    int cpt_)
+      : tiles(t), tile_row(tile_row_), v0(v0_), nv(nv_), cpt(cpt_) {
+    tile = tiles.tile_at(tile_row, v0);
+    next = nv > 1 ? tiles.tile_at(tile_row, v0 + 1) : 0;
+  }
+  // The first column of the chunk to copy next.
+  __device__ __forceinline__ int column(int block_n) const {
+    return tile * block_n + c * kCols;
+  }
+  // After a chunk is copied: the next ring buffer, chunk and slot.
+  template <int Stages>
+  __device__ __forceinline__ void advance() {
+    buf = buf + 1 == Stages ? 0 : buf + 1;
+    if (++c == cpt) {
+      c = 0;
+      tile = next;
+      if (++v + 1 < nv) next = tiles.tile_at(tile_row, v0 + v + 1);
+    }
+  }
+};
+
+// The chunk loop: Stages - 1 chunks in flight (stage_next copies one)
+// while compute(buf, c) runs on chunk c of a column tile in ring buffer
+// buf; flush() ends each column tile of cpt chunks.
+template <int Stages, typename Stage, typename Compute, typename Flush>
+__device__ __forceinline__ void walk(int nq, int cpt, Stage stage_next,
+                                     Compute compute, Flush flush) {
+  static_assert(Stages >= 2, "a ring of at least two buffers");
+#pragma unroll
+  for (int s = 0; s < Stages - 1; ++s) {
+    if (s < nq) stage_next();
+    cp_async_commit();
+  }
+  int c = 0, buf = 0;
+  for (int q = 0; q < nq; ++q) {
+    cp_async_wait<Stages - 2>();
+    __syncthreads();
+    if (q + Stages - 1 < nq) stage_next();
+    cp_async_commit();
+    compute(buf, c);
+    buf = buf + 1 == Stages ? 0 : buf + 1;
+    if (++c == cpt) {
+      c = 0;
+      flush();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Copy columns j .. j + cols of xt (d coordinates, and their norms) into
+// the stage at `base`: coordinate-major planes [kK][kLd] (hi, then lo at
+// bf16x2) and kCols norms after them.  16-byte cp.async copies where
+// `vector` (n, block_n and the pointers allow it), else element copies;
+// coordinates past d are left as they are.
+template <typename S, typename T, bool X2, int DMAX>
+__device__ __forceinline__ void stage_columns(
+    unsigned char* base, const T* __restrict__ xt,
+    const T* __restrict__ xt_lo, const float* __restrict__ nrm_x, int n,
+    int d, int j, int cols, int vector, int tid) {
+  constexpr int V = 16 / (int)sizeof(T);  // elements per 16-byte copy
+  T* hi = reinterpret_cast<T*>(base);
+  T* lo = hi + (size_t)S::kK * S::kLd;
+  float* nrm = reinterpret_cast<float*>(base + S::kPlanes * S::kPlane);
+  if (vector) {
+    constexpr int kVecs = kCols / V;  // 16-byte copies per coordinate
+#pragma unroll
+    for (int i = 0; i < (DMAX * kVecs + kThreads - 1) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int k = e / kVecs;
+      const int c = (e % kVecs) * V;
+      if (k < d && c < cols) {
+        const size_t src = (size_t)k * n + j + c;
+        cp_async16(hi + k * S::kLd + c, xt + src);
+        if constexpr (X2) cp_async16(lo + k * S::kLd + c, xt_lo + src);
+      }
+    }
+    if (tid * 4 < cols) cp_async16(nrm + tid * 4, nrm_x + j + tid * 4);
+  } else {
+    for (int e = tid; e < d * kCols; e += kThreads) {
+      const int k = e / kCols;
+      const int c = e - k * kCols;
+      if (c < cols) {
+        const size_t src = (size_t)k * n + j + c;
+        hi[k * S::kLd + c] = xt[src];
+        if constexpr (X2) lo[k * S::kLd + c] = xt_lo[src];
+      }
+    }
+    for (int c = tid; c < cols; c += kThreads) nrm[c] = nrm_x[j + c];
+  }
+}
+
+// Zero coordinates d .. kK of the column planes of every ring buffer, for
+// the launch: the products over the padded k then add exact zeros.
+template <typename S, typename T>
+__device__ __forceinline__ void zero_pad_columns(unsigned char* smem,
+                                                 size_t stage, int stages,
+                                                 int d, int tid) {
+  for (int buf = 0; buf < stages; ++buf) {
+    T* hi = reinterpret_cast<T*>(smem + (size_t)buf * stage);
+    for (int e = tid; e < (S::kK - d) * S::kLd * S::kPlanes; e += kThreads) {
+      const int p = e / ((S::kK - d) * S::kLd);
+      const int r = e - p * (S::kK - d) * S::kLd;
+      hi[(size_t)p * S::kK * S::kLd + (size_t)d * S::kLd + r] = T(0.f);
+    }
+  }
+}
+
+// f32 tier: the block's 64 rows, coordinate-major [DMAX][kRows], zero
+// past d and past row_end.
+template <int DMAX>
+__device__ __forceinline__ void load_rows_f32(float* s_rows,
+                                              const float* __restrict__ y,
+                                              int row0, int row_end, int d,
+                                              int tid) {
+  for (int e = tid; e < DMAX * kRows; e += kThreads) {
+    const int k = e / kRows;
+    const int r = e - k * kRows;
+    const int row = row0 + r;
+    s_rows[e] = (k < d && row < row_end) ? y[(size_t)row * d + k] : 0.f;
+  }
+}
+
+// f32 tier: the Gram of a thread's 4 rows (4 tr .. 4 tr + 3) and 8
+// columns (4 tc .. + 3 and 32 + 4 tc .. + 3) of the 64-column half of a
+// staged chunk that starts at s_col, on IEEE FP32 FMAs.
+template <int DMAX, int LD>
+__device__ __forceinline__ void gram_4x8(float (&g)[4][8],
+                                         const float* s_rows,
+                                         const float* s_col, int tr, int tc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) g[i][c] = 0.f;
+#pragma unroll kKUnroll
+  for (int k = 0; k < DMAX; ++k) {
+    const float4 r4 = reinterpret_cast<const float4*>(s_rows + k * kRows)[tr];
+    const float4* c4 = reinterpret_cast<const float4*>(s_col + k * LD);
+    const float4 ca = c4[tc];
+    const float4 cb = c4[8 + tc];
+    const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
+    const float cv[8] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y, cb.z, cb.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) g[i][c] = fmaf(rv[i], cv[c], g[i][c]);
+  }
+}
+
+// bf16 tiers: the A fragments of a warp's 16 rows (rbase ..), KS k-steps
+// of 16 coordinates, zero past d and past row_end.
+template <int KS, bool X2>
+__device__ __forceinline__ void load_rows_mma(
+    uint32_t (&a_hi)[KS][4], uint32_t (&a_lo)[X2 ? KS : 1][4],
+    const __nv_bfloat16* __restrict__ y,
+    const __nv_bfloat16* __restrict__ y_lo, int rbase, int row_end, int d,
+    int lane) {
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  const __nv_bfloat16 zero = __ushort_as_bfloat16(0);
+  auto y_at = [&](const __nv_bfloat16* src, int r, int k) {
+    const int row = rbase + r;
+    return (row < row_end && k < d) ? src[(size_t)row * d + k] : zero;
+  };
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int r = gid + (f & 1) * 8;
+      const int k = ks * 16 + 2 * tig + (f >> 1) * 8;
+      a_hi[ks][f] = pack_bf16(y_at(y, r, k), y_at(y, r, k + 1));
+      if constexpr (X2)
+        a_lo[ks][f] = pack_bf16(y_at(y_lo, r, k), y_at(y_lo, r, k + 1));
+    }
+  }
+}
+
+// bf16 tiers: the Gram of a warp's 16 rows and the 16 columns nn * 16 ..
+// of a staged chunk, two n8 tiles from one ldmatrix per k-step, on the
+// tensor cores.  bf16x2 runs hi.hi, hi.lo, lo.hi and lo.lo into four
+// accumulators added in that order.  hi_addr / lo_addr: the planes'
+// shared addresses plus this lane's ldmatrix row offset.
+template <int KS, bool X2, int LD>
+__device__ __forceinline__ void gram_mma16(
+    float (&g)[2][4], const uint32_t (&a_hi)[KS][4],
+    const uint32_t (&a_lo)[X2 ? KS : 1][4], uint32_t hi_addr,
+    uint32_t lo_addr, int nn) {
+  float hh[2][4] = {};
+  float hl[2][4] = {};
+  float lh[2][4] = {};
+  float ll[2][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint32_t off =
+        (uint32_t)((ks * 16 * LD + nn * 16) * sizeof(__nv_bfloat16));
+    uint32_t bh[4];
+    ldsm_x4_trans(bh, hi_addr + off);
+    mma_bf16(hh[0], a_hi[ks], bh[0], bh[1]);
+    mma_bf16(hh[1], a_hi[ks], bh[2], bh[3]);
+    if constexpr (X2) {
+      uint32_t bl[4];
+      ldsm_x4_trans(bl, lo_addr + off);
+      mma_bf16(hl[0], a_hi[ks], bl[0], bl[1]);
+      mma_bf16(hl[1], a_hi[ks], bl[2], bl[3]);
+      mma_bf16(lh[0], a_lo[ks], bh[0], bh[1]);
+      mma_bf16(lh[1], a_lo[ks], bh[2], bh[3]);
+      mma_bf16(ll[0], a_lo[ks], bl[0], bl[1]);
+      mma_bf16(ll[1], a_lo[ks], bl[2], bl[3]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      g[t][e] = X2 ? ((hh[t][e] + hl[t][e]) + lh[t][e]) + ll[t][e]
+                   : hh[t][e];
+}
+
+// ---------------------------------------------------------------------------
+// The KDE pass.
+// ---------------------------------------------------------------------------
+
 template <typename T, bool X2, int DMAX, Weight W, typename Tiles>
 __global__ void __launch_bounds__(kThreads, PassSmem<T, X2, DMAX>::kMinBlocks)
 kde_pass_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
@@ -171,7 +422,6 @@ kde_pass_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
                 float* __restrict__ part, int m, int n, int d, int block_m,
                 int block_n, int per_split, int vector, Tiles tiles) {
   using S = PassSmem<T, X2, DMAX>;
-  constexpr int V = 16 / (int)sizeof(T);  // elements per 16-byte copy
   static_assert(kCols % 64 == 0 && kCols / 4 <= kThreads, "chunk width");
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -198,102 +448,22 @@ kde_pass_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
   // width depends on its place in the tile alone.
   auto chunk_cols = [&](int c) { return min(kCols, block_n - c * kCols); };
 
-  // Staging cursor: the next chunk to copy is chunk st_c of slot st_v,
-  // column tile st_tile; the slot after it (nx_tile) is read one slot
-  // ahead, so a visit list's index load is not waited on.
-  int st_v = 0, st_c = 0, st_buf = 0;
-  int st_tile = tiles.tile_at(tile_row, v0);
-  int nx_tile = nv > 1 ? tiles.tile_at(tile_row, v0 + 1) : 0;
-  // Copy the next chunk (its columns of d coordinates, and their norms)
-  // into ring buffer st_buf; coordinates past d stay as zeroed below.
+  Cursor<Tiles> cur(tiles, tile_row, v0, nv, cpt);
   auto stage_next = [&]() {
-    const int cols = chunk_cols(st_c);
-    const int j = st_tile * block_n + st_c * kCols;
-    T* hi = reinterpret_cast<T*>(stage_ptr(st_buf));
-    T* lo = hi + (size_t)S::kK * S::kLd;
-    float* nrm =
-        reinterpret_cast<float*>(stage_ptr(st_buf) + S::kPlanes * S::kPlane);
-    if (vector) {
-      constexpr int kVecs = kCols / V;  // 16-byte copies per coordinate
-#pragma unroll
-      for (int i = 0; i < (DMAX * kVecs + kThreads - 1) / kThreads; ++i) {
-        const int e = tid + i * kThreads;
-        const int k = e / kVecs;
-        const int c = (e % kVecs) * V;
-        if (k < d && c < cols) {
-          const size_t src = (size_t)k * n + j + c;
-          cp_async16(hi + k * S::kLd + c, xt + src);
-          if constexpr (X2) cp_async16(lo + k * S::kLd + c, xt_lo + src);
-        }
-      }
-      if (tid * 4 < cols) cp_async16(nrm + tid * 4, nrm_x + j + tid * 4);
-    } else {
-      for (int e = tid; e < d * kCols; e += kThreads) {
-        const int k = e / kCols;
-        const int c = e - k * kCols;
-        if (c < cols) {
-          const size_t src = (size_t)k * n + j + c;
-          hi[k * S::kLd + c] = xt[src];
-          if constexpr (X2) lo[k * S::kLd + c] = xt_lo[src];
-        }
-      }
-      for (int c = tid; c < cols; c += kThreads) nrm[c] = nrm_x[j + c];
-    }
-    st_buf = st_buf + 1 == kStages ? 0 : st_buf + 1;
-    if (++st_c == cpt) {
-      st_c = 0;
-      st_tile = nx_tile;
-      if (++st_v + 1 < nv) nx_tile = tiles.tile_at(tile_row, v0 + st_v + 1);
-    }
+    stage_columns<S, T, X2, DMAX>(stage_ptr(cur.buf), xt, xt_lo, nrm_x, n,
+                                  d, cur.column(block_n), chunk_cols(cur.c),
+                                  vector, tid);
+    cur.template advance<kStages>();
   };
-
-  // Coordinates d .. kK of every ring buffer stay zero for the launch
-  // (the products over the padded k then add exact zeros).
-  for (int buf = 0; buf < kStages; ++buf) {
-    T* hi = reinterpret_cast<T*>(stage_ptr(buf));
-    for (int e = tid; e < (S::kK - d) * S::kLd * S::kPlanes; e += kThreads) {
-      const int p = e / ((S::kK - d) * S::kLd);
-      const int r = e - p * (S::kK - d) * S::kLd;
-      hi[(size_t)p * S::kK * S::kLd + (size_t)d * S::kLd + r] = T(0.f);
-    }
-  }
+  zero_pad_columns<S, T>(smem, S::kStage, kStages, d, tid);
 
   const float inv2h2 = *inv2h2_ptr;
   const float half_d1 = 1.f + 0.5f * d;  // exact for d <= kMaxD
 
-  // The chunk loop shared by both tiers: kStages - 1 chunks in flight
-  // while compute(buf, cols) runs on one; flush() ends a column tile.
-  auto walk = [&](auto compute, auto flush) {
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < nq) stage_next();
-      cp_async_commit();
-    }
-    int c = 0, buf = 0;
-    for (int q = 0; q < nq; ++q) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      if (q + kStages - 1 < nq) stage_next();
-      cp_async_commit();
-      compute(stage_ptr(buf), chunk_cols(c));
-      buf = buf + 1 == kStages ? 0 : buf + 1;
-      if (++c == cpt) {
-        c = 0;
-        flush();
-      }
-    }
-    cp_async_wait<0>();
-  };
-
   if constexpr (!S::kTensor) {
     // ---- f32 tier: FP32 FMAs on 4 x 8 register tiles -----------------
     float* s_rows = reinterpret_cast<float*>(smem + kStages * S::kStage);
-    for (int e = tid; e < DMAX * kRows; e += kThreads) {
-      const int k = e / kRows;
-      const int r = e - k * kRows;
-      const int row = row0 + r;
-      s_rows[e] = (k < d && row < row_end) ? y[(size_t)row * d + k] : 0.f;
-    }
+    load_rows_f32<DMAX>(s_rows, y, row0, row_end, d, tid);
     const int tr = tid >> 3;  // rows 4 tr .. 4 tr + 3
     const int tc = tid & 7;   // columns 4 tc .. + 3 and 32 + 4 tc .. + 3
                               // of each 64-column half of a chunk
@@ -306,33 +476,17 @@ kde_pass_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     float tile_part[4] = {0.f, 0.f, 0.f, 0.f};
 
-    auto compute = [&](const unsigned char* base, int cols) {
+    auto compute = [&](int buf, int chunk) {
+      const unsigned char* base = stage_ptr(buf);
+      const int cols = chunk_cols(chunk);
       const float* s_nrm =
           reinterpret_cast<const float*>(base + S::kPlanes * S::kPlane);
 #pragma unroll
       for (int half = 0; half < kCols / 64; ++half) {
-        const float* s_col = reinterpret_cast<const float*>(base) + half * 64;
         float g[4][8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) g[i][c] = 0.f;
-#pragma unroll kKUnroll
-        for (int k = 0; k < DMAX; ++k) {
-          const float4 r4 =
-              reinterpret_cast<const float4*>(s_rows + k * kRows)[tr];
-          const float4* c4 =
-              reinterpret_cast<const float4*>(s_col + k * S::kLd);
-          const float4 ca = c4[tc];
-          const float4 cb = c4[8 + tc];
-          const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
-          const float cv[8] = {ca.x, ca.y, ca.z, ca.w,
-                               cb.x, cb.y, cb.z, cb.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) g[i][c] = fmaf(rv[i], cv[c], g[i][c]);
-        }
+        gram_4x8<DMAX, S::kLd>(
+            g, s_rows, reinterpret_cast<const float*>(base) + half * 64, tr,
+            tc);
         const float4* n4 = reinterpret_cast<const float4*>(s_nrm + half * 64);
         const float4 na = n4[tc];
         const float4 nb = n4[8 + tc];
@@ -369,7 +523,7 @@ kde_pass_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
         tile_part[i] = 0.f;
       }
     };
-    walk(compute, flush);
+    walk<kStages>(nq, cpt, stage_next, compute, flush);
     if (tc == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -385,25 +539,9 @@ kde_pass_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
     const int gid = lane >> 2;  // fragment row (and row + 8)
     const int tig = lane & 3;   // fragment column pair
     const int rbase = row0 + warp * 16;
-    // A fragments of the warp's 16 rows, zero past d and past the rows
     uint32_t a_hi[KS][4];
     uint32_t a_lo[X2 ? KS : 1][4];
-    const __nv_bfloat16 zero = __ushort_as_bfloat16(0);
-    auto y_at = [&](const T* src, int r, int k) {
-      const int row = rbase + r;
-      return (row < row_end && k < d) ? src[(size_t)row * d + k] : zero;
-    };
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const int r = gid + (f & 1) * 8;
-        const int k = ks * 16 + 2 * tig + (f >> 1) * 8;
-        a_hi[ks][f] = pack_bf16(y_at(y, r, k), y_at(y, r, k + 1));
-        if constexpr (X2)
-          a_lo[ks][f] = pack_bf16(y_at(y_lo, r, k), y_at(y_lo, r, k + 1));
-      }
-    }
+    load_rows_mma<KS, X2>(a_hi, a_lo, y, y_lo, rbase, row_end, d, lane);
     float nrm_r[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -417,37 +555,17 @@ kde_pass_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
     const uint32_t lane_off =
         (uint32_t)(((lane & 15) * S::kLd + (lane >> 4) * 8) * sizeof(T));
 
-    auto compute = [&](const unsigned char* base, int cols) {
+    auto compute = [&](int buf, int chunk) {
+      const unsigned char* base = stage_ptr(buf);
+      const int cols = chunk_cols(chunk);
       const uint32_t hi_addr = smem_addr(base) + lane_off;
       const uint32_t lo_addr = hi_addr + (uint32_t)S::kPlane;
       const float* s_nrm =
           reinterpret_cast<const float*>(base + S::kPlanes * S::kPlane);
 #pragma unroll
       for (int nn = 0; nn < kCols / 16; ++nn) {
-        // the Gram of 16 columns, two n8 tiles from one ldmatrix
-        float hh[2][4] = {};
-        float hl[2][4] = {};
-        float lh[2][4] = {};
-        float ll[2][4] = {};
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          const uint32_t off =
-              (uint32_t)((ks * 16 * S::kLd + nn * 16) * sizeof(T));
-          uint32_t bh[4];
-          ldsm_x4_trans(bh, hi_addr + off);
-          mma_bf16(hh[0], a_hi[ks], bh[0], bh[1]);
-          mma_bf16(hh[1], a_hi[ks], bh[2], bh[3]);
-          if constexpr (X2) {
-            uint32_t bl[4];
-            ldsm_x4_trans(bl, lo_addr + off);
-            mma_bf16(hl[0], a_hi[ks], bl[0], bl[1]);
-            mma_bf16(hl[1], a_hi[ks], bl[2], bl[3]);
-            mma_bf16(lh[0], a_lo[ks], bh[0], bh[1]);
-            mma_bf16(lh[1], a_lo[ks], bh[2], bh[3]);
-            mma_bf16(ll[0], a_lo[ks], bl[0], bl[1]);
-            mma_bf16(ll[1], a_lo[ks], bl[2], bl[3]);
-          }
-        }
+        float g[2][4];
+        gram_mma16<KS, X2, S::kLd>(g, a_hi, a_lo, hi_addr, lo_addr, nn);
         auto epilogue = [&](auto masked) {
 #pragma unroll
           for (int t = 0; t < 2; ++t) {
@@ -455,11 +573,9 @@ kde_pass_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
             const float2 nc = *reinterpret_cast<const float2*>(s_nrm + c0);
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-              const float gram =
-                  X2 ? ((hh[t][e] + hl[t][e]) + lh[t][e]) + ll[t][e]
-                     : hh[t][e];
               const float sq = fmaxf(
-                  fmaf(-2.f, gram, nrm_r[e >> 1] + ((e & 1) ? nc.y : nc.x)),
+                  fmaf(-2.f, g[t][e],
+                       nrm_r[e >> 1] + ((e & 1) ? nc.y : nc.x)),
                   0.f);
               const float term = pass_term<W>(sq, inv2h2, half_d1);
               tile_part[e >> 1] +=
@@ -484,7 +600,7 @@ kde_pass_kernel(const T* __restrict__ y, const T* __restrict__ y_lo,
         tile_part[h] = 0.f;
       }
     };
-    walk(compute, flush);
+    walk<kStages>(nq, cpt, stage_next, compute, flush);
     if (tig == 0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {

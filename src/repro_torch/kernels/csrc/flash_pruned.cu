@@ -21,19 +21,19 @@
 // the outputs, as for B1/B2; the counts and tile_map are (mt) and
 // (mt, max_visits) int32.
 //
-// Design.  B4: flash_kde_pass.cuh's split-column body with a VisitList:
-// block (b, s) takes 64 rows of row tile i and visit slots
-// [s * per_split, (s + 1) * per_split) of its list, reads counts[i] and
-// the tile indices itself (the TPU scalar-prefetched them), stages the
-// visited tiles with cp.async and writes a partial row; a block whose
-// slots start past counts[i] writes zeros, so a row tile with no visits
-// sums to zero and the longest list is walked by many blocks at once.
-// The second pass adds the splits in order (no atomics).  B3:
-// flash_tiles.cuh's one-thread-per-row score body with a VisitList, one
-// block per row tile walking its whole list, each visited tile's terms
-// in a partial added to the running total.
+// Design: the split-column bodies, flash_kde_pass.cuh (B4) and
+// flash_score_pass.cuh (B3), with a VisitList: block (b, s) takes 64
+// rows of row tile i and visit slots [s * per_split, (s + 1) * per_split)
+// of its list, reads counts[i] and the tile indices itself (the TPU
+// scalar-prefetched them), one slot ahead of the copies that need them,
+// stages the visited tiles with cp.async and writes partial sums; a
+// block whose slots start past counts[i] writes zeros, so a row tile
+// with no visits sums to zero and the longest list is walked by many
+// blocks at once.  The second pass adds the splits in order (no
+// atomics).
 
 #include "flash_kde_pass.cuh"
+#include "flash_score_pass.cuh"
 
 // tier: 0 = f32, 1 = bf16, 2 = bf16x2.  part is the (splits, m) f32
 // scratch; the splits of per_split slots cover the max_visits slots.
@@ -61,21 +61,28 @@ extern "C" int flash_pruned_kde_launch(
       block_m, block_n, per_split, splits, tiles, stream);
 }
 
-// tier: 0 = f32, 1 = bf16, 2 = bf16x2.  Returns a cudaError_t code.
+// tier: 0 = f32, 1 = bf16, 2 = bf16x2.  part is the (splits, n, d+1)
+// f32 scratch (unused, may be null, with one split); the splits of
+// per_split slots cover the max_visits slots.  Returns a cudaError_t
+// code.
 extern "C" int flash_pruned_score_launch(
     const void* counts, const void* tile_map, int max_visits, const void* x,
     const void* x_lo, const void* nrm, const void* xt, const void* xt_lo,
-    const void* xaug, const void* xaug_lo, const void* inv2h2, void* out,
-    int n, int d, int tier, int block_m, int block_n, void* stream) {
+    const void* xaug, const void* xaug_lo, const void* inv2h2, void* part,
+    void* out, int n, int d, int tier, int block_m, int block_n,
+    int per_split, int splits, void* stream) {
   if (max_visits < 1 || block_m < 1 || block_n < 1 || n % block_m ||
-      n % block_n)
+      n % block_n || per_split < 1 ||
+      (long long)splits * per_split < max_visits ||
+      (long long)(splits - 1) * per_split >= max_visits)
     return cudaErrorInvalidValue;
   const flash::VisitList tiles{static_cast<const int*>(counts),
                                static_cast<const int*>(tile_map),
                                max_visits};
-  return flash::score_dispatch(x, x_lo, nrm, xt, xt_lo, xaug, xaug_lo,
-                               inv2h2, out, n, d, tier, block_m, block_n,
-                               tiles, stream);
+  return flash::score_pass_dispatch(x, x_lo, nrm, xt, xt_lo, xaug, xaug_lo,
+                                    inv2h2, part, out, n, d, tier, block_m,
+                                    block_n, per_split, splits, tiles,
+                                    stream);
 }
 
 extern "C" const char* flash_pruned_error(int code) {

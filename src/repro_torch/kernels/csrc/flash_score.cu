@@ -13,27 +13,36 @@
 // Bound on this card: operations.  Per pair the kernel does 2d flops of
 // Gram, 2(d+1) of the weighted sum and one exp; the bytes it must move
 // are the operands once and S1aug once, a few MB at n = 32768.  The f32
-// tier's floor is the FP32 rate (67 TFLOP/s); the exp floor is the SFU.
+// tier's floor is the FP32 rate (67 TFLOP/s); the bf16 tiers' the SFU's
+// exp.
 //
-// Design: flash_tiles.cuh's score_kernel streaming every column tile
-// (AllTiles): one thread per train row with its d+1 accumulators in
-// registers, the column tiles staged through shared memory, a per-tile
-// partial added to the running sums.
+// Design: flash_score_pass.cuh's split-column body over every column
+// tile (AllTiles): a grid of 64-row blocks x column splits (x output
+// coordinate groups at bf16x2, d > 16), 4 x 8 FP32 register tiles and a
+// phi tile in shared memory (f32) or mma.sync bf16 tiles for both
+// products (bf16, bf16x2), cp.async staging of the columns, their norms
+// and their [X|1] rows, and a second pass that adds each value's split
+// partials in order.  part is the (splits, n, d+1) f32 scratch the
+// wrapper allocates (none with one split, where the kernel writes out).
 
-#include "flash_tiles.cuh"
+#include "flash_score_pass.cuh"
 
 // tier: 0 = f32, 1 = bf16, 2 = bf16x2.  Returns a cudaError_t code.
 extern "C" int flash_score_launch(const void* x, const void* x_lo,
                                   const void* nrm, const void* xt,
                                   const void* xt_lo, const void* xaug,
                                   const void* xaug_lo, const void* inv2h2,
-                                  void* out, int n, int d, int tier,
-                                  int block_m, int block_n, void* stream) {
-  if (block_n < 1) return cudaErrorInvalidValue;
-  return flash::score_dispatch(
-      x, x_lo, nrm, xt, xt_lo, xaug, xaug_lo, inv2h2, out, n, d, tier,
-      block_m, block_n, flash::AllTiles{(n + block_n - 1) / block_n},
-      stream);
+                                  void* part, void* out, int n, int d,
+                                  int tier, int block_m, int block_n,
+                                  int per_split, int splits, void* stream) {
+  if (block_n < 1 || n % block_n) return cudaErrorInvalidValue;
+  const int tiles = n / block_n;
+  if (per_split < 1 || (long long)splits * per_split < tiles ||
+      (long long)(splits - 1) * per_split >= tiles)
+    return cudaErrorInvalidValue;
+  return flash::score_pass_dispatch(
+      x, x_lo, nrm, xt, xt_lo, xaug, xaug_lo, inv2h2, part, out, n, d, tier,
+      block_m, block_n, per_split, splits, flash::AllTiles{tiles}, stream);
 }
 
 extern "C" const char* flash_score_error(int code) {

@@ -35,7 +35,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import precision as prec
 
 MAX_D = 64          # the widest d the kernels are built for
-# the largest row tile: B1, B3, B5 and B6 run one thread per row of it
+# the largest row tile: B5 and B6 run one thread per row of it; the
+# split-column kernels (B1-B4) take it as the padding and visit-list unit
 MAX_BLOCK_M = 256
 TIER_CODES = {"f32": 0, "bf16": 1, "bf16x2": 2}
 # Column splits of the KDE pass (B2, B4): a split covers at least

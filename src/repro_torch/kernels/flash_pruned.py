@@ -9,9 +9,9 @@ of ``block_n``.  Visit slots past ``counts[i]`` are never run, and a row
 tile with no visits sums to zero.  Three functions per kernel:
 
   * ``flash_score_pruned_cuda`` / ``flash_kde_pruned_cuda`` launch the
-    hand-written CUDA kernels (``csrc/flash_pruned.cu``; B4 is the
-    split-column body of ``csrc/flash_kde_pass.cuh``) on CUDA tensors and
-    count the launch;
+    hand-written CUDA kernels (``csrc/flash_pruned.cu``: the split-column
+    bodies of ``csrc/flash_score_pass.cuh`` and ``csrc/flash_kde_pass.cuh``)
+    on CUDA tensors and count the launch;
   * ``flash_score_pruned_plain`` / ``flash_kde_pruned_plain`` are the same
     functions in plain PyTorch: one visit slot at a time for all row tiles
     at once, each visited tile's terms summed into a partial that is added
@@ -51,7 +51,7 @@ _KDE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
                  + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
 _SCORE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
 
 
@@ -306,7 +306,10 @@ def flash_score_pruned_cuda(
     block_m: int = 128,
     block_n: int = 128,
 ) -> torch.Tensor:
-    """Launch kernel B3 on the current stream; returns (n, d+1) f32."""
+    """Launch kernel B3 (both of its passes) on the current stream;
+    returns (n, d+1) f32.  The visit slots are split as
+    ``flash_score.plan_score_splits(n, block_n, d, max_visits)`` plans
+    them."""
     n, d = _dense_score._check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo,
                                xaug_lo, block_m, block_n)
     mt, t = _check_visits(counts, tile_map, n, n, block_m, block_n)
@@ -314,20 +317,26 @@ def flash_score_pruned_cuda(
     tier = prec.tier_of(x, x_lo)
     dev = check_cuda("flash_score_pruned_cuda", tier, (x, xt, xaug) + los,
                      (nrm, inv2h2), d, block_m, ints=(counts, tile_map))
+    plan = _dense_score.plan_score_splits(n, block_n, d, tile_map.shape[1])
     launch, error = _build.load("flash_pruned", _SCORE_ARGTYPES,
                                 "score_launch")
+    shape = plan.scratch_shape(n)
+    part = None if shape is None else torch.empty(
+        shape, dtype=torch.float32, device=dev)
     out = torch.empty((n, d + 1), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(_ptr(counts), _ptr(tile_map), tile_map.shape[1],
                     _ptr(x), _ptr(x_lo), _ptr(nrm), _ptr(xt), _ptr(xt_lo),
-                    _ptr(xaug), _ptr(xaug_lo), _ptr(inv2h2), _ptr(out),
-                    n, d, TIER_CODES[tier], block_m, block_n, stream)
+                    _ptr(xaug), _ptr(xaug_lo), _ptr(inv2h2), _ptr(part),
+                    _ptr(out), n, d, TIER_CODES[tier], block_m, block_n,
+                    plan.per_split, plan.splits, stream)
     if rc != 0:
         raise RuntimeError(f"flash_score_pruned launch failed ({rc}): "
                            f"{error(rc).decode()} [n={n} d={d} tier={tier} "
                            f"block_m={block_m} block_n={block_n} "
-                           f"max_visits={tile_map.shape[1]}]")
+                           f"max_visits={tile_map.shape[1]} "
+                           f"splits={plan.splits}]")
     score_counts.add(counts, mt * t)
     return out
 

@@ -14,25 +14,80 @@ denominator ``Φ 1`` in one pass.  Three functions:
 Arguments follow ``repro.kernels.flash_score.flash_score_pallas``: x
 (n, d), nrm (n, 1) f32, xt (d, n), xaug (n, d+1), ``inv2h2`` a (1, 1) f32
 tensor, and for bf16x2 the three lo planes.  The result is (n, d+1) f32.
+xaug's last column is the ones of ``[X | 1]``, as ``ops._score_operands``
+makes it: the f32 kernel sums φ for that column instead of reading it.
 At the bf16 tiers φ is rounded (bf16) or split (bf16x2) before it
 multiplies ``[X|1]``, as ``precision.weighted_accum`` does.
+
+The kernel splits the columns, as the KDE pass does: each block sums 64
+rows over one split of ``plan_score_splits(n, block_n, d).per_split``
+column tiles into an (splits, n, d+1) f32 scratch, and a second pass in
+the same launch adds each value's splits in order.  The fit has no
+request batch, so the plan follows n, block_n and d (and, for B3, the
+visit width): enough splits for about eight blocks per SM, the scratch
+held to ``SCORE_SCRATCH_BYTES``, and one split, with no scratch and no
+second pass, once the row blocks alone fill the card (n = 1M).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import precision as prec
-from repro_torch.kernels.flash_kde import TIER_CODES, check_cuda
+from repro_torch.kernels.flash_kde import TIER_CODES, SplitPlan, check_cuda
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+#: Rows a block of the score pass sums (the kernel's kRows).
+SCORE_ROWS = 64
+#: Blocks the score pass aims for: eight per SM of the H100's 132, two
+#: waves or more at the 2-4 blocks an SM holds.
+SCORE_TARGET_BLOCKS = 8 * 132
+#: The most bytes the (splits, n, d+1) f32 scratch may take.
+SCORE_SCRATCH_BYTES = 256 << 20
 
 #: Kernel launches made by ``flash_score_cuda``; set to 0 to start a count.
 launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ScorePlan(SplitPlan):
+    """How the score pass splits one row tile's column tiles (B1) or
+    visit slots (B3), and the width d+1 of the partial sums."""
+
+    width: int = 1
+
+    def scratch_shape(self, n: int) -> Optional[Tuple[int, int, int]]:
+        """The (splits, n, d+1) f32 partial sums the wrapper allocates;
+        None with one split, where the kernel writes S1aug itself."""
+        return (self.splits, n, self.width) if self.splits > 1 else None
+
+
+def plan_score_splits(n: int, block_n: int, d: int,
+                      visits: Optional[int] = None) -> ScorePlan:
+    """The column splits of the score pass for n train points of d
+    coordinates in column tiles of ``block_n``, over the n/block_n column
+    tiles (B1) or ``visits`` visit slots, the visit lists' width (B3).
+
+    Splits are added until the n/64 row blocks times the splits reach
+    ``SCORE_TARGET_BLOCKS``, within the slots and within the scratch cap;
+    n = 32768 gets 3 (1536 blocks), n = 1M one."""
+    if (n < 1 or block_n < 1 or d < 1
+            or (visits is not None and visits < 1)):
+        raise ValueError(f"bad split plan input n={n} block_n={block_n} "
+                         f"d={d} visits={visits}")
+    slots = -(-n // block_n) if visits is None else visits
+    width = d + 1
+    want = -(-SCORE_TARGET_BLOCKS // -(-n // SCORE_ROWS))
+    cap = SCORE_SCRATCH_BYTES // (n * width * 4)
+    splits = max(1, min(want, slots, cap))
+    per_split = -(-slots // splits)
+    return ScorePlan(per_split, -(-slots // per_split), slots, width)
 
 
 def _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo, block_m,
@@ -94,7 +149,9 @@ def flash_score_cuda(
     block_m: int = 128,
     block_n: int = 128,
 ) -> torch.Tensor:
-    """Launch kernel B1 on the current stream; returns (n, d+1) f32."""
+    """Launch kernel B1 (both of its passes) on the current stream;
+    returns (n, d+1) f32.  The column tiles are split as
+    ``plan_score_splits(n, block_n, d)`` plans them."""
     global launches
     n, d = _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo,
                   block_m, block_n)
@@ -102,7 +159,11 @@ def flash_score_cuda(
     dev = check_cuda("flash_score_cuda", tier,
                      (x, xt, xaug, x_lo, xt_lo, xaug_lo), (nrm, inv2h2), d,
                      block_m)
+    plan = plan_score_splits(n, block_n, d)
     launch, error = _build.load("flash_score", _ARGTYPES)
+    shape = plan.scratch_shape(n)
+    part = None if shape is None else torch.empty(
+        shape, dtype=torch.float32, device=dev)
     out = torch.empty((n, d + 1), dtype=torch.float32, device=dev)
 
     def ptr(t):
@@ -111,12 +172,14 @@ def flash_score_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(ptr(x), ptr(x_lo), ptr(nrm), ptr(xt), ptr(xt_lo),
-                    ptr(xaug), ptr(xaug_lo), ptr(inv2h2), ptr(out),
-                    n, d, TIER_CODES[tier], block_m, block_n, stream)
+                    ptr(xaug), ptr(xaug_lo), ptr(inv2h2), ptr(part),
+                    ptr(out), n, d, TIER_CODES[tier], block_m, block_n,
+                    plan.per_split, plan.splits, stream)
     if rc != 0:
         raise RuntimeError(f"flash_score kernel launch failed ({rc}): "
                            f"{error(rc).decode()} [n={n} d={d} tier={tier} "
-                           f"block_m={block_m} block_n={block_n}]")
+                           f"block_m={block_m} block_n={block_n} "
+                           f"splits={plan.splits}]")
     launches += 1
     return out
 
@@ -145,4 +208,6 @@ def flash_score(
                             block_m=block_m, block_n=block_n)
 
 
-__all__ = ["flash_score", "flash_score_cuda", "flash_score_plain"]
+__all__ = ["SCORE_ROWS", "SCORE_TARGET_BLOCKS", "SCORE_SCRATCH_BYTES",
+           "ScorePlan", "plan_score_splits", "flash_score",
+           "flash_score_cuda", "flash_score_plain"]

@@ -17,6 +17,8 @@ Tolerances (per tier):
 """
 
 import ctypes
+import inspect
+import math
 import re
 
 import jax.numpy as jnp
@@ -231,8 +233,9 @@ def test_wrappers_reject_ragged_operands():
 
 
 # ---------------------------------------------------------------------------
-# The launch geometry of the KDE pass (B2, B4) is planned in Python, and
-# the kernels are bound through ctypes: both are held here on the CPU.
+# The launch geometry of the KDE pass (B2, B4) and of the score pass (B1,
+# B3) is planned in Python, and the kernels are bound through ctypes:
+# both are held here on the CPU.
 # ---------------------------------------------------------------------------
 
 PLAN_CASES = [(32768, 128), (1_048_576, 128), (4096, 4096), (1000, 8),
@@ -281,6 +284,85 @@ def test_a_request_spreads_over_the_card_at_the_main_shape():
 def test_split_plan_rejects_empty_shapes(bad):
     with pytest.raises(ValueError, match="split plan"):
         flash_kde.plan_splits(*bad)
+
+
+# The score pass (B1, B3) plans its splits from n, block_n, d and the
+# visit width: (n, block_n, d, visits).
+SCORE_PLAN_CASES = [(32768, 128, 16, None), (1_048_576, 128, 16, None),
+                    (1_048_576, 128, 64, None), (128, 128, 8, None),
+                    (4096, 128, 16, None), (1000, 8, 16, None),
+                    (333, 7, 1, None), (32768, 128, 16, 200),
+                    (32768, 128, 16, 1), (4096, 64, 32, 17)]
+
+
+@pytest.mark.parametrize("n,block_n,d,visits", SCORE_PLAN_CASES)
+def test_score_plan_covers_every_slot_once_in_order(n, block_n, d, visits):
+    """The score pass's splits walk its column tiles (or visit slots)
+    once each, in order, none empty, within the kernel's grid limit
+    (65535 splits) and the scratch cap; a visit list cut at any count
+    walks slots 0 .. count once each."""
+    plan = flash_score.plan_score_splits(n, block_n, d, visits)
+    slots = -(-n // block_n) if visits is None else visits
+    ranges = plan.ranges()
+    assert plan.slots == slots and plan.width == d + 1
+    assert len(ranges) == plan.splits <= 65535
+    assert [v for a, b in ranges for v in range(a, b)] == list(range(slots))
+    assert all(b > a for a, b in ranges)
+    for count in sorted({0, 1, slots // 2, slots}):
+        assert [v for a, b in plan.ranges(count)
+                for v in range(a, b)] == list(range(count))
+    shape = plan.scratch_shape(n)
+    if plan.splits == 1:
+        assert shape is None
+    else:
+        assert shape == (plan.splits, n, d + 1)
+        assert 4 * math.prod(shape) <= flash_score.SCORE_SCRATCH_BYTES
+
+
+def test_score_plan_depends_only_on_its_inputs():
+    """plan_score_splits takes (n, block_n, d, visits) and nothing else
+    (the fit has no request batch), and the same inputs give the same
+    plan; d changes only the width and, through the scratch cap, the
+    splits."""
+    params = list(inspect.signature(
+        flash_score.plan_score_splits).parameters)
+    assert params == ["n", "block_n", "d", "visits"]
+    for case in SCORE_PLAN_CASES:
+        plans = {flash_score.plan_score_splits(*case) for _ in range(3)}
+        assert len(plans) == 1
+    a = flash_score.plan_score_splits(32768, 128, 1)
+    b = flash_score.plan_score_splits(32768, 128, 16)
+    assert (a.per_split, a.splits) == (b.per_split, b.splits)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_paper_scale_score_pass_runs_one_split(d):
+    """At 1M rows the 16384 row blocks fill the card: one split, the
+    kernel writes S1aug itself, no scratch and no second pass (the KDE
+    pass's plan of up to 128 splits would need ~9 GB at 1M x 17)."""
+    n = 1_048_576
+    for visits in (None, n // 128, 1):
+        plan = flash_score.plan_score_splits(n, 128, d, visits)
+        assert plan.splits == 1 and plan.scratch_shape(n) is None
+    kde_like = flash_kde.plan_splits(n, 128)
+    assert 4 * kde_like.splits * n * (d + 1) > \
+        flash_score.SCORE_SCRATCH_BYTES
+
+
+def test_score_pass_fills_the_card_at_the_main_shape():
+    """n = 32768 (512 row blocks of 64) runs at least two waves of the
+    H100's 132 SMs, splits included: at least 264 blocks."""
+    plan = flash_score.plan_score_splits(32768, 128, 16)
+    blocks = (32768 // flash_score.SCORE_ROWS) * plan.splits
+    assert plan.splits > 1 and blocks >= 2 * 132
+    assert blocks >= flash_score.SCORE_TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("bad", [(0, 128, 16, None), (128, 0, 16, None),
+                                 (128, 128, 0, None), (128, 128, 16, 0)])
+def test_score_plan_rejects_empty_shapes(bad):
+    with pytest.raises(ValueError, match="split plan"):
+        flash_score.plan_score_splits(*bad)
 
 
 def _c_argtypes(source, fn):

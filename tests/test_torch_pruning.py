@@ -48,6 +48,7 @@ from repro_torch.core import kde as tkde
 from repro_torch.core.estimator import SDKDE, EstimatorConfig
 from repro_torch.kernels import flash_kde as tfk
 from repro_torch.kernels import flash_pruned as tfp
+from repro_torch.kernels import flash_score as tfs
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import spatial as tsp
 from repro_torch.serve import QueryRequest, ServeConfig, ServeEngine
@@ -426,6 +427,39 @@ def test_pruned_split_plan_walks_each_visit_list_once(m):
             list(range(count))
         tiles = vl.tile_map[i, :count].tolist()
         assert tiles == sorted(set(tiles))
+
+
+@pytest.mark.parametrize("n", [4096, 32768])
+def test_pruned_score_plan_walks_each_visit_list_once(n):
+    """B3's splits as the kernel walks them: every row tile's slots 0 ..
+    counts[i] once each and in order, in runs planned from n, block_n, d
+    and the visit width alone (the counts do not enter), enough of them
+    for the card at n = 32768; a row tile that visits nothing walks
+    nothing."""
+    d = 4
+    x = torch.from_numpy(_clustered(n, d, k=16, seed=33))
+    index = tsp.build_index(x, seed=0)
+    lay = tsp.cluster_layout(x, index.labels, BN,
+                             total_multiple=math.lcm(BM, BN))
+    _, _, _, _, xrec = tops._score_operands(lay.points, "f32")
+    meta = tsp.tile_metadata(xrec, lay.real, block=BN)
+    keep = tsp.tile_map(xrec, meta, tops._inv2h2(0.5, x.device), 0.0,
+                        block_m=BM, kind="score").keep
+    keep = torch.cat([keep, torch.zeros_like(keep[:1])])
+    vl = tsp.visit_lists(keep)
+    rows = lay.points.shape[0]
+    plan = tfs.plan_score_splits(rows, BN, d, vl.max_visits)
+    assert plan == tfs.plan_score_splits(rows, BN, d, vl.max_visits)
+    assert plan.slots == vl.max_visits
+    counts = vl.counts.tolist()
+    assert counts[-1] == 0
+    for count in counts:
+        ranges = plan.ranges(count)
+        assert len(ranges) == plan.splits
+        assert [v for a, b in ranges for v in range(a, b)] == \
+            list(range(count))
+    if n == 32768:
+        assert (rows // tfs.SCORE_ROWS) * plan.splits >= 2 * 132
 
 
 # ---------------------------------------------------------------------------
