@@ -5,6 +5,9 @@
     python3 chip_smoke.py --paper-scale  # plus 1,048,576 x 16 train /
                                          # 131,072 queries, "auto" and
                                          # "off", timed
+    python3 chip_smoke.py --prefill-profile DIR  # only phase 8's prefill,
+                                         # profiled, with the port under
+                                         # DIR/src (another checkout)
 
 Run from the repository root.  Phases, each printing its lines:
 
@@ -14,7 +17,9 @@ Run from the repository root.  Phases, each printing its lines:
                   registers and spills (a score-pass instantiation at
                   d <= 32 must not spill); the HMMA/HGMMA instructions
                   in the SASS of each B1-B4 instantiation (cuobjdump;
-                  the bf16 tiers must have them, f32 none);
+                  the bf16 tiers must have them, f32 none); B7's
+                  registers, spills and warps an SM at N = 4 and 16,
+                  both modes and input types;
   3. kernels      each kernel against its plain PyTorch version on the
                   card, every tier: B1 flash_score, B2 flash_kde, B5
                   flash_laplace and B6 sq_moment, then B3
@@ -31,11 +36,17 @@ Run from the repository root.  Phases, each printing its lines:
                   DMAX 32 and 64 builds); B1, B2, B5 and B6 also at d = 1
                   (Fig. 4's dimension).  Score sums are held per value
                   to bar times their absolute mass, sum phi |[x | 1]|;
-                  B7 selective_scan (y and h_final) at a ragged shape
-                  (S 200, D 1000, N 4 and 16, nonzero h0) and at
+                  B7 selective_scan (y and h_final) at ragged shapes
+                  (S 200, D 1000, N 4, 5 and 16; B 3, S 1, D 33, N 3;
+                  nonzero h0) and at
                   Falcon-Mamba-7B's layer shape (B 4, S 1024, D 8192,
                   N 16), f32 and bf16 inputs, each element within
-                  MASS_BAR·(its mass) of the scan's error model;
+                  MASS_BAR·(its mass) of the scan's error model, and
+                  its fused mode mamba_scan at the same shapes (B, C
+                  and z as strided views) against mamba_scan_plain:
+                  h_final within MASS_BAR·mass, the gated output within
+                  the fused bar of kernels/selective_scan.py; both modes
+                  equal bit for bit across two launches;
   4. main path    32768 x 16 train and 16384 queries from the paper's 16-d
                   mixture.  The default path (prune="auto", which prunes
                   at this size): SDKDE(backend="flash").fit(x).evaluate(y)
@@ -70,8 +81,8 @@ Run from the repository root.  Phases, each printing its lines:
                   map, visit lists) timed apart from the kernels; the
                   fusion comparison, fused (B5) against non-fused (B2 +
                   B6), kernels alone and through ops, at the main shape
-                  and Fig. 4's four 1-D shapes; B7 at Falcon-Mamba-7B's
-                  layer shape;
+                  and Fig. 4's four 1-D shapes; B7, both modes, at
+                  Falcon-Mamba-7B's layer shape;
   6. paper scale  (--paper-scale only) fit + evaluate at the paper's size,
                   prune="auto" and prune="off", each fit timed; the
                   score pass must plan one split and no scratch;
@@ -87,16 +98,22 @@ Run from the repository root.  Phases, each printing its lines:
                   parameters, 64 layers) initialised on the card from a
                   seed, served through launch.serve.generate: batch 4,
                   prompt 1024, 32 greedy tokens, the SD-KDE activation
-                  monitor on.  B7 must launch exactly once per layer in
-                  the prefill, no other scan path may run, and only B1,
-                  B2 (the monitor) and B7 may launch; prefill ms, decode
-                  tok/s and peak memory are printed.  The monitor's B1
+                  monitor on.  B7's fused mode must launch exactly once
+                  per layer in the prefill and in each of the monitor's
+                  9 forward passes, no other scan path may run, and only
+                  B1, B2 (the monitor) and B7 may launch; prefill ms,
+                  decode tok/s and peak memory are printed, and the
+                  profiled prefill's kernels by class (GEMM, B7, other)
+                  with the other class by name; no softplus and at most
+                  one silu a layer (the conv's) may run there.  The
+                  monitor's B1
                   and B2 launches are held against their plain versions
                   on the same operands (d 8, fewer than 128 fit rows) at
                   phase 3's bars.  Then, at full width
                   and a depth of 2 in f32: prefill(p[:S]) plus one decode
-                  step against prefill(p[:S+1]), and the B7 prefill
-                  against the associative-scan branch.
+                  step against prefill(p[:S+1]), and the prefill
+                  through the fused B7 against the associative-scan
+                  branch.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -138,10 +155,12 @@ FIG4_NS, FIG4_H = (4096, 8192, 16384, 32768), 0.3
 # Fig. 3 (1-D grid) and Fig. 2 (16-d importance sampling) oracle errors
 ORACLE_N_1D, N_MC = 8192, 8192
 ORACLE_METHODS = ("kde", "sdkde", "laplace", "laplace_nonfused")
-# B7: (B, S, D, N) of a ragged shape (S not a multiple of the Pallas
-# kernel's chunk, D not of 128) and of Falcon-Mamba-7B's layer at the
-# serving batch and prompt
-SCAN_RAGGED = ((2, 200, 1000, 4), (2, 200, 1000, 16))
+# B7: (B, S, D, N) of ragged shapes (S not a multiple of the Pallas
+# kernel's chunk nor of B7's, down to one step; D not of 128 nor of 32;
+# N 5 and 3 not of the 4 state groups) and of Falcon-Mamba-7B's layer at
+# the serving batch and prompt
+SCAN_RAGGED = ((2, 200, 1000, 4), (2, 200, 1000, 5), (2, 200, 1000, 16),
+               (3, 1, 33, 3))
 SCAN_MAIN = (4, 1024, 8192, 16)
 SCAN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # phase 8: Falcon-Mamba-7B served at full width, depth cut only if it must
@@ -358,7 +377,8 @@ _PTXAS_NAME = re.compile(
     r"(kde_pass|kde|score_pass)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E"
     r"(?:LN\w*?WeightE(\d)E)?N\w*?(AllTiles|VisitList)")
 _WEIGHTS = {None: "", "0": "", "1": ",laplace", "2": ",sq_moment"}
-_PTXAS_SCAN = re.compile(r"selective_scan_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+_PTXAS_SCAN = re.compile(
+    r"selective_scan_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E")
 # the tensor-core instructions counted in the SASS of each instantiation
 _TENSOR_OPS = re.compile(r"\b(HMMA|HGMMA)\b")
 
@@ -374,7 +394,8 @@ def kernel_key(fn: str) -> str:
                 f"{',visits' if t.group(6) == 'VisitList' else ''}>")
     sc = _PTXAS_SCAN.search(fn)
     if sc is not None:
-        return (f"selective_scan<{'f32' if sc.group(1) == 'f' else 'bf16'},"
+        mode = "mamba_scan" if sc.group(3) == "1" else "selective_scan"
+        return (f"{mode}<{'f32' if sc.group(1) == 'f' else 'bf16'},"
                 f"{sc.group(2)}>")
     return fn
 
@@ -421,6 +442,7 @@ def tensor_op_counts(_build, name: str):
 
 def phase_build(_build) -> dict:
     log("== phase 2: build")
+    scan_regs = {}
     t0 = time.perf_counter()
     secs = _build.build()
     for name in _build.SOURCES:
@@ -444,6 +466,23 @@ def phase_build(_build) -> dict:
             if score:
                 log("    score pass registers / spill-store bytes: "
                     + ", ".join(f"{k} {r}/{sp}" for k, r, sp in score))
+            scan = [(k, r, sp) for k, r, sp in rows
+                    if k.startswith(("selective_scan<", "mamba_scan<"))
+                    and k.rstrip(">").split(",")[1] in ("4", "16")]
+            if scan:
+                from repro_torch.kernels import selective_scan as ss
+
+                for k, r, sp in scan:
+                    n = int(k.rstrip(">").split(",")[1])
+                    dtype = SCAN_DTYPES[k.split("<")[1].split(",")[0]]
+                    blocks = ss.blocks_per_sm(n, dtype,
+                                              k.startswith("mamba_scan<"))
+                    scan_regs[k] = {"registers": r, "spill_bytes": sp,
+                                    "warps_per_sm": 4 * blocks}
+                log("    scan registers / spill-store bytes / warps an SM "
+                    "at N = 4, 16: " + ", ".join(
+                        f"{k} {v['registers']}/{v['spill_bytes']}/"
+                        f"{v['warps_per_sm']}" for k, v in scan_regs.items()))
             # the score pass may not spill at d <= 32 (DMAX 4 .. 32)
             narrow = [k for k, _, sp in score
                       if sp and int(k.split(",")[1].rstrip(">")) <= 32]
@@ -470,7 +509,7 @@ def phase_build(_build) -> dict:
             raise AssertionError(f"{name}: the bf16 tiers must use tensor "
                                  f"cores and f32 none: {wrong or counts}")
         hmma[name] = passes
-    return hmma
+    return hmma, scan_regs
 
 
 def score_mass_args(args, i):
@@ -662,17 +701,54 @@ def scan_inputs(shape, dtype, gen):
     return xi, dt, b, c, a, h0
 
 
-def scan_bound_ms(shape, dtype) -> tuple:
+SCAN_RANK = 256     # Falcon-Mamba-7B's dt_rank: B and C sit past it
+
+
+def fused_scan_inputs(shape, dtype, gen):
+    """The fused B7's operands on the card, as the Mamba block hands them
+    over: xi and Δ_raw normal, B and C views of an x-projection (B, S,
+    rank + 2N), z the second half of an in-projection (B, S, 2D), dt_bias
+    normal/2, the D skip normal; a and h0 as ``scan_inputs``."""
+    bsz, s, d, n = shape
+    dev = gen.device
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=dev)
+
+    xi = randn(bsz, s, d).to(dtype)
+    dt_raw = randn(bsz, s, d).to(dtype)
+    xbc = randn(bsz, s, SCAN_RANK + 2 * n).to(dtype)
+    _, b, c = torch.split(xbc, [SCAN_RANK, n, n], dim=-1)
+    z = randn(bsz, s, 2 * d).to(dtype)[..., d:]
+    a = -torch.exp(randn(d, n) * 0.5)
+    h0 = randn(bsz, d, n) * 0.1
+    dt_bias = (randn(d) * 0.5).to(dtype)
+    d_skip = randn(d)
+    return xi, dt_raw, b, c, a, h0, dt_bias, d_skip, z
+
+
+def scan_bound_ms(shape, dtype, fused: bool = False) -> tuple:
     """(ms, "bytes" | "operations") for B7: each input read once (xi, dt,
     B, C in ``dtype``, a and h0 f32), y and h_final written once in f32;
     per (b, t, d, n) one exp on the SFU and 6 FP32 operations (the exp's
-    argument, decay·h, dx·B, the add, C·h and the sum)."""
+    argument, decay·h, dx·B, the add, C·h and the sum).  ``fused`` adds
+    the z read, dt_bias and the D skip, writes the output in ``dtype``
+    instead of y in f32, and per (b, t, d) three transcendentals on the
+    SFU (softplus's exp and log1p, silu's exp) and 8 FP32 operations (the
+    bias add, the threshold, silu's add and division, D·xi, its add, the
+    product, dx)."""
     bsz, s, d, n = shape
     size = torch.finfo(dtype).bits // 8
-    moved = (2 * bsz * s * d + 2 * bsz * s * n) * size + \
-        (d * n + 2 * bsz * d * n + bsz * s * d) * 4
-    terms = bsz * s * d * n
-    ops_s = max(terms / PEAK_EXP, 6 * terms / PEAK_F32)
+    rows = bsz * s * d
+    terms = rows * n
+    f32_moved = (d * n + 2 * bsz * d * n) * 4
+    if fused:
+        moved = (4 * rows + 2 * bsz * s * n + d) * size + f32_moved + d * 4
+        sfu, fp32 = terms + 3 * rows, 6 * terms + 8 * rows
+    else:
+        moved = (2 * rows + 2 * bsz * s * n) * size + f32_moved + rows * 4
+        sfu, fp32 = terms, 6 * terms
+    ops_s = max(sfu / PEAK_EXP, fp32 / PEAK_F32)
     bytes_s = moved / PEAK_BYTES
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
@@ -682,16 +758,45 @@ def check_scan(ss, args, label) -> dict:
     """B7 against its plain version on the card, y and h_final, each
     element within MASS_BAR·(its mass): the error model of
     kernels/selective_scan.py (32·eps of Σ_n |C_n|·(G_n + |h_n|), where G
-    carries the rounding of every step through the state's memory)."""
+    carries the rounding of every step through the state's memory); and
+    a second launch on the same inputs equal bit for bit."""
     y, h = ss.selective_scan_cuda(*args)
+    y2, h2 = ss.selective_scan_cuda(*args)
     py, ph, my, mh = ss.selective_scan_plain(*args, mass=True)
     sync()
     out = {"y": compare_mass(y, py, my, ss.MASS_BAR, f"selective_scan y "
                              f"{label}"),
            "h_final": compare_mass(h, ph, mh, ss.MASS_BAR,
                                    f"selective_scan h_final {label}")}
+    if not (torch.equal(y, y2) and torch.equal(h, h2)):
+        raise AssertionError(f"selective_scan {label}: two launches differ")
     out["max_abs_err"] = max(out["y"]["max_abs_err"],
                              out["h_final"]["max_abs_err"])
+    out["bitwise_repeat"] = True
+    return out
+
+
+def check_fused_scan(ss, args, label) -> dict:
+    """Fused B7 against ``mamba_scan_plain`` on the card: h_final within
+    MASS_BAR·(its mass), the gated output within the fused bar of
+    kernels/selective_scan.py (|silu(z)|·(MASS_BAR·M_y + one f32 and one
+    working-type ulp of y + D·xi) + one working-type ulp of the output,
+    the allowance ``mamba_scan_plain(..., mass=True)`` returns, so the
+    printed ratio is |err| / allowance against 1); and a second launch on
+    the same inputs equal bit for bit."""
+    o, h = ss.mamba_scan_cuda(*args)
+    o2, h2 = ss.mamba_scan_cuda(*args)
+    po, ph, tol, mh = ss.mamba_scan_plain(*args, mass=True)
+    sync()
+    out = {"out": compare_mass(o, po, tol, 1.0, f"mamba_scan out {label} "
+                               "(|err| / allowance)"),
+           "h_final": compare_mass(h, ph, mh, ss.MASS_BAR,
+                                   f"mamba_scan h_final {label}")}
+    if not (torch.equal(o, o2) and torch.equal(h, h2)):
+        raise AssertionError(f"mamba_scan {label}: two launches differ")
+    out["max_abs_err"] = max(out["out"]["max_abs_err"],
+                             out["h_final"]["max_abs_err"])
+    out["bitwise_repeat"] = True
     return out
 
 
@@ -866,16 +971,22 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
         for name, c in opnds.items():
             check_kernel(name, c, precision, FIG4_H, f"d=1 n={n} m={m}")
         del opnds
-    # B7: the ragged shapes, then Falcon-Mamba-7B's layer shape
+    # B7, unfused and fused: the ragged shapes, then Falcon-Mamba-7B's
+    # layer shape
     from repro_torch.kernels import selective_scan as ss
 
     for shape in SCAN_RAGGED + (SCAN_MAIN,):
         for tname, dtype in SCAN_DTYPES.items():
+            label = f"{tname} (B, S, D, N)={shape}"
             args = scan_inputs(shape, dtype, gen)
-            res = check_scan(ss, args, f"{tname} (B, S, D, N)={shape}")
+            res = check_scan(ss, args, label)
+            del args
+            args = fused_scan_inputs(shape, dtype, gen)
+            fres = check_fused_scan(ss, args, label)
+            del args
             if shape == SCAN_MAIN:
                 results.setdefault("selective_scan", {})[tname] = res
-            del args
+                results.setdefault("mamba_scan", {})[tname] = fres
     return results
 
 
@@ -883,6 +994,7 @@ def reset_counts(fs, fk, fp, fl) -> None:
     from repro_torch.kernels import selective_scan as ss
 
     ss.launches = 0
+    ss.fused_launches = 0
     fs.launches = 0
     fk.launches = 0
     fl.laplace_launches = 0
@@ -901,7 +1013,8 @@ def read_counts(fs, fk, fp, fl) -> dict:
             "flash_laplace": fl.laplace_launches,
             "sq_moment": fl.sq_moment_launches,
             "flash_kde_pruned laplace": fp.laplace_counts.launches,
-            "selective_scan": ss.launches}
+            "selective_scan": ss.launches,
+            "mamba_scan": ss.fused_launches}
 
 
 def check_launches(counts: dict, ran, what: str) -> None:
@@ -1316,20 +1429,24 @@ def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
 
     from repro_torch.kernels import selective_scan as ss
 
+    modes = {"selective_scan": (scan_inputs, ss.selective_scan_cuda,
+                                ss.selective_scan_plain, False),
+             "mamba_scan": (fused_scan_inputs, ss.mamba_scan_cuda,
+                            ss.mamba_scan_plain, True)}
     for tname, dtype in SCAN_DTYPES.items():
-        args = scan_inputs(SCAN_MAIN, dtype, gen)
-        ms = graph_ms(lambda: ss.selective_scan_cuda(*args))
-        call = cuda_ms(lambda: ss.selective_scan_cuda(*args), 10)
-        plain = cuda_ms(lambda: ss.selective_scan_plain(*args), 3)
-        bms, by = scan_bound_ms(SCAN_MAIN, dtype)
-        log(f"  selective_scan {tname} (B, S, D, N)={SCAN_MAIN}: kernel "
-            f"{ms:.4f} ms (call {call:.4f} ms), plain {plain:.3f} ms, bound "
-            f"{bms:.4f} ms ({by}), {bms / ms * 100:.1f}% of bound")
-        entries.setdefault("selective_scan", {})[tname] = dict(
-            ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms, bound_by=by,
-            **{k: v for k, v in errors["selective_scan"][tname].items()
-               if k == "max_abs_err"})
-        del args
+        for mode, (inputs, kernel, plain_fn, fused) in modes.items():
+            args = inputs(SCAN_MAIN, dtype, gen)
+            ms = graph_ms(lambda: kernel(*args))
+            call = cuda_ms(lambda: kernel(*args), 10)
+            plain = cuda_ms(lambda: plain_fn(*args), 3)
+            bms, by = scan_bound_ms(SCAN_MAIN, dtype, fused=fused)
+            log(f"  {mode} {tname} (B, S, D, N)={SCAN_MAIN}: kernel "
+                f"{ms:.4f} ms (call {call:.4f} ms), plain {plain:.3f} ms, "
+                f"bound {bms:.4f} ms ({by}), {bms / ms * 100:.1f}% of bound")
+            entries.setdefault(mode, {})[tname] = dict(
+                ms=ms, call_ms=call, plain_ms=plain, bound_ms=bms,
+                bound_by=by, max_abs_err=errors[mode][tname]["max_abs_err"])
+            del args
     return {"entries": entries, "prepass_ms": prep_times}
 
 
@@ -1548,13 +1665,42 @@ def compare_model(got, want, what: str) -> dict:
 
 
 GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "gemv")
+# elementwise work of the Mamba block's eager glue, counted by name in a
+# profile: with the fused scan no softplus runs, and silu once a layer
+# (the conv's; the gate's runs inside B7)
+GLUE_WORDS = ("softplus", "silu")
+_DEMANGLED_SCAN = re.compile(
+    r"selective_scan_kernel<(float|__nv_bfloat16), (\d+), (true|false)>")
+_FUNCTOR = re.compile(r"\w+Functor\w*|\w+_kernel\w*")
+_WRAPPERS = ("BinaryFunctor", "AUnaryFunctor", "BUnaryFunctor",
+             "gpu_kernel_impl", "gpu_kernel_impl_nocast")
+TOP_OTHER = 12
+
+
+def short_kernel_name(name: str) -> str:
+    """A profiled kernel's name, short: B7's mode and instantiation,
+    PyTorch's elementwise kernels as "kernel functor", any other name cut
+    to 80 characters."""
+    m = _DEMANGLED_SCAN.search(name)
+    if m:
+        mode = "mamba_scan" if m.group(3) == "true" else "selective_scan"
+        return (f"B7 {mode}<{'f32' if m.group(1) == 'float' else 'bf16'},"
+                f"{m.group(2)}>")
+    outer = re.match(r"(?:void )?(?:\w+::)*(\w+)<", name)
+    if outer is None or "at::native" not in name:
+        return name[:80]
+    inner = [f for f in _FUNCTOR.findall(name, outer.end())
+             if f not in _WRAPPERS]
+    return f"{outer.group(1)} {inner[0] if inner else '?'}"
 
 
 def device_breakdown(fn, label: str) -> dict:
     """One warm call of ``fn`` under torch.profiler: the device kernels'
-    time summed by class (GEMMs, B7, everything else) and the device's
-    busy time (the union of the kernels' intervals), beside the call's
-    host-clock time; the idle share is 1 − busy / wall."""
+    time summed by class (GEMMs, B7, everything else), the "other" class
+    by kernel name with launch counts (the top ``TOP_OTHER``), launches
+    whose name holds a ``GLUE_WORDS`` word, and the device's busy time
+    (the union of the kernels' intervals), beside the call's host-clock
+    time; the idle share is 1 − busy / wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1563,30 +1709,40 @@ def device_breakdown(fn, label: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA], acc_events=True) as prof:
         _, wall_ms = host_ms(fn)
-    classes = {"gemm": 0.0, "selective_scan": 0.0, "other": 0.0}
-    by_name, spans = {}, []
+    classes = {"gemm": 0.0, "B7": 0.0, "other": 0.0}
+    glue = dict.fromkeys(GLUE_WORDS, 0)
+    by_name, other, spans = {}, {}, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         spans.append((t0, t1))
         name = e.name.lower()
-        kind = ("selective_scan" if "selective_scan" in name else
+        kind = ("B7" if "selective_scan" in name else
                 "gemm" if any(k in name for k in GEMM_KERNELS) else "other")
         classes[kind] += (t1 - t0) / 1e3
-        ms, count = by_name.get(e.name[:60], (0.0, 0))
-        by_name[e.name[:60]] = (ms + (t1 - t0) / 1e3, count + 1)
+        for word in GLUE_WORDS:
+            glue[word] += word in name
+        short = short_kernel_name(e.name)
+        for table in (by_name, other) if kind == "other" else (by_name,):
+            ms, count = table.get(short, (0.0, 0))
+            table[short] = (ms + (t1 - t0) / 1e3, count + 1)
     busy, end = 0.0, float("-inf")
     for t0, t1 in sorted(spans):
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
     busy /= 1e3
-    top = sorted(((ms, c, k) for k, (ms, c) in by_name.items()),
-                 reverse=True)
+
+    def ranked(table, k):
+        return [{"ms": t, "count": c, "kernel": n} for t, c, n in
+                sorted(((ms, c, n) for n, (ms, c) in table.items()),
+                       reverse=True)[:k]]
+
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": 1 - busy / wall_ms if busy else None,
-           "by_class_ms": classes,
-           "top": [{"ms": t, "count": c, "kernel": k} for t, c, k in top[:6]]}
+           "by_class_ms": classes, "glue_launches": glue,
+           "top": ranked(by_name, 6), "other_by_kernel": ranked(other,
+                                                                TOP_OTHER)}
     if not busy:
         log(f"  {label}: the profiler recorded no device time (not "
             f"measured); host clock {wall_ms:.1f} ms")
@@ -1595,7 +1751,13 @@ def device_breakdown(fn, label: str) -> dict:
         f" (idle share {out['idle_share']:.3f}); kernel time by class: "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items())
         + "; top kernels: "
-        + "; ".join(f"{k} {t:.2f} ms x{c}" for t, c, k in top[:4]))
+        + "; ".join(f"{r['kernel']} {r['ms']:.2f} ms x{r['count']}"
+                    for r in out["top"][:4]))
+    log(f"    other by kernel (top {TOP_OTHER}): "
+        + "; ".join(f"{r['kernel']} {r['ms']:.2f} ms x{r['count']}"
+                    for r in out["other_by_kernel"])
+        + "; launches naming " + ", ".join(f"{k} {v}"
+                                           for k, v in glue.items()))
     return out
 
 
@@ -1651,6 +1813,7 @@ def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
         f"in {init_ms:.0f} ms")
     reset_counts(fs, fk, fp, fl)
     ss.plain_calls = 0
+    ss.fused_plain_calls = 0
     ssm_mod.assoc_scans = 0
     r, gen_ms = host_ms(lambda: serve_mod.generate(
         SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
@@ -1661,18 +1824,18 @@ def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
     n_l = cfg.n_layers
     log(f"  launches: {json.dumps(counts)}; scan paths per stage: "
         f"{json.dumps(scans)}")
-    want = {"prefill": {"selective_scan": n_l, "selective_scan_plain": 0,
-                        "assoc_scan": 0},
-            "decode": {"selective_scan": 0, "selective_scan_plain": 0,
-                       "assoc_scan": 0},
-            "monitor": {"selective_scan": 9 * n_l,
-                        "selective_scan_plain": 0, "assoc_scan": 0}}
+    # the fused B7 once a layer per forward pass (the monitor's: 8
+    # reference batches and the requests), no other scan path
+    want = {stage: {"selective_scan": 0, "selective_scan_plain": 0,
+                    "mamba_scan": k * n_l, "mamba_scan_plain": 0,
+                    "assoc_scan": 0}
+            for stage, k in (("prefill", 1), ("decode", 0), ("monitor", 9))}
     if scans != want:
         raise AssertionError(f"scan paths {scans}, expected {want}")
-    if counts["selective_scan"] != 10 * n_l or ss.plain_calls or \
-            ssm_mod.assoc_scans:
+    if counts["mamba_scan"] != 10 * n_l or ss.plain_calls or \
+            ss.fused_plain_calls or ssm_mod.assoc_scans:
         raise AssertionError("another scan path ran on the serving path")
-    check_launches(counts, ("selective_scan", "flash_score", "flash_kde"),
+    check_launches(counts, ("mamba_scan", "flash_score", "flash_kde"),
                    "the SSM serving path")
     mon_checks = check_monitor(ops, r["monitor"])
     toks = r["tokens"]
@@ -1693,6 +1856,12 @@ def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
             lambda: transformer.decode_step(params, cache, tok, cfg),
             f"one decode step, batch {SERVE_BATCH}, profiled")
         del cache
+    glue = prof_prefill["glue_launches"]
+    if prof_prefill["device_busy_ms"] and (glue["softplus"] or
+                                           glue["silu"] > n_l):
+        raise AssertionError(f"the prefill ran eager glue the fused B7 "
+                             f"takes in (softplus 0 and silu <= {n_l}, the "
+                             f"conv's, expected): {glue}")
     out = {"layers": n_l, "params": n_params, "init_ms": init_ms,
            "prefill_ms": r["prefill_ms"], "prefill_warm_ms": warm_ms,
            "decode_s": r["decode_s"], "decode_tok_s": r["decode_tok_s"],
@@ -1703,7 +1872,7 @@ def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
            "monitor_ms": mon["ms"], "monitor_len": mon["monitor_len"],
            "monitor_flags": int(mon["flags"].sum()),
            "monitor_checks": mon_checks, "launches": counts,
-           "prefill_launches": scans["prefill"]["selective_scan"],
+           "prefill_launches": scans["prefill"]["mamba_scan"],
            "profile": {"prefill": prof_prefill, "decode_step": prof_decode}}
     log(f"  prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens: "
         f"{r['prefill_ms']:.1f} ms (first call), {warm_ms:.1f} ms (again); "
@@ -1735,11 +1904,11 @@ def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
         sync()
         out["checks"] = {
             "kernel_vs_assoc_logits": compare_model(
-                k_logits, a_logits, "prefill through B7 vs the associative "
-                "scan, logits"),
+                k_logits, a_logits, "prefill through the fused B7 vs the "
+                "associative scan, logits"),
             "kernel_vs_assoc_ssm": compare_model(
-                k_cache["ssm"], a_cache["ssm"], "prefill through B7 vs the "
-                "associative scan, SSM states")}
+                k_cache["ssm"], a_cache["ssm"], "prefill through the fused "
+                "B7 vs the associative scan, SSM states")}
         del a_cache
         # decode_step advances k_cache in place
         step, cache = transformer.decode_step(p32, k_cache, ids[:, -1:],
@@ -1759,6 +1928,37 @@ def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
     del p32
     torch.cuda.empty_cache()
     return out
+
+
+def prefill_profile(checkout: Path) -> int:
+    """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
+    weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
+    found under ``checkout``/src: three warm calls on the host clock and
+    one profiled.  Prints one JSON line; the card's name and power limit
+    come first."""
+    src = checkout / "src"
+    if not (src / "repro_torch").is_dir():
+        raise FileNotFoundError(f"no port under {src}")
+    sys.path.insert(0, str(src))
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import common, transformer
+
+    phase_device()
+    cfg = serve_mod.build_config(SERVE_ARCH, layers=SERVE_LAYERS)
+    params = common.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    ids = lm_batch(cfg, SEED, 0, SERVE_BATCH, SERVE_PROMPT, "cuda")["tokens"]
+    with torch.inference_mode():
+        transformer.prefill(params, ids, cfg)
+        warm = [host_ms(lambda: transformer.prefill(params, ids, cfg))[1]
+                for _ in range(3)]
+        prof = device_breakdown(lambda: transformer.prefill(params, ids, cfg),
+                                f"prefill {SERVE_BATCH} x {SERVE_PROMPT}, "
+                                f"{checkout}")
+    print(json.dumps({"prefill_profile": str(checkout), "warm_ms": warm,
+                      **prof}), flush=True)
+    return 0
 
 
 SOURCES = {
@@ -1783,12 +1983,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper-scale", action="store_true",
                     help="also fit and evaluate at 1,048,576 x 16 / 131,072")
+    ap.add_argument("--prefill-profile", metavar="CHECKOUT", type=Path,
+                    help="only profile one warm full-width prefill with the "
+                         "port under CHECKOUT/src (e.g. an unpacked parent "
+                         "commit), to compare two commits on one card")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    if args.prefill_profile is not None:
+        return prefill_profile(args.prefill_profile.resolve())
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import device as device_mod
     from repro_torch import serve
@@ -1804,7 +2010,7 @@ def main(argv=None) -> int:
 
     dev = device_mod.resolve("cuda")
     name, _ = phase_device()
-    hmma = phase_build(_build)
+    hmma, scan_regs = phase_build(_build)
     mixture = mixtures.benchmark_mixture_16d()
     mix1 = mixtures.benchmark_mixture_1d()
     gen = torch.Generator(device=dev)
@@ -1834,24 +2040,32 @@ def main(argv=None) -> int:
                    if k in main_path["launches"]},
                 "flash_laplace": lap["off"]["flash_laplace"],
                 "sq_moment": lap["nonfused"]["sq_moment"],
-                "selective_scan": ssm_serve["launches"]["selective_scan"]}
+                "selective_scan": ssm_serve["launches"]["selective_scan"]
+                + ssm_serve["launches"]["mamba_scan"]}
     kernels = []
     for kname, (src, replaces) in SOURCES.items():
         if kname == "selective_scan":
-            tiers = timings["entries"][kname]
+            # both modes of B7; the top level is the fused mode, which the
+            # serving path launches
+            fused = timings["entries"]["mamba_scan"]
             b, s_, d_, n_ = SCAN_MAIN
             kernels.append({
                 "name": kname, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[kname],
                 "launches_prefill": ssm_serve["prefill_launches"],
-                **{k: tiers["bf16"][k] for k in (
+                "mode": "fused (mamba_scan)",
+                **{k: fused["bf16"][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by")},
                 "library_ms": None,
                 "library_note": "no single PyTorch call computes this scan",
                 "dtype": "bf16", "shape": {"B": b, "S": s_, "D": d_,
                                            "N": n_},
-                "dtypes": tiers})
+                "dtypes": fused,
+                "unfused": {
+                    "launches": ssm_serve["launches"]["selective_scan"],
+                    "dtypes": timings["entries"]["selective_scan"]},
+                "ptxas": scan_regs})
             continue
         tiers = timings["entries"][kname]
         main_tier = tiers["f32"]

@@ -13,7 +13,9 @@ per second, the launches of each scan path per stage and, on the card,
 peak memory per stage.  The model runs at the architecture's full width unless
 ``reduced`` asks for ``repro``'s small CPU configuration; ``layers`` cuts
 depth only.  ``ssm_kernel`` (on by default) runs the Mamba blocks
-through kernel B7; off, through the associative-scan branch.  With
+through kernel B7's fused mode (``mamba_scan``; its plain version also
+counts one ``selective_scan_plain`` call); off, through the
+associative-scan branch.  With
 ``monitor`` it fits the SD-KDE activation monitor (kernels B1/B2 on the
 card) on 8 × 16 reference sequences of ``monitor_len`` tokens and flags
 the batch's requests.  Runs on the card unless ``device="cpu"``; asking
@@ -63,6 +65,8 @@ def build_config(arch: str = "falcon_mamba_7b", *, reduced: bool = False,
 def _counts() -> dict:
     return {"selective_scan": scan_mod.launches,
             "selective_scan_plain": scan_mod.plain_calls,
+            "mamba_scan": scan_mod.fused_launches,
+            "mamba_scan_plain": scan_mod.fused_plain_calls,
             "assoc_scan": ssm_mod.assoc_scans}
 
 

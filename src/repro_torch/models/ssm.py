@@ -6,11 +6,14 @@ Recurrence (per channel c, state index n):
     h_t = exp(Δ_t A) ⊙ h_{t-1} + Δ_t B_t x_t ,   y_t = C_t · h_t + D x_t
 
 with A diagonal (d_inner, N) and B, C input-dependent.  ``mamba_block``
-runs a whole sequence: with ``cfg.ssm_kernel`` through kernel B7
-(``kernels.selective_scan``), else as ``repro``'s associative scan over
-the materialized (B, S, d_inner, N) decay and drive tensors, written here
-as a log-depth doubling scan over the sequence.  ``mamba_decode_step``
-carries (conv_state, ssm_state) and costs O(1) per token.  The layouts
+runs a whole sequence: with ``cfg.ssm_kernel`` through kernel B7's fused
+mode (``kernels.selective_scan.mamba_scan``: Δ's bias and softplus, the
+D skip term and the z gate inside the scan, B, C and z read as views of
+the projections), else as ``repro``'s associative scan over the
+materialized (B, S, d_inner, N) decay and drive tensors, written here as
+a log-depth doubling scan over the sequence, with the glue in eager
+ops.  ``mamba_decode_step`` carries (conv_state, ssm_state) and costs
+O(1) per token.  The layouts
 are ``repro``'s: activations (B, S, d), conv weight (dc, d_inner).
 """
 
@@ -21,7 +24,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels.selective_scan import mamba_scan
 from repro_torch.models.common import ModelConfig
 
 #: Calls of the associative-scan branch of ``mamba_block``; set to 0 to
@@ -29,14 +32,18 @@ from repro_torch.models.common import ModelConfig
 assoc_scans = 0
 
 
-def _ssm_proj(x_in: torch.Tensor, lp: dict, cfg: ModelConfig):
-    """Input-dependent Δ, B, C from the x-projection."""
+def _ssm_proj(x_in: torch.Tensor, lp: dict, cfg: ModelConfig, *,
+              raw_dt: bool = False):
+    """Input-dependent Δ, B, C from the x-projection (B and C are views
+    of it).  With ``raw_dt``, Δ before its bias and softplus (the fused
+    scan applies them)."""
     n, dtr = cfg.ssm_state, cfg.dt_rank
     xbc = x_in @ lp["x_proj"].to(x_in.dtype)               # (..., dtr+2N)
     dt, b, c = torch.split(xbc, [dtr, n, n], dim=-1)
-    dt = F.softplus(dt @ lp["dt_proj"].to(x_in.dtype)
-                    + lp["dt_bias"].to(x_in.dtype))        # (..., d_inner)
-    return dt, b, c
+    dt = dt @ lp["dt_proj"].to(x_in.dtype)                 # (..., d_inner)
+    if raw_dt:
+        return dt, b, c
+    return F.softplus(dt + lp["dt_bias"].to(x_in.dtype)), b, c
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -72,16 +79,18 @@ def mamba_block(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
     xi_pre, z = xz.chunk(2, dim=-1)
     xi = F.silu(_conv1d(xi_pre, lp["conv_w"].to(x.dtype),
                         lp["conv_b"].to(x.dtype)))
-    dt, b, c = _ssm_proj(xi, lp, cfg)                      # (B,S,di),(B,S,N)
     a = -torch.exp(lp["A_log"].to(torch.float32))          # (di, N)
 
     if cfg.ssm_kernel:
+        dt_raw, b, c = _ssm_proj(xi, lp, cfg, raw_dt=True)
         h0 = torch.zeros((x.shape[0], cfg.d_inner, cfg.ssm_state),
                          dtype=torch.float32, device=x.device)
-        y, h_last = selective_scan(xi, dt, b.contiguous(), c.contiguous(),
-                                   a, h0)
+        y, h_last = mamba_scan(xi, dt_raw, b, c, a, h0,
+                               lp["dt_bias"].to(x.dtype),
+                               lp["D"].to(torch.float32), z)
     else:
         assoc_scans += 1
+        dt, b, c = _ssm_proj(xi, lp, cfg)                  # (B,S,di),(B,S,N)
         dt32 = dt.to(torch.float32)
         decay = torch.exp(dt32[..., None] * a)              # (B,S,di,N)
         drive = (dt32 * xi.to(torch.float32))[..., None] * \
@@ -89,8 +98,8 @@ def mamba_block(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
         hs = _doubling_scan(decay, drive)
         y = torch.einsum("bsdn,bsn->bsd", hs, c.to(torch.float32))
         h_last = hs[:, -1].clone()      # not a view that pins hs
-    y = y + lp["D"].to(torch.float32) * xi.to(torch.float32)
-    y = y.to(x.dtype) * F.silu(z)
+        y = y + lp["D"].to(torch.float32) * xi.to(torch.float32)
+        y = y.to(x.dtype) * F.silu(z)
     out = y @ lp["out_proj"].to(x.dtype)
     if return_state:
         # a copy: a view of xz would keep the whole (B, S, 2·d_inner)

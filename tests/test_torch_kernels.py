@@ -367,13 +367,17 @@ def test_score_plan_rejects_empty_shapes(bad):
 
 def _c_argtypes(source, fn):
     """ctypes types of a C entry point's parameters, read from its
-    source: pointers as c_void_p, ints as c_int."""
+    source: pointers as c_void_p, ints as c_int, long longs as
+    c_longlong."""
     text = (_build.CSRC / source).read_text()
     m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", text, re.S)
     assert m, f"{fn} not found in {source}"
-    params = [p.strip() for p in m.group(1).split(",")]
-    assert all(re.fullmatch(r"(const )?(void\*|int) \w+", p) for p in params)
-    return [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    assert all(re.fullmatch(r"(const )?(void\*|int\*?|long long) \w+", p)
+               for p in params)
+    return [ctypes.c_void_p if "*" in p else
+            ctypes.c_longlong if p.startswith("long long") else ctypes.c_int
+            for p in params]
 
 
 @pytest.mark.parametrize("argtypes,source,fn", [
@@ -387,6 +391,10 @@ def _c_argtypes(source, fn):
     (flash_laplace._ARGTYPES, "flash_laplace.cu", "sq_moment_launch"),
     (selective_scan._ARGTYPES, "selective_scan.cu",
      "selective_scan_launch"),
+    (selective_scan._FUSED_ARGTYPES, "selective_scan.cu",
+     "selective_scan_fused_launch"),
+    (selective_scan._OCCUPANCY_ARGTYPES, "selective_scan.cu",
+     "selective_scan_occupancy"),
 ])
 def test_ctypes_bindings_match_the_c_entry_points(argtypes, source, fn):
     """Each wrapper's argtypes list the C function's parameters in order:
