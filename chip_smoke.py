@@ -15,9 +15,10 @@ Run from the repository root.  Phases, each printing its lines:
   2. build        the five CUDA sources (B1, B2, B3/B4, B5/B6, B7)
                   compiled with nvcc for sm_90a, in parallel; ptxas's
                   registers and spills (a score-pass instantiation at
-                  d <= 32 must not spill); the HMMA/HGMMA instructions
-                  in the SASS of each B1-B4 instantiation (cuobjdump;
-                  the bf16 tiers must have them, f32 none); B7's
+                  d <= 32 must not spill, nor a dense KDE-pass one, B2,
+                  B5 or B6, at any d); the HMMA/HGMMA instructions in
+                  the SASS of each B1-B6 instantiation (cuobjdump; the
+                  bf16 tiers must have them, f32 none); B7's
                   registers, spills and warps an SM at N = 4 and 16,
                   both modes and input types;
   3. kernels      each kernel against its plain PyTorch version on the
@@ -26,16 +27,17 @@ Run from the repository root.  Phases, each printing its lines:
                   flash_score_pruned and B4 flash_kde_pruned (laplace off
                   and on), at a ragged small shape whose visit lists hold
                   a zero-count row tile, and at the main path's shape;
-                  B2 and B4 also at serving requests of 1, 3 and 17 rows
-                  against the main train set; B1-B4 at blocks (96, 100)
-                  and (64, 200) on the ragged shape, and B3/B4 on the
-                  clustered set (with a zero-count row tile), and bit for
-                  bit: B2 rows alone equal the same rows in a 4096-row
-                  batch, and two launches of B1, B2, B3 or B4 on the same
-                  inputs are equal; B1 and B3 also at d = 24 and 64 (the
-                  DMAX 32 and 64 builds); B1, B2, B5 and B6 also at d = 1
-                  (Fig. 4's dimension).  Score sums are held per value
-                  to bar times their absolute mass, sum phi |[x | 1]|;
+                  B2, B4, B5 and B6 also at serving requests of 1, 3 and
+                  17 rows against the main train set; B1-B6 at blocks
+                  (96, 100) and (64, 200) on the ragged shape, and B3/B4
+                  on the clustered set (with a zero-count row tile), and
+                  bit for bit: B2, B5 and B6 rows alone equal the same
+                  rows in a 4096-row batch, and two launches of any of
+                  B1-B6 on the same inputs are equal; B1, B2, B3, B5 and
+                  B6 also at d = 24 and 64 (the DMAX 32 and 64 builds);
+                  B1, B2, B5 and B6 also at d = 1 (Fig. 4's dimension).
+                  Score sums are held per value to bar times their
+                  absolute mass, sum phi |[x | 1]|;
                   B7 selective_scan (y and h_final) at ragged shapes
                   (S 200, D 1000, N 4, 5 and 16; B 3, S 1, D 33, N 3;
                   nonzero h0) and at
@@ -67,7 +69,8 @@ Run from the repository root.  Phases, each printing its lines:
                   prune="auto" (must launch B4 with laplace only), "off"
                   (B5 only) and fused=False (B2 and B6 only), and a
                   ServeEngine(method="laplace") answering the ragged
-                  requests and one query_many (B4 laplace only); fused,
+                  requests and one query_many with prune="auto" (B4
+                  laplace only) and "off" (B5 only); fused,
                   non-fused, dense, the "torch" backend and float64 on
                   2048 queries are held against each other per row within
                   bar·(the row's absolute mass);
@@ -76,8 +79,8 @@ Run from the repository root.  Phases, each printing its lines:
                   medians) at the main path's shape (and B3/B4 on the
                   clustered set), beside the least time the card could
                   take for the work (for B3/B4: the visited pairs only);
-                  B2 and B4 at one 128-row serving request against
-                  n = 32768; the host-side prepass (k-means, layout, tile
+                  B2, B4, B5 and B6 at one 128-row serving request
+                  against n = 32768; the host-side prepass (k-means, layout, tile
                   map, visit lists) timed apart from the kernels; the
                   fusion comparison, fused (B5) against non-fused (B2 +
                   B6), kernels alone and through ops, at the main shape
@@ -374,7 +377,7 @@ def phase_device() -> tuple:
 
 
 _PTXAS_NAME = re.compile(
-    r"(kde_pass|kde|score_pass)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E"
+    r"(kde_pass|score_pass)_kernelI(f|13__nv_bfloat16)Lb([01])ELi(\d+)E"
     r"(?:LN\w*?WeightE(\d)E)?N\w*?(AllTiles|VisitList)")
 _WEIGHTS = {None: "", "0": "", "1": ",laplace", "2": ",sq_moment"}
 _PTXAS_SCAN = re.compile(
@@ -466,6 +469,13 @@ def phase_build(_build) -> dict:
             if score:
                 log("    score pass registers / spill-store bytes: "
                     + ", ".join(f"{k} {r}/{sp}" for k, r, sp in score))
+            if name in ("flash_kde", "flash_laplace"):
+                log("    KDE pass registers / spill-store bytes: "
+                    + ", ".join(f"{k} {r}/{sp}" for k, r, sp in rows))
+                # the dense KDE passes (B2, B5, B6) may not spill at any d
+                if spills:
+                    raise AssertionError(f"{name}: KDE-pass instantiations "
+                                         f"spill: {spills}")
             scan = [(k, r, sp) for k, r, sp in rows
                     if k.startswith(("selective_scan<", "mamba_scan<"))
                     and k.rstrip(">").split(",")[1] in ("4", "16")]
@@ -490,9 +500,10 @@ def phase_build(_build) -> dict:
                 raise AssertionError(f"{name}: score-pass instantiations "
                                      f"spill at d <= 32: {narrow}")
     log(f"  build wall time {time.perf_counter() - t0:.1f} s")
-    # B1-B4: the bf16 tiers' products run on the tensor cores, f32's not
+    # B1-B6: the bf16 tiers' products run on the tensor cores, f32's not
     hmma = {}
-    for name in ("flash_score", "flash_kde", "flash_pruned"):
+    for name in ("flash_score", "flash_kde", "flash_pruned",
+                 "flash_laplace"):
         counts = tensor_op_counts(_build, name)
         if counts is None:
             log(f"  {name}: tensor-core instructions in the SASS: not "
@@ -530,7 +541,8 @@ def score_mass_args(args, i):
 def kernel_operands(ops, x, y, precision, block_m, block_n, h):
     """Operands of B1, B2, B5 and B6 at one tier, as the ops wrappers
     make them, plus the kernel and plain callables (and for B5/B6 the
-    rows' absolute mass)."""
+    rows' absolute mass); the dense KDE passes (B2, B5, B6) also give
+    their arguments (``args``) and CUDA wrapper (``cuda``)."""
     from repro_torch.kernels import flash_kde as fk
     from repro_torch.kernels import flash_laplace as fl
     from repro_torch.kernels import flash_score as fs
@@ -558,10 +570,10 @@ def kernel_operands(ops, x, y, precision, block_m, block_n, h):
             pts=xrec[:n]),
         "flash_kde": dict(
             kind="kde",
-            kernel=lambda: fk.flash_kde_cuda(*k_args, block_m=block_m,
-                                             block_n=block_n),
+            kernel=lambda: fk.flash_kde_cuda(*k_args, **bk),
             plain=lambda: fk.flash_kde_plain(*k_args, block_n=512),
-            args=k_args, real=slice(0, m), pairs=m * n,
+            args=k_args, cuda=fk.flash_kde_cuda, real=slice(0, m),
+            pairs=m * n,
             moved=nbytes(*k_args) + m * 4,
             pts=torch.cat([xrec[:n], y.float()])),
     }
@@ -573,7 +585,7 @@ def kernel_operands(ops, x, y, precision, block_m, block_n, h):
             kernel=lambda f=cuda: f(*k_args, **bk),
             plain=lambda f=plain: f(*k_args, block_n=512),
             mass=lambda f=plain: f(*k_args, block_n=512, mass=True)[1],
-            real=slice(0, m), pairs=m * n,
+            args=k_args, cuda=cuda, real=slice(0, m), pairs=m * n,
             moved=nbytes(*k_args) + m * 4,
             pts=torch.cat([xrec[:n], y.float()]))
     return out
@@ -809,11 +821,17 @@ def clustered_set(dev) -> tuple:
             clustered_points(rng, centres, N_QUERY, dev))
 
 
-KDE_PASSES = ("flash_kde", "flash_kde_pruned", "flash_kde_pruned laplace")
+# the KDE-pass kernels: dense B2, B5, B6 (their rows alone must equal the
+# same rows in a batch) and the pruned B4, both flags
+DENSE_KDE_PASSES = ("flash_kde", "flash_laplace", "sq_moment")
+PRUNED_KDE_PASSES = ("flash_kde_pruned", "flash_kde_pruned laplace")
+KDE_PASSES = DENSE_KDE_PASSES + PRUNED_KDE_PASSES
 SCORE_PASSES = ("flash_score", "flash_score_pruned")
-# B1 and B3 at d = 24 and 64 (the DMAX 32 and 64 builds; at bf16x2 two
-# and three groups of output tiles), h 0.5 sqrt(d), on normal points
+# B1, B2, B3, B5 and B6 at d = 24 and 64 (the DMAX 32 and 64 builds; the
+# score pass at bf16x2 two and three groups of output tiles), h
+# 0.5 sqrt(d), on normal points
 WIDE_DS = (24, 64)
+WIDE_PASSES = SCORE_PASSES + DENSE_KDE_PASSES
 
 
 def check_zero_tile(pruned, block_m, precision, keys) -> None:
@@ -829,35 +847,37 @@ def check_zero_tile(pruned, block_m, precision, keys) -> None:
 
 
 def check_bitwise(ops, sp, x, y, index, block_m, block_n, h) -> dict:
-    """On the card, bit for bit: B2 on rows served alone (1, 3, 17 and
-    128 of them, padded to one row tile with other rows) and the same
-    rows inside a 4096-row batch, on operands sliced from the batch's;
-    B1, B2, B3 and B4 (both flags) launched twice on the same inputs."""
-    from repro_torch.kernels import flash_kde as fk
-
+    """On the card, bit for bit: B2, B5 and B6 on rows served alone (1,
+    3, 17 and 128 of them, padded to one row tile with other rows) and
+    the same rows inside a 4096-row batch, on operands sliced from the
+    batch's; B1-B6 (B4 both flags) launched twice on the same inputs."""
+    bk = dict(block_m=block_m, block_n=block_n)
     out = {}
     for precision in TIERS:
-        c = kernel_operands(ops, x, y[:4096], precision, block_m, block_n,
-                            h)["flash_kde"]
-        args = c["args"]
-        batch = fk.flash_kde_cuda(*args, block_m=block_m, block_n=block_n)
-        for k in (1, 3, 17, 128):
-            off = 1234 + k               # not on a warp or tile boundary
-            rows = torch.cat([torch.arange(off, off + k),
-                              torch.arange(0, block_m - k)]).to(x.device)
-            alone = list(args)
-            for i in (0, 1, 5):          # y, nrm_y, y_lo
-                if alone[i] is not None:
-                    alone[i] = alone[i][rows].contiguous()
-            got = fk.flash_kde_cuda(*alone, block_m=block_m,
-                                    block_n=block_n)[:k]
-            sync()
-            if not torch.equal(got, batch[off:off + k]):
-                raise AssertionError(
-                    f"flash_kde {precision}: {k} rows alone differ from the "
-                    "same rows in a 4096-row batch")
-        log(f"  flash_kde {precision}: rows alone (1, 3, 17, 128) equal "
-            "the same rows in a 4096-row batch, bit for bit")
+        dense = kernel_operands(ops, x, y[:4096], precision, block_m,
+                                block_n, h)
+        for name in DENSE_KDE_PASSES:
+            c = dense[name]
+            args = c["args"]
+            batch = c["cuda"](*args, **bk)
+            for k in (1, 3, 17, 128):
+                off = 1234 + k           # not on a warp or tile boundary
+                rows = torch.cat([torch.arange(off, off + k),
+                                  torch.arange(0, block_m - k)]).to(x.device)
+                alone = list(args)
+                for i in (0, 1, 5):      # y, nrm_y, y_lo
+                    if alone[i] is not None:
+                        alone[i] = alone[i][rows].contiguous()
+                got = c["cuda"](*alone, **bk)[:k]
+                sync()
+                if not torch.equal(got, batch[off:off + k]):
+                    raise AssertionError(
+                        f"{name} {precision}: {k} rows alone differ from "
+                        "the same rows in a 4096-row batch")
+        log(f"  {', '.join(DENSE_KDE_PASSES)} {precision}: rows alone (1, "
+            "3, 17, 128) equal the same rows in a 4096-row batch, bit for "
+            "bit")
+        del dense
         twice = dict(kernel_operands(ops, x, y, precision, block_m, block_n,
                                      h), **pruned_operands(
             ops, sp, x, y, precision, block_m, block_n, h, index))
@@ -892,7 +912,7 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
                 empty_row=1 if label == "ragged" else None)
             if label == "ragged":
                 check_zero_tile(pruned, block_m, precision,
-                                ("flash_score_pruned",) + KDE_PASSES[1:])
+                                ("flash_score_pruned",) + PRUNED_KDE_PASSES)
             opnds.update(pruned)
             for name, c in opnds.items():
                 res = check_kernel(name, c, precision, h,
@@ -902,8 +922,8 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
             del opnds, pruned
         if label != "main":
             continue
-        # serving requests: B2 and B4 at 1, 3 and 17 query rows (real
-        # rows only) against the main shape's train set
+        # serving requests: B2, B4, B5 and B6 at 1, 3 and 17 query rows
+        # (real rows only) against the main shape's train set
         for k in (1, 3, 17):
             for precision in TIERS:
                 opnds = dict(kernel_operands(
@@ -916,7 +936,7 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
                 del opnds
         results["bitwise"] = check_bitwise(ops, sp, x, y, index, block_m,
                                            block_n, h)
-    # B1-B4 at tiles that do not fill the kernels' own 64 rows x 128
+    # B1-B6 at tiles that do not fill the kernels' own 64 rows x 128
     # columns: block_m 96 (a half-idle block), block_n 100 (element
     # copies, one masked chunk a tile) and 200 (two chunks, one masked)
     n, m, d = SMALL
@@ -935,7 +955,7 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
     # lists emptied
     cx, cy = clustered_set(gen.device)
     cindex = sp.build_index(cx, seed=SEED)
-    clustered_passes = ("flash_score_pruned",) + KDE_PASSES[1:]
+    clustered_passes = ("flash_score_pruned",) + PRUNED_KDE_PASSES
     for precision in TIERS:
         pruned = pruned_operands(ops, sp, cx, cy, precision, block_m,
                                  block_n, CLU_H, cindex, empty_row=1)
@@ -945,7 +965,7 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
                          f"clustered n={N_TRAIN} m={N_QUERY} d={D}, "
                          f"occupancy {pruned[name]['occupancy']:.4f}")
         del pruned
-    # B1 and B3 at d = 24 and 64 on the ragged shape
+    # B1, B2, B3, B5 and B6 at d = 24 and 64 on the ragged shape
     for wd in WIDE_DS:
         n, m = SMALL[0], SMALL[1]
         x = torch.randn(n, wd, generator=gen, device=gen.device)
@@ -957,7 +977,7 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
                                          block_n, hw),
                          **pruned_operands(ops, sp, x, y, precision, block_m,
                                            block_n, hw, windex))
-            for name in SCORE_PASSES:
+            for name in WIDE_PASSES:
                 check_kernel(name, opnds[name], precision, hw,
                              f"n={n} d={wd} h={hw:.3f}")
             del opnds
@@ -1179,6 +1199,9 @@ def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
 LAPLACE_RUNS = {"auto": ("auto", True, ("flash_kde_pruned laplace",)),
                 "off": ("off", True, ("flash_laplace",)),
                 "nonfused": ("auto", False, ("flash_kde", "sq_moment"))}
+# ServeEngine(method="laplace") by prune, and the kernels each must launch
+LAPLACE_SERVE_RUNS = {"auto": ("flash_kde_pruned laplace",),
+                      "off": ("flash_laplace",)}
 
 
 def phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
@@ -1209,27 +1232,28 @@ def phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
                 f"{fp.laplace_counts.tiles_total} tiles)")
     h = runs["auto"]["est"].h
 
-    reset_counts(fs, fk, fp, fl)
-    eng = drive_engine(serve, x, y, "laplace", "auto")
-    sync()
-    launches["serve"] = counts = read_counts(fs, fk, fp, fl)
-    log(f"  ServeEngine(method='laplace'): register {eng['register_ms']:.2f}"
-        f" ms (h={eng['h']:.6f}); served (warm round) p50 "
-        f"{eng['p50_ms']:.3f} ms, p99 {eng['p99_ms']:.3f} ms, "
-        f"{eng['qps']:.0f} query rows/s; query_many "
-        f"{eng['query_many_ms']:.3f} ms for {sum(MANY_SIZES)} rows; "
-        f"launches {json.dumps(counts)}")
-    log("  ServeEngine(method='laplace') latency by request rows (warm "
-        "round, ms): " + ", ".join(f"{k}: {v:.3f}" for k, v in
-                                   eng["latency_ms_by_rows"].items()))
-    check_launches(counts, ("flash_kde_pruned laplace",),
-                   "ServeEngine(method='laplace')")
-    if eng["h"] != h:
-        raise AssertionError(f"the engine's Silverman h {eng['h']} is not "
-                             f"the estimator's {h}")
-    served = sum(v.shape[0] for _, v in eng["answers"])
-    if served != 2 * sum(SERVE_SIZES) + sum(MANY_SIZES):
-        raise AssertionError(f"the engine answered {served} rows")
+    engines = {}
+    for prune, ran in LAPLACE_SERVE_RUNS.items():
+        what = f"ServeEngine(method='laplace', prune={prune!r})"
+        reset_counts(fs, fk, fp, fl)
+        engines[prune] = eng = drive_engine(serve, x, y, "laplace", prune)
+        sync()
+        launches[f"serve_{prune}"] = counts = read_counts(fs, fk, fp, fl)
+        log(f"  {what}: register {eng['register_ms']:.2f} ms (h="
+            f"{eng['h']:.6f}); served (warm round) p50 {eng['p50_ms']:.3f} "
+            f"ms, p99 {eng['p99_ms']:.3f} ms, {eng['qps']:.0f} query "
+            f"rows/s; query_many {eng['query_many_ms']:.3f} ms for "
+            f"{sum(MANY_SIZES)} rows; launches {json.dumps(counts)}")
+        log(f"  {what} latency by request rows (warm round, ms): "
+            + ", ".join(f"{k}: {v:.3f}" for k, v in
+                        eng["latency_ms_by_rows"].items()))
+        check_launches(counts, ran, what)
+        if eng["h"] != h:
+            raise AssertionError(f"the engine's Silverman h {eng['h']} is "
+                                 f"not the estimator's {h}")
+        served = sum(v.shape[0] for _, v in eng["answers"])
+        if served != 2 * sum(SERVE_SIZES) + sum(MANY_SIZES):
+            raise AssertionError(f"{what} answered {served} rows")
 
     # the "torch" backend on the card is the reference; every pair is
     # held per row within bar·(absolute mass), float64 on N_F64 queries
@@ -1254,12 +1278,14 @@ def phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
         "nonfused_vs_torch": compare_mass(
             nonf, ref_dens, mass, bar, "Laplace non-fused vs torch backend"),
     }
-    got = torch.cat([v for _, v in eng["answers"]])
-    sl = torch.cat([torch.arange(s.start, s.stop, device=y.device)
-                    for s, _ in eng["answers"]])
-    errors["serve_vs_torch"] = compare_mass(
-        got, ref_dens[sl], mass[sl], bar,
-        "ServeEngine(method='laplace') answers vs torch backend")
+    for prune, eng in engines.items():
+        got = torch.cat([v for _, v in eng["answers"]])
+        sl = torch.cat([torch.arange(s.start, s.stop, device=y.device)
+                        for s, _ in eng["answers"]])
+        errors[f"serve_{prune}_vs_torch"] = compare_mass(
+            got, ref_dens[sl], mass[sl], bar,
+            f"ServeEngine(method='laplace', prune={prune!r}) answers vs "
+            "torch backend")
     f64 = kdemod.laplace_kde_eval(x.double(), y[:N_F64].double(), h)
     m64 = mass[:N_F64]
     for name, dens in (("auto", auto), ("off", off), ("nonfused", nonf),
@@ -1276,10 +1302,10 @@ def phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
         "negative_share": neg, "occupancy": occupancy,
         "ms": {**{label: {k: runs[label][k] for k in keep}
                   for label in runs},
-               "serve": {k: eng[k] for k in ("register_ms", "p50_ms",
-                                             "p99_ms", "qps",
-                                             "query_many_ms",
-                                             "latency_ms_by_rows")}},
+               **{f"serve_{prune}": {k: eng[k] for k in (
+                   "register_ms", "p50_ms", "p99_ms", "qps",
+                   "query_many_ms", "latency_ms_by_rows")}
+                  for prune, eng in engines.items()}},
     }
 
 
@@ -1401,7 +1427,7 @@ def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
                                        index))
         for name in KDE_PASSES:
             c = opnds[name]
-            rows = c["args"][0].shape[0] if name == "flash_kde" else \
+            rows = c["args"][0].shape[0] if name in DENSE_KDE_PASSES else \
                 c["real"].shape[0]
             entry = timed_entry(f"{name} request", c, precision, h, None)
             entry["rows_launched"] = rows
@@ -2082,21 +2108,27 @@ def main(argv=None) -> int:
                                      "d": D},
             "tiers": tiers,
         }
-        if kname in SCORE_PASSES + KDE_PASSES[:2]:
-            lib = {"flash_score": "flash_score",
-                   "flash_kde": "flash_kde"}.get(kname, "flash_pruned")
-            body = "score_pass<" if kname in SCORE_PASSES else "kde_pass<"
-            entry["tensor_ops_in_sass"] = (
-                {k: v for k, v in hmma[lib].items() if k.startswith(body)}
-                if lib in hmma else "not available")
-            entry["bitwise"] = errors["bitwise"]
+        lib = {"flash_score": "flash_score", "flash_kde": "flash_kde",
+               "flash_laplace": "flash_laplace",
+               "sq_moment": "flash_laplace"}.get(kname, "flash_pruned")
+        body = "score_pass<" if kname in SCORE_PASSES else "kde_pass<"
+        weight = {"flash_laplace": ",laplace>",
+                  "sq_moment": ",sq_moment>"}.get(kname, "")
+        entry["tensor_ops_in_sass"] = (
+            {k: v for k, v in hmma[lib].items()
+             if k.startswith(body) and k.endswith(weight)}
+            if lib in hmma else "not available")
+        entry["bitwise"] = errors["bitwise"]
         if kname == "flash_kde":
             entry["launches_laplace_path"] = lap["nonfused"]["flash_kde"]
+        if kname == "flash_laplace":
+            entry["launches_serve"] = lap["serve_off"]["flash_laplace"]
         if kname == "flash_kde_pruned":
             # B4's laplace flag: the fused Laplace pass when pruning
             entry["laplace"] = {
                 "launches": lap["auto"]["flash_kde_pruned laplace"],
-                "launches_serve": lap["serve"]["flash_kde_pruned laplace"],
+                "launches_serve": lap["serve_auto"][
+                    "flash_kde_pruned laplace"],
                 "tiers": timings["entries"]["flash_kde_pruned laplace"]}
         kernels.append(entry)
     summary = {k: v for k, v in main_path.items()}

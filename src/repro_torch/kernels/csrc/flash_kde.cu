@@ -32,14 +32,9 @@ extern "C" int flash_kde_launch(const void* y, const void* y_lo,
                                 int m, int n, int d, int tier, int block_m,
                                 int block_n, int per_split, int splits,
                                 void* stream) {
-  if (block_n < 1 || n % block_n) return cudaErrorInvalidValue;
-  const int tiles = n / block_n;
-  if (per_split < 1 || (long long)splits * per_split < tiles ||
-      (long long)(splits - 1) * per_split >= tiles)
-    return cudaErrorInvalidValue;
-  return flash::kde_pass_dispatch<flash::Weight::kOne>(
+  return flash::kde_pass_dense<flash::Weight::kOne>(
       y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2, part, out, m, n, d, tier,
-      block_m, block_n, per_split, splits, flash::AllTiles{tiles}, stream);
+      block_m, block_n, per_split, splits, stream);
 }
 
 extern "C" const char* flash_kde_error(int code) {

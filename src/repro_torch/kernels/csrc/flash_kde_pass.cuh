@@ -1,12 +1,13 @@
-// The KDE-pass body of kernels B2 (dense) and B4 (visit lists) for Hopper,
-// sm_90a.
+// The KDE-pass body of kernels B2, B5 and B6 (dense) and B4 (visit lists)
+// for Hopper, sm_90a.
 //
 //   out_j = sum_i w_ji exp(-scaled_ji),  scaled = sq * inv2h2,
 //   sq = max(|y_j|^2 + |x_i|^2 - 2 y_j.x_i, 0),
 //
-// over the column tiles of an AllTiles (B2) or of row tile j's VisitList
-// (B4), with the weight w = 1 (Weight::kOne) or the Laplace factor
-// 1 + d/2 - scaled (Weight::kLaplace, B4's flag).
+// over the column tiles of an AllTiles (B2, B5, B6) or of row tile j's
+// VisitList (B4), with the weight w = 1 (Weight::kOne: B2, B4), the
+// Laplace factor 1 + d/2 - scaled (Weight::kLaplace: B5, B4's flag) or
+// the squared distance sq (Weight::kSqMoment: B6).
 //
 // Bound: the operations.  At the main shape (32768 x 32768 x 16, h 0.78)
 // the f32 tier is bounded by FP32 operations (the Gram's 2d flops and a
@@ -25,8 +26,7 @@
 //    same instructions in the same order wherever the row sits in the
 //    batch, so a row's sum does not depend on the other rows of its
 //    request.  A 128-row request at n = 32768 spreads over 2 x 128
-//    blocks, where one thread per row used to walk all n columns.  A B4
-//    block whose slots start past counts[i] writes zeros.
+//    blocks.  A B4 block whose slots start past counts[i] writes zeros.
 //  * Threads are not rows.  128 threads (kThreads) share the 64-row tile;
 //    block_m is only the row tile the visit lists and padding are made
 //    for (a block_m that is not a multiple of 64 leaves some of a block's
@@ -99,10 +99,17 @@ struct PassSmem {
   static constexpr size_t kRowsBytes =
       kTensor ? 0 : (size_t)DMAX * kRows * sizeof(float);
   static constexpr size_t kBytes = kStages * kStage + kRowsBytes;
-  // blocks per SM the registers are sized for (ptxas caps each thread:
-  // 128 registers at f32, whose 4 x 8 tile spills below that, and at the
-  // bf16 tiers' d > 32, which hold four k-steps of A fragments; else 102)
-  static constexpr int kMinBlocks = kTensor && DMAX <= 32 ? 5 : 4;
+  // blocks per SM the registers are sized for (ptxas caps each thread):
+  // at most 4 (128 registers) at f32, whose 4 x 8 tile spills below
+  // that, and at the bf16 tiers' d > 32, which hold four k-steps of A
+  // fragments, else 5 (102); and never more than the shared memory lets
+  // in (228 KB an SM, 1 KB reserved a block: 3 at f32 DMAX 32, 1 at f32
+  // DMAX 64, 2 at bf16x2 DMAX 64), where the weights' epilogues would
+  // otherwise spill for nothing
+  static constexpr int kBySmem = (int)(233472 / (kBytes + 1024));
+  static constexpr int kMaxBlocks = kTensor && DMAX <= 32 ? 5 : 4;
+  static constexpr int kMinBlocks =
+      kBySmem < 1 ? 1 : (kBySmem > kMaxBlocks ? kMaxBlocks : kBySmem);
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -162,14 +169,17 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-// One pair's term: exp(-scaled), times the Laplace factor for kLaplace.
+// One pair's term: exp(-scaled), times the Laplace factor (kLaplace) or
+// the unscaled squared distance (kSqMoment), each product rounded once as
+// the plain versions round it.
 template <Weight W>
 __device__ __forceinline__ float pass_term(float sq, float inv2h2,
                                            float half_d1) {
-  static_assert(W != Weight::kSqMoment, "B6's weight runs kde_kernel");
   const float scaled = sq * inv2h2;
   if constexpr (W == Weight::kLaplace) {
     return __fmul_rn(expf(-scaled), half_d1 - scaled);
+  } else if constexpr (W == Weight::kSqMoment) {
+    return __fmul_rn(expf(-scaled), sq);
   } else {
     return expf(-scaled);
   }
@@ -699,6 +709,27 @@ cudaError_t kde_pass_dispatch(const void* y, const void* y_lo,
       return cudaErrorInvalidValue;
   }
 #undef FLASH_PASS
+}
+
+// The dense passes (B2, B5, B6): every column tile of n columns, n a
+// multiple of block_n, split into runs of per_split tiles that cover the
+// tiles exactly (splits - 1 runs fall short of them).  Returns a
+// cudaError_t code.
+template <Weight W>
+cudaError_t kde_pass_dense(const void* y, const void* y_lo,
+                           const void* nrm_y, const void* xt,
+                           const void* xt_lo, const void* nrm_x,
+                           const void* inv2h2, void* part, void* out, int m,
+                           int n, int d, int tier, int block_m, int block_n,
+                           int per_split, int splits, void* stream) {
+  if (block_n < 1 || n % block_n) return cudaErrorInvalidValue;
+  const int tiles = n / block_n;
+  if (per_split < 1 || (long long)splits * per_split < tiles ||
+      (long long)(splits - 1) * per_split >= tiles)
+    return cudaErrorInvalidValue;
+  return kde_pass_dispatch<W>(y, y_lo, nrm_y, xt, xt_lo, nrm_x, inv2h2,
+                              part, out, m, n, d, tier, block_m, block_n,
+                              per_split, splits, AllTiles{tiles}, stream);
 }
 
 }  // namespace flash

@@ -35,16 +35,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import precision as prec
 
 MAX_D = 64          # the widest d the kernels are built for
-# the largest row tile: B5 and B6 run one thread per row of it; the
-# split-column kernels (B1-B4) take it as the padding and visit-list unit
+# the largest row tile, the padding and visit-list unit of the
+# split-column kernels (B1-B6), whose blocks take 64 of its rows each
 MAX_BLOCK_M = 256
 TIER_CODES = {"f32": 0, "bf16": 1, "bf16x2": 2}
-# Column splits of the KDE pass (B2, B4): a split covers at least
+# Column splits of the KDE pass (B2, B4, B5, B6): a split covers at least
 # SPLIT_COLUMNS columns, and a row tile has at most MAX_SPLITS splits
 # (beyond that the splits grow, which bounds the (splits, m) scratch).
 SPLIT_COLUMNS = 256
 MAX_SPLITS = 128
 
+# the C signature of the dense KDE passes, B2, B5 and B6 alike
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 #: Kernel launches made by ``flash_kde_cuda``; set to 0 to start a count.
@@ -171,6 +172,42 @@ def flash_kde_plain(
     return out
 
 
+def launch_dense_pass(name, load, y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
+                      block_m, block_n) -> torch.Tensor:
+    """Check, plan and launch one of the dense KDE passes, B2, B5 or B6,
+    which share the C signature ``_ARGTYPES``: ``load()`` gives the
+    (launch, error) C functions, called after the checks so that refused
+    operands never build a kernel.  Allocates the (splits, m) scratch of
+    ``plan_splits(n, block_n)`` and the (m, 1) f32 sums on the operands'
+    device, launches on its current stream and raises if the launch was
+    refused.  The caller counts the launch."""
+    m, n, d = _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
+                     block_m, block_n)
+    tier = prec.tier_of(y, y_lo)
+    dev = check_cuda(f"{name}_cuda", tier, (y, xt, y_lo, xt_lo),
+                     (nrm_y, nrm_x, inv2h2), d, block_m)
+    plan = plan_splits(n, block_n)
+    launch, error = load()
+    part = torch.empty(plan.scratch_shape(m), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = launch(
+            y.data_ptr(), y_lo.data_ptr() if y_lo is not None else None,
+            nrm_y.data_ptr(), xt.data_ptr(),
+            xt_lo.data_ptr() if xt_lo is not None else None,
+            nrm_x.data_ptr(), inv2h2.data_ptr(), part.data_ptr(),
+            out.data_ptr(), m, n, d, TIER_CODES[tier], block_m, block_n,
+            plan.per_split, plan.splits, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed ({rc}): "
+                           f"{error(rc).decode()} [m={m} n={n} d={d} "
+                           f"tier={tier} block_m={block_m} "
+                           f"block_n={block_n} splits={plan.splits}]")
+    return out
+
+
 def flash_kde_cuda(
     y: torch.Tensor,
     nrm_y: torch.Tensor,
@@ -186,30 +223,9 @@ def flash_kde_cuda(
     """Launch kernel B2 (both of its passes) on the current stream;
     returns (m, 1) f32 sums."""
     global launches
-    m, n, d = _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
-                     block_m, block_n)
-    tier = prec.tier_of(y, y_lo)
-    dev = check_cuda("flash_kde_cuda", tier, (y, xt, y_lo, xt_lo),
-                     (nrm_y, nrm_x, inv2h2), d, block_m)
-    plan = plan_splits(n, block_n)
-    launch, error = _build.load("flash_kde", _ARGTYPES)
-    part = torch.empty(plan.scratch_shape(m), dtype=torch.float32,
-                       device=dev)
-    out = torch.empty((m, 1), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            y.data_ptr(), y_lo.data_ptr() if y_lo is not None else None,
-            nrm_y.data_ptr(), xt.data_ptr(),
-            xt_lo.data_ptr() if xt_lo is not None else None,
-            nrm_x.data_ptr(), inv2h2.data_ptr(), part.data_ptr(),
-            out.data_ptr(), m, n, d, TIER_CODES[tier], block_m, block_n,
-            plan.per_split, plan.splits, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_kde kernel launch failed ({rc}): "
-                           f"{error(rc).decode()} [m={m} n={n} d={d} "
-                           f"tier={tier} block_m={block_m} "
-                           f"block_n={block_n} splits={plan.splits}]")
+    out = launch_dense_pass(
+        "flash_kde", lambda: _build.load("flash_kde", _ARGTYPES), y, nrm_y,
+        xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n)
     launches += 1
     return out
 
@@ -238,4 +254,5 @@ def flash_kde(
 
 __all__ = ["MAX_D", "MAX_BLOCK_M", "TIER_CODES", "SPLIT_COLUMNS",
            "MAX_SPLITS", "SplitPlan", "plan_splits", "check_cuda",
-           "flash_kde", "flash_kde_cuda", "flash_kde_plain"]
+           "launch_dense_pass", "flash_kde", "flash_kde_cuda",
+           "flash_kde_plain"]

@@ -12,8 +12,8 @@ distances on purpose; the caller combines ``(1 + d/2)·S − M/(2h²)`` with
 B2's sums ``S``.  Three functions per kernel:
 
   * ``flash_laplace_cuda`` / ``sq_moment_cuda`` launch the hand-written
-    CUDA kernels (``csrc/flash_laplace.cu``) on CUDA tensors and count the
-    launch;
+    CUDA kernels (``csrc/flash_laplace.cu`` over B2's split-column body,
+    ``csrc/flash_kde_pass.cuh``) on CUDA tensors and count the launch;
   * ``flash_laplace_plain`` / ``sq_moment_plain`` are the same functions
     in plain PyTorch, streaming column blocks of ``block_n``;
   * ``flash_laplace`` / ``sq_moment`` take the plain version for CPU
@@ -21,7 +21,9 @@ B2's sums ``S``.  Three functions per kernel:
 
 Arguments follow ``repro.kernels.flash_laplace``: padded operands, norms
 (m, 1) and (1, n) in f32, ``inv2h2`` a (1, 1) f32 tensor, the bf16x2 tier
-given by both lo planes; the result is (m, 1) f32 sums.
+given by both lo planes; the result is (m, 1) f32 sums.  The kernels
+split the columns as B2 does (``flash_kde.plan_splits``, from n and
+block_n only), so a row's sum does not depend on its batch.
 
 The Laplace sum is signed and crosses zero, so its error is bounded per
 row against an absolute mass rather than against the sum.  With
@@ -39,7 +41,6 @@ non-fused combination's rounding, ``ρ·Σφ·(1 + d/2 + scaled)``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -47,9 +48,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_kde as _kde
 from repro_torch.kernels import precision as prec
-from repro_torch.kernels.flash_kde import TIER_CODES, check_cuda
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = _kde._ARGTYPES   # B2's C signature: part, per_split, splits
 
 #: Kernel launches made by ``flash_laplace_cuda`` (B5) and
 #: ``sq_moment_cuda`` (B6); set to 0 to start a count.
@@ -119,37 +119,6 @@ def sq_moment_plain(
                   block_n, mass)
 
 
-def _checked(name, y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m,
-             block_n):
-    """The launch checks of B2; returns (m, n, d, tier, device)."""
-    m, n, d = _kde._check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
-                          block_m, block_n)
-    tier = prec.tier_of(y, y_lo)
-    dev = check_cuda(name, tier, (y, xt, y_lo, xt_lo),
-                     (nrm_y, nrm_x, inv2h2), d, block_m)
-    return m, n, d, tier, dev
-
-
-def _run(name, launch, error, y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo,
-         block_m, block_n, shape):
-    m, n, d, tier, dev = shape
-    out = torch.empty((m, 1), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(
-            y.data_ptr(), y_lo.data_ptr() if y_lo is not None else None,
-            nrm_y.data_ptr(), xt.data_ptr(),
-            xt_lo.data_ptr() if xt_lo is not None else None,
-            nrm_x.data_ptr(), inv2h2.data_ptr(), out.data_ptr(),
-            m, n, d, TIER_CODES[tier], block_m, block_n, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed ({rc}): "
-                           f"{error(rc).decode()} [m={m} n={n} d={d} "
-                           f"tier={tier} block_m={block_m} "
-                           f"block_n={block_n}]")
-    return out
-
-
 def flash_laplace_cuda(
     y: torch.Tensor,
     nrm_y: torch.Tensor,
@@ -162,13 +131,14 @@ def flash_laplace_cuda(
     block_m: int = 128,
     block_n: int = 128,
 ) -> torch.Tensor:
-    """Launch kernel B5 on the current stream; returns (m, 1) f32 sums."""
+    """Launch kernel B5 (both of its passes) on the current stream;
+    returns (m, 1) f32 sums."""
     global laplace_launches
-    args = (y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n)
-    shape = _checked("flash_laplace_cuda", *args)
-    launch, error = _build.load("flash_laplace", _ARGTYPES,
-                                prefix="flash_laplace")
-    out = _run("flash_laplace", launch, error, *args, shape)
+    out = _kde.launch_dense_pass(
+        "flash_laplace",
+        lambda: _build.load("flash_laplace", _ARGTYPES,
+                            prefix="flash_laplace"),
+        y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n)
     laplace_launches += 1
     return out
 
@@ -185,13 +155,13 @@ def sq_moment_cuda(
     block_m: int = 128,
     block_n: int = 128,
 ) -> torch.Tensor:
-    """Launch kernel B6 on the current stream; returns (m, 1) f32 sums."""
+    """Launch kernel B6 (both of its passes) on the current stream;
+    returns (m, 1) f32 sums."""
     global sq_moment_launches
-    args = (y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n)
-    shape = _checked("sq_moment_cuda", *args)
-    launch, error = _build.load("flash_laplace", _ARGTYPES,
-                                prefix="sq_moment")
-    out = _run("sq_moment", launch, error, *args, shape)
+    out = _kde.launch_dense_pass(
+        "sq_moment",
+        lambda: _build.load("flash_laplace", _ARGTYPES, prefix="sq_moment"),
+        y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n)
     sq_moment_launches += 1
     return out
 

@@ -26,6 +26,8 @@ Tolerances, and why:
 """
 
 import math
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +57,9 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import spatial as tsp
 from repro_torch.serve import QueryRequest, ServeConfig, ServeEngine
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (helpers only; its main needs a card)
 
 TIERS = ["f32", "bf16x2", "bf16"]
 TIER_BAR = {"f32": 1e-5, "bf16x2": 5e-4, "bf16": 5e-2}
@@ -130,25 +135,26 @@ def laplace_f64(x, y, h):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("precision", TIERS)
-@pytest.mark.parametrize("kernel", ["laplace", "sq_moment"])
-@pytest.mark.parametrize("n,m,d", SHAPES)
-def test_plain_matches_pallas(n, m, d, kernel, precision):
-    x, y = _data(n, m, d, seed=n + d)
-    h = 0.7 if d > 1 else 0.3
+def _check_plain_against_pallas(x, y, h, kernel, precision, block_m,
+                                block_n):
+    """B5 or B6 (``kernel``) at one tier: the port's wrapper on CPU
+    tensors (its plain version, no launch counted) against the Pallas
+    kernel in interpret mode on the same padded operands, each real row
+    within bar·A_j."""
+    m = y.shape[0]
     y_ops, xt_ops, nrm_y, nrm_x = jops._prep_eval(
-        jnp.asarray(x), jnp.asarray(y), BM, BN, precision)
+        jnp.asarray(x), jnp.asarray(y), block_m, block_n, precision)
     inv = jops._inv2h2(h)
     jfn = flash_laplace_pallas if kernel == "laplace" else sq_moment_pallas
     want = jfn(y_ops[0], nrm_y, xt_ops[0], nrm_x, inv, y_ops[1], xt_ops[1],
-               block_m=BM, block_n=BN, interpret=True)
+               block_m=block_m, block_n=block_n, interpret=True)
     args = [_t(a) for a in (y_ops[0], nrm_y, xt_ops[0], nrm_x, inv,
                             y_ops[1], xt_ops[1])]
     tfn, plain = {"laplace": (tfl.flash_laplace, tfl.flash_laplace_plain),
                   "sq_moment": (tfl.sq_moment, tfl.sq_moment_plain)}[kernel]
     before = (tfl.laplace_launches, tfl.sq_moment_launches)
-    got = tfn(*args, block_m=BM, block_n=BN)
-    ref, mass = plain(*args, block_n=BN, mass=True)
+    got = tfn(*args, block_m=block_m, block_n=block_n)
+    ref, mass = plain(*args, block_n=block_n, mass=True)
     # CPU tensors: the plain version, and no kernel launch counted
     assert (tfl.laplace_launches, tfl.sq_moment_launches) == before
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
@@ -157,6 +163,58 @@ def test_plain_matches_pallas(n, m, d, kernel, precision):
     pts = np.concatenate([x, y])
     assert_within_mass(got[:m], np.asarray(want)[:m], mass[:m],
                        bar(precision, pts, h))
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("kernel", ["laplace", "sq_moment"])
+@pytest.mark.parametrize("n,m,d", SHAPES)
+def test_plain_matches_pallas(n, m, d, kernel, precision):
+    x, y = _data(n, m, d, seed=n + d)
+    h = 0.7 if d > 1 else 0.3
+    _check_plain_against_pallas(x, y, h, kernel, precision, BM, BN)
+
+
+# the blocks the card also checks B5/B6 at: block_m 96 (a half-idle
+# 64-row block), block_n 100 (one masked chunk a tile) and 200 (two
+# chunks, one masked); the wrapper pads to them
+ODD_BLOCKS = [(96, 100), (64, 200)]
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("kernel", ["laplace", "sq_moment"])
+@pytest.mark.parametrize("block_m,block_n", ODD_BLOCKS)
+def test_plain_matches_pallas_at_odd_blocks(block_m, block_n, kernel,
+                                            precision):
+    x, y = _data(300, 50, 16, seed=block_n)
+    _check_plain_against_pallas(x, y, 0.7, kernel, precision, block_m,
+                                block_n)
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("kernel", ["laplace", "sq_moment"])
+@pytest.mark.parametrize("d", [24, 64])
+def test_plain_matches_pallas_at_wide_d(d, kernel, precision):
+    """d = 24 and 64, the kernels' DMAX 32 and 64 builds, h 0.5·√d."""
+    x, y = _data(200, 40, d, seed=d)
+    _check_plain_against_pallas(x, y, 0.5 * math.sqrt(d), kernel, precision,
+                                BM, BN)
+
+
+@pytest.mark.parametrize("precision", TIERS)
+@pytest.mark.parametrize("kernel", ["laplace", "sq_moment"])
+def test_plain_matches_pallas_on_fig4_mixture(kernel, precision):
+    """Fig. 4's setting at a CPU size: the 1-D trimodal mixture, n 1024
+    train points and m 128 queries drawn with numpy, h 0.3."""
+    mix = jmix.benchmark_mixture_1d()
+    rng = np.random.default_rng(4)
+
+    def draw(k):
+        comp = rng.choice(len(mix.weights), size=k, p=mix.weights)
+        return (mix.means[comp] + mix.stds[comp, None]
+                * rng.standard_normal((k, 1))).astype(np.float32)
+
+    x, y = draw(1024), draw(128)
+    _check_plain_against_pallas(x, y, 0.3, kernel, precision, BM, BN)
 
 
 def test_laplace_sums_match_the_oracles():
@@ -203,6 +261,25 @@ def test_sentinel_columns_add_exactly_zero(plain):
                           tops._inv2h2(0.5, "cpu"), block_n=64))
     assert tuple(sums[1].shape) == (32, 1)
     torch.testing.assert_close(sums[1], sums[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mangled,key", [
+    ("_ZN5flash15kde_pass_kernelIfLb0ELi16ELNS_6WeightE1ENS_8AllTilesEEEvPK"
+     "T_S5_PKfS5_S5_S7_S7_Pfiiiiiiii", "kde_pass<f32,16,laplace>"),
+    ("_ZN5flash15kde_pass_kernelI13__nv_bfloat16Lb1ELi64ELNS_6WeightE2ENS_8"
+     "AllTilesEEEvPKT_S6_PKfS6_S6_S8_S8_Pfiiiiiiii",
+     "kde_pass<bf16x2,64,sq_moment>"),
+    ("_ZN5flash15kde_pass_kernelIfLb0ELi4ELNS_6WeightE1ENS_9VisitListEEEvPK"
+     "T_S5_PKfS5_S5_S7_S7_Pfiiiiiiii", "kde_pass<f32,4,laplace,visits>"),
+    # the one-thread-per-row body is gone: its name is no flash kernel's
+    ("_ZN5flash10kde_kernelIfLb0ELi16ELNS_6WeightE2ENS_8AllTilesEEEvPKT_",
+     "_ZN5flash10kde_kernelIfLb0ELi16ELNS_6WeightE2ENS_8AllTilesEEEvPKT_"),
+])
+def test_chip_smoke_names_the_laplace_instantiations(mangled, key):
+    """chip_smoke's phase 2 reads B5's and B6's registers, spills and
+    tensor-core counts by these names, and the kernels line picks B5's
+    and B6's by their weight."""
+    assert chip_smoke.kernel_key(mangled) == key
 
 
 # ---------------------------------------------------------------------------
