@@ -116,7 +116,42 @@ Run from the repository root.  Phases, each printing its lines:
                   and a depth of 2 in f32: prefill(p[:S]) plus one decode
                   step against prefill(p[:S+1]), and the prefill
                   through the fused B7 against the associative-scan
-                  branch.
+                  branch;
+  9. streaming    the port's streaming path (ServeConfig(stream=True)):
+                  (a) 32768 x 16 live points from the paper's mixture,
+                  2048 queries, f32 and bf16x2: streams with prune="auto"
+                  (must launch B4 only), "off" (B2 only) and
+                  method="laplace", "off" (B5 only) take 8 appends of
+                  256, one eviction of 512 and 4 slides of 256, flush,
+                  and answer ragged requests and one query_many; held
+                  against a fresh registration of the live set and
+                  against float64 at the tier bar (Laplace per row, bar
+                  times the absolute mass); B1 and B3 must not launch
+                  from registration to the last query; (b) the clustered
+                  set of phase 4b: 256 points around one centre refresh
+                  at most the tiles of their slab and those their
+                  weights reach above FLT_MIN, every other tile's xt,
+                  nrm_x (xt_lo) and metadata keep their bytes, and
+                  after a whole slab is evicted B4's answers hold
+                  against float64; (c) staleness_budget=2 keeps every
+                  answer within 2 generations and staleness_summary()
+                  agrees, a slack overflow makes exactly one rebuild, a
+                  background flush (stalled by the chaos hook) serves g,
+                  one generation behind, to a query dispatched while the
+                  worker builds g+1, and then catches up,
+                  engine.metrics() shows the stream.*
+                  counters and gauges, and obs.prometheus_text() lints
+                  clean; (d) 262144 x 16 (repro's streaming acceptance
+                  size), batches of 256, prune="auto": the initial
+                  statistics, append and flush (ms), affected tiles, the
+                  cost a point, a refit of the live set through the
+                  registry (median of 3 after a warm-up) and the ratio
+                  beside repro's 10x gate, one request's p50 before and
+                  after the updates, the host reads and synchronizing
+                  calls an update makes (and where the first one's
+                  are), and
+                  peak memory: printed, not gated; the streamed answers
+                  against the refit's are.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -166,6 +201,15 @@ SCAN_RAGGED = ((2, 200, 1000, 4), (2, 200, 1000, 5), (2, 200, 1000, 16),
                (3, 1, 33, 3))
 SCAN_MAIN = (4, 1024, 8192, 16)
 SCAN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# phase 9: streaming.  Parity at the main path's live size: 8 appends of
+# 256, one eviction of 512, 4 slides of 256, then ragged requests (and one
+# query_many over the rest) of N_F64 queries; scale at repro's streaming
+# acceptance size (benchmarks/streaming_throughput.py), batches of 256
+STREAM_APPENDS, STREAM_BATCH, STREAM_EVICT, STREAM_SLIDES = 8, 256, 512, 4
+STREAM_SIZES = (1, 3, 17, 100, 333, 640)
+STREAM_SCALE_N, STREAM_SCALE_UPDATES = 262144, 8
+REFIT_REPEATS = 3                       # timed refits at scale, after a warm-up
+BACKGROUND_STALL_MS = 500.0             # the chaos hook's stall of a worker flush
 # phase 8: Falcon-Mamba-7B served at full width, depth cut only if it must
 SERVE_ARCH = "falcon_mamba_7b"
 SERVE_LAYERS = 64
@@ -1956,6 +2000,469 @@ def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: streaming
+# ---------------------------------------------------------------------------
+
+# (label: method, prune, the one kernel the stream's queries must launch)
+STREAM_RUNS = {"sdkde auto": ("sdkde", "auto", "flash_kde_pruned"),
+               "sdkde off": ("sdkde", "off", "flash_kde"),
+               "laplace off": ("laplace", "off", "flash_laplace")}
+STREAM_TIERS = ("f32", "bf16x2")
+
+
+def sync_counted(fn) -> tuple:
+    """(result, ms, where): one call on the host clock, synchronized
+    before and after, and ``where`` the synchronizing CUDA calls it made,
+    as PyTorch's sync debug mode reports them: for each of its warnings,
+    the Python line that made the call and the innermost line of the
+    port that led there."""
+    import traceback
+    import warnings
+
+    where = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "repro_torch" in f.filename]
+        site = (f" from {Path(ours[-1].filename).name}:{ours[-1].lineno}"
+                if ours else "")
+        where.append("/".join(Path(filename).parts[-2:]) + f":{lineno}"
+                     + site)
+
+    sync()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3, where
+
+
+def stream_answers(serve, eng, key, y, tier) -> torch.Tensor:
+    """Ragged requests over ``y`` (sizes ``STREAM_SIZES``) and one
+    query_many over the rest, pinned to ``tier``; the densities in ``y``'s
+    row order, and the largest staleness an answer reported."""
+    parts, lag, off = [], 0, 0
+    for m in STREAM_SIZES:
+        ans = eng.query(serve.QueryRequest(key=key, points=y[off:off + m],
+                                           precision=tier))
+        parts.append(ans.value)
+        lag = max(lag, ans.staleness)
+        off += m
+    rest = y[off:]
+    cut = [0, rest.shape[0] // 3, 2 * rest.shape[0] // 3, rest.shape[0]]
+    many = eng.query_many([serve.QueryRequest(
+        key=key, points=rest[a:b], precision=tier)
+        for a, b in zip(cut, cut[1:])])
+    parts += [a.value for a in many]
+    lag = max([lag] + [a.staleness for a in many])
+    return torch.cat(parts), lag
+
+
+def stream_updates(eng, key, xa, rng) -> torch.Tensor:
+    """8 appends of 256, one eviction of 512 (ids drawn with numpy, so
+    sentinels land mid-tile), 4 slides of 256, then a flush; every point
+    the stream ever held, indexed by id."""
+    st = eng.registry.get(key).stream
+    b = STREAM_BATCH
+    for i in range(STREAM_APPENDS):
+        eng.registry.append(key, xa[i * b:(i + 1) * b])
+    eng.registry.evict_ids(key, rng.choice(st.ids, STREAM_EVICT,
+                                           replace=False))
+    for i in range(STREAM_SLIDES):
+        j = (STREAM_APPENDS + i) * b
+        eng.registry.slide(key, xa[j:j + b])
+    st.ensure(0)
+    return st
+
+
+def stream_parity(serve, kdemod, x, xa, y, h, fs, fk, fp, fl) -> dict:
+    """Phase 9a: the three streams against a fresh registration of their
+    live set and against float64, and the kernels each launched."""
+    out, launches = {}, {}
+    for label, (method, prune, kernel) in STREAM_RUNS.items():
+        reset_counts(fs, fk, fp, fl)
+        eng = serve.ServeEngine(serve.ServeConfig(
+            backend="flash", method=method, prune=prune, stream=True))
+        _, reg_ms = host_ms(lambda: eng.register("s", x, h=h))
+        for tier in STREAM_TIERS:          # both tiers through the updates
+            eng.query(serve.QueryRequest(key="s", points=y[:5],
+                                         precision=tier))
+        rng = np.random.default_rng(SEED + 90)
+        st, upd_ms = host_ms(lambda: stream_updates(eng, "s", xa, rng))
+        got = {t: stream_answers(serve, eng, "s", y, t) for t in
+               STREAM_TIERS}
+        sync()
+        launches[label] = counts = read_counts(fs, fk, fp, fl)
+        check_launches(counts, (kernel,), f"stream {label}")
+        every = torch.cat([x, xa])
+        live = every[torch.as_tensor(st.ids, device=x.device)]
+        log(f"  stream {label}: register {reg_ms:.1f} ms, "
+            f"{STREAM_APPENDS} appends + evict {STREAM_EVICT} + "
+            f"{STREAM_SLIDES} slides + flush {upd_ms:.1f} ms, gen "
+            f"{st.gen}, n_live {st.n_live}, rebuilds {st.rebuilds}; "
+            f"launches {json.dumps(counts)}")
+        if st.n_live != x.shape[0] + (STREAM_APPENDS - 2) * STREAM_BATCH:
+            raise AssertionError(f"stream {label}: n_live {st.n_live}")
+        fresh = serve.ServeEngine(serve.ServeConfig(
+            backend="flash", method=method, prune=prune))
+        fresh.register("f", live, h=h)
+        if method == "laplace":
+            f64 = kdemod.laplace_kde_eval(live.double(), y.double(), h)
+            mass = laplace_mass(kdemod, live, y, h)
+        else:
+            f64 = kdemod.sdkde_eval(live.double(), y.double(), h)
+        res = {"launches": counts, "register_ms": reg_ms,
+               "updates_ms": upd_ms}
+        for tier, (dens, lag) in got.items():
+            if lag != 0:
+                raise AssertionError(f"stream {label}: lag {lag} at "
+                                     "budget 0")
+            want = fresh.query(serve.QueryRequest(key="f", points=y,
+                                                  precision=tier)).value
+            bar = tier_bar(tier, torch.cat([live, y]), h)
+            what = f"stream {label} {tier}"
+            if method == "laplace":
+                res[tier] = {
+                    "vs_refit": compare_mass(dens, want, mass, bar,
+                                             f"{what} vs a fresh "
+                                             "registration"),
+                    "vs_f64": compare_mass(dens, f64, mass, bar,
+                                           f"{what} vs float64")}
+            else:
+                res[tier] = {
+                    "vs_refit": compare(dens, want, bar, f"{what} vs a "
+                                        "fresh registration"),
+                    "vs_f64": compare(dens, f64, bar, f"{what} vs "
+                                      "float64")}
+        out[label] = res
+    return out
+
+
+def tile_bytes(cols, t: int, block: int) -> list:
+    sl = slice(t * block, (t + 1) * block)
+    parts = [cols.xt[:, sl], cols.nrm_x[:, sl]]
+    if cols.xt_lo is not None:
+        parts.append(cols.xt_lo[:, sl])
+    return parts + [getattr(cols.meta, f)[t] for f in cols.meta._fields]
+
+
+def stream_clean_tiles(serve, ops, sp, kdemod, dev, fp) -> dict:
+    """Phase 9b: 256 points around one centre of the clustered set refresh
+    only their slab's tiles and the tiles their weights reach; every
+    other tile keeps its bytes; an evicted slab leaves B4 right."""
+    from repro_torch.stream import delta
+
+    x, y = clustered_set(dev)
+    h = CLU_H
+    eng = serve.ServeEngine(serve.ServeConfig(
+        backend="flash", method="sdkde", prune="auto", stream=True))
+    eng.register("c", x, h=h)
+    st = eng.registry.get("c").stream
+    for tier in STREAM_TIERS:
+        eng.query(serve.QueryRequest(key="c", points=y[:5], precision=tier))
+    snap0 = st.ensure(0)
+    cols0 = {t: st.columns_for(t, snap0) for t in STREAM_TIERS}
+    rng = np.random.default_rng(SEED + 91)
+    centres = np.random.default_rng(SEED).uniform(0.0, CLU_SPREAD,
+                                                  (CLU_K, D))
+    xa = torch.as_tensor((centres[0] + rng.standard_normal(
+        (STREAM_BATCH, D))).astype(np.float32), device=dev)
+    # the tiles the append may touch: its own slots' tiles and those of
+    # every live point whose weight from an appended one reaches
+    # FLT_MIN (float64, with a factor 2 of margin for the f32 rounding)
+    phi_max = torch.exp(-(kdemod.sqdist(x.double(), xa.double())
+                          / (2 * h * h)).min(dim=1).values)
+    reached = np.flatnonzero((phi_max >= delta.FLT_MIN / 2).cpu().numpy())
+    st.append(xa)
+    block = st.block_n
+    expect = set((st._slots[reached] // block).tolist())
+    expect |= set((st._slots[-STREAM_BATCH:] // block).tolist())
+    snap1 = st.ensure(0)
+    if snap1.layout_epoch != snap0.layout_epoch:
+        raise AssertionError(f"clustered append rebuilt the layout "
+                             f"({st.last_rebuild_reason})")
+    log(f"  clustered append of {STREAM_BATCH} around one centre: "
+        f"affected {snap1.affected_tiles} of {snap1.total_tiles} tiles, "
+        f"at most {len(expect)} expected ({len(reached)} live points "
+        f"reached above FLT_MIN)")
+    if snap1.affected_tiles > len(expect):
+        raise AssertionError("the append refreshed more tiles than its "
+                             "slab and its weights reach")
+    clean = [t for t in range(snap1.total_tiles) if t not in expect]
+    for tier in STREAM_TIERS:
+        cols1 = st.columns_for(tier, snap1)
+        for t in clean:
+            if not all(torch.equal(a, b) for a, b in zip(
+                    tile_bytes(cols0[tier], t, block),
+                    tile_bytes(cols1, t, block))):
+                raise AssertionError(f"clean tile {t} changed its bytes "
+                                     f"({tier})")
+        fresh = ops.columns_from_layout(snap1.xp, snap1.real, snap1.index,
+                                        block_n=block, precision=tier)
+        planes = all(torch.equal(getattr(cols1, f), getattr(fresh, f))
+                     for f in ("xt", "xt_lo", "nrm_x")
+                     if getattr(fresh, f) is not None)
+        meta = all(torch.equal(a, b) for a, b in zip(cols1.meta, fresh.meta))
+        log(f"  {tier}: {len(clean)} clean tiles equal bit for bit (xt, "
+            f"nrm_x{', xt_lo' if tier == 'bf16x2' else ''}, metadata); "
+            f"refreshed columns equal a fresh build bit for bit: planes "
+            f"{planes}, metadata {meta}")
+        if not planes:
+            raise AssertionError(f"refreshed planes differ from a fresh "
+                                 f"build ({tier})")
+    # evict one whole slab (and every 5th point elsewhere): empty tiles,
+    # sentinels mid-tile
+    lab = int(np.bincount(st._labels[-STREAM_BATCH:]).argmax())
+    gone = st.ids[(st._labels == lab) | (np.arange(st.n_live) % 5 == 0)]
+    slab = set((st._slots[st._labels == lab] // block).tolist())
+    eng.registry.evict_ids("c", gone)
+    snap2 = st.ensure(0)
+    counts = st.columns_for("f32", snap2).meta.counts.cpu().numpy()
+    empty = int((counts == 0).sum())
+    if any(counts[t] for t in slab):
+        raise AssertionError("an evicted slab's tiles kept a count")
+    every = torch.cat([x, xa])
+    live = every[torch.as_tensor(st.ids, device=dev)]
+    yq = y[:N_CLU_F64]
+    fp.kde_counts.reset()
+    got = eng.query(serve.QueryRequest(key="c", points=yq)).value
+    sync()
+    if fp.kde_counts.launches < 1:
+        raise AssertionError("the clustered stream did not launch B4")
+    f64 = kdemod.sdkde_eval(live.double(), yq.double(), h)
+    bar = f32_bar(torch.cat([live, yq]), 1 / (2 * h * h))
+    err = compare(got, f64, bar, f"clustered stream after evicting a slab "
+                  f"({len(gone)} points, {empty} empty tiles; B4 occupancy "
+                  f"{fp.kde_counts.occupancy:.4f}) vs float64")
+    return {"affected_tiles": snap1.affected_tiles,
+            "total_tiles": snap1.total_tiles, "expected_at_most": len(expect),
+            "clean_tiles": len(clean), "empty_tiles_after_evict": empty,
+            "evicted_slab_vs_f64": err}
+
+
+def stream_staleness(serve, kdemod, x, xa, y, h, obs) -> dict:
+    """Phase 9c: the staleness gate, one rebuild on slack overflow, the
+    background flush, and the stream's metrics."""
+    from repro_torch import fault_injection
+    from repro_torch.obs import lint_prometheus
+
+    out = {}
+    obs.registry.reset()
+    yq = y[:REQUEST_ROWS]
+    eng = serve.ServeEngine(serve.ServeConfig(
+        backend="flash", prune="auto", stream=True, staleness_budget=2))
+    eng.register("g", x, h=h)
+    lags = [eng.query(serve.QueryRequest(key="g", points=yq)).staleness]
+    for i in range(6):
+        eng.registry.append("g", xa[i * 64:(i + 1) * 64])
+        lags.append(eng.query(serve.QueryRequest(key="g",
+                                                 points=yq)).staleness)
+    summ = eng.staleness_summary()
+    log(f"  staleness_budget=2: lags by query {lags}, summary {summ}")
+    if max(lags) > 2 or summ["max"] != max(lags) \
+            or summ["count"] != len(lags):
+        raise AssertionError("staleness outside its budget or the summary "
+                             "disagrees")
+    out["lags"], out["summary"] = lags, summ
+
+    # slack overflow: 2048 points around one train point overflow its slab
+    eng = serve.ServeEngine(serve.ServeConfig(
+        backend="flash", method="kde", prune="auto", stream=True,
+        stream_slack=0.02))
+    eng.register("o", x, h=h)
+    st = eng.registry.get("o").stream
+    burst = x[:1] + 0.05 * torch.randn(
+        (2048, D), generator=torch.Generator(device=x.device).manual_seed(
+            SEED + 92), device=x.device)
+    eng.registry.append("o", burst)
+    got = eng.query(serve.QueryRequest(key="o", points=y[:N_F64])).value
+    live = torch.cat([x, burst])
+    rebuilds = obs.metrics_snapshot().get(
+        "stream.rebuilds{reason=slack-overflow}", {}).get("value", 0)
+    log(f"  slack overflow: rebuilds {st.rebuilds} "
+        f"({st.last_rebuild_reason}), stream.rebuilds counter {rebuilds}, "
+        f"layout epoch {st.layout_epoch}")
+    if st.rebuilds != 1 or st.last_rebuild_reason != "slack-overflow" \
+            or rebuilds != 1:
+        raise AssertionError("slack overflow did not make one rebuild")
+    f64 = kdemod.kde_eval(live.double(), y[:N_F64].double(), h)
+    out["overflow_vs_f64"] = compare(
+        got, f64, tier_bar("f32", torch.cat([live, y]), h),
+        "stream after a slack-overflow rebuild vs float64")
+
+    # background flush: g serves while g+1 builds on the worker, whose
+    # flush the chaos hook stalls so that the query surely lands mid-build
+    eng = serve.ServeEngine(serve.ServeConfig(
+        backend="flash", prune="auto", stream=True, staleness_budget=1,
+        stream_background=True))
+    eng.register("b", x, h=h)
+    eng.query(serve.QueryRequest(key="b", points=yq))  # bucket built
+    st = eng.registry.get("b").stream
+    stall = fault_injection.FaultInjector(fault_injection.ChaosConfig(
+        staleness_blowout=1.0, slow_ms=BACKGROUND_STALL_MS))
+    with fault_injection.installed(stall):
+        eng.registry.append("b", xa[:STREAM_BATCH])
+        alive_before = st._worker.is_alive()
+        stale = eng.query(serve.QueryRequest(key="b", points=yq)).staleness
+        alive_after = st._worker.is_alive()
+        st._worker.join(timeout=120)
+    caught = st.snapshot().gen == st.gen
+    ans = eng.query(serve.QueryRequest(key="b", points=y[:N_F64]))
+    live = torch.cat([x, xa[:STREAM_BATCH]])
+    log(f"  background flush (worker stalled {BACKGROUND_STALL_MS:.0f} ms): "
+        f"worker building when the query was dispatched {alive_before} "
+        f"and when it returned {alive_after}; the query answered {stale} "
+        f"generation(s) behind; after the worker, published gen "
+        f"{st.snapshot().gen} of {st.gen}, answer lag {ans.staleness}")
+    if not (alive_before and alive_after) or stale != 1:
+        raise AssertionError("the query did not serve g while g+1 built")
+    if not caught or ans.staleness != 0:
+        raise AssertionError("the background flush did not catch up")
+    f64 = kdemod.sdkde_eval(live.double(), y[:N_F64].double(), h)
+    out["background_vs_f64"] = compare(
+        ans.value, f64, tier_bar("f32", torch.cat([live, y]), h),
+        "stream after a background flush vs float64")
+    out["background_stale_lag"] = stale
+
+    reg = eng.metrics()["registry"]
+    want = ("stream.appends", "stream.append_points", "stream.evictions",
+            "stream.evict_points", "stream.publishes", "stream.dirty_tiles",
+            "stream.slack_occupancy", "stream.rebuilds{reason=slack-overflow}",
+            "serve.staleness_gen")
+    missing = [k for k in want if k not in reg]
+    problems = lint_prometheus(obs.prometheus_text())
+    log(f"  engine.metrics(): {len(reg)} instruments, stream.* "
+        + ", ".join(f"{k} {reg[k].get('value', reg[k].get('count'))}"
+                    for k in want if k in reg and k.startswith("stream."))
+        + f"; prometheus lint problems {len(problems)}")
+    if missing or problems:
+        raise AssertionError(f"metrics missing {missing}, lint {problems}")
+    return out
+
+
+def stream_scale(serve, kdemod, mixture, gen, h_of) -> dict:
+    """Phase 9d: repro's streaming acceptance size, 262144 x 16, batches
+    of 256, prune="auto": printed, not gated (the check is the answers)."""
+    from repro_torch.stream import delta
+
+    n = STREAM_SCALE_N
+    x = mixture.sample(n, gen)
+    xa = mixture.sample(STREAM_SCALE_UPDATES * STREAM_BATCH, gen)
+    y = mixture.sample(N_F64, gen)
+    sync()
+    h = h_of(x)
+    torch.cuda.reset_peak_memory_stats()
+    _, stats_ms = host_ms(lambda: delta.initial_stats(x, h))
+    eng = serve.ServeEngine(serve.ServeConfig(backend="flash", prune="auto",
+                                              stream=True))
+    _, reg_ms = host_ms(lambda: eng.register("big", x, h=h))
+    st = eng.registry.get("big").stream
+    yq = y[:REQUEST_ROWS]
+
+    def p50() -> float:
+        lat = sorted(eng.query(serve.QueryRequest(key="big", points=yq))
+                     .latency_s * 1e3 for _ in range(21))
+        return lat[len(lat) // 2]
+
+    eng.query(serve.QueryRequest(key="big", points=yq))
+    before = p50()
+    # the process's first switch into sync debug mode reports itself as a
+    # synchronizing call (torch/cuda/__init__.py, no frame of the port):
+    # switch once before the updates are counted
+    sync_counted(lambda: None)
+    rows = []
+    for i in range(STREAM_SCALE_UPDATES):
+        reads0 = dict(st.host_reads)
+        b = xa[i * STREAM_BATCH:(i + 1) * STREAM_BATCH]
+        _, a_ms, n_app = sync_counted(lambda: st.append(b))
+        snap, f_ms, n_flush = sync_counted(lambda: st.ensure(0))
+        rows.append({"append_ms": a_ms, "flush_ms": f_ms,
+                     "affected": snap.affected_tiles,
+                     "total": snap.total_tiles,
+                     "reads_append": st.host_reads["append"]
+                     - reads0["append"],
+                     "reads_flush": st.host_reads["flush"] - reads0["flush"],
+                     "sync_calls_append": n_app,
+                     "sync_calls_flush": n_flush})
+    after = p50()
+    for r in rows:
+        if (r["reads_append"], r["reads_flush"]) != (1, 1):
+            raise AssertionError(f"host reads per update {r}")
+    live = torch.cat([x, xa])
+    refit_eng = serve.ServeEngine(serve.ServeConfig(backend="flash",
+                                                    prune="auto"))
+    refit_eng.register("big", live, h=h)              # warm-up, same size
+    refits = sorted(host_ms(lambda: refit_eng.register(
+        "big", live, h=h, refit=True))[1] for _ in range(REFIT_REPEATS))
+    refit_ms = refits[len(refits) // 2]
+    med = sorted(r["append_ms"] + r["flush_ms"] for r in rows)
+    upd = med[len(med) // 2]
+    am = sorted(r["append_ms"] for r in rows)[len(rows) // 2]
+    fm = sorted(r["flush_ms"] for r in rows)[len(rows) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = eng.query(serve.QueryRequest(key="big", points=y)).value
+    want = refit_eng.query(serve.QueryRequest(key="big", points=y)).value
+    err = compare(got, want, tier_bar("f32", torch.cat([live, y]), h),
+                  f"stream at {n} x {D} after {STREAM_SCALE_UPDATES} appends "
+                  "vs a refit of its live set")
+    log(f"  scale {n} x {D}, h {h:.6f}: initial statistics "
+        f"{stats_ms / 1e3:.3f} s (register {reg_ms / 1e3:.3f} s); per batch "
+        f"of {STREAM_BATCH} (median of {len(rows)}): append {am:.2f} ms, "
+        f"flush {fm:.2f} ms, together {upd:.2f} ms, "
+        f"{1e3 * upd / STREAM_BATCH:.2f} us a point; affected tiles "
+        + ", ".join(f"{r['affected']}/{r['total']}" for r in rows)
+        + f"; refit of the live set through the registry (median of "
+        f"{REFIT_REPEATS} after a warm-up, s: "
+        + ", ".join(f"{t / 1e3:.3f}" for t in refits)
+        + f") {refit_ms / 1e3:.3f} s; refit / (append + flush) "
+        f"{refit_ms / upd:.1f}x (repro's gate: >= 10x); one "
+        f"{REQUEST_ROWS}-row request p50 {before:.3f} ms before, "
+        f"{after:.3f} ms after; host reads per append / flush "
+        f"{rows[0]['reads_append']} / {rows[0]['reads_flush']}, "
+        f"synchronizing calls (sync debug mode, information) "
+        + ", ".join(f"{len(r['sync_calls_append'])}/"
+                    f"{len(r['sync_calls_flush'])}" for r in rows)
+        + " (first update's at: append "
+        + (", ".join(rows[0]["sync_calls_append"]) or "none") + "; flush "
+        + (", ".join(rows[0]["sync_calls_flush"]) or "none") + ")"
+        + f"; peak memory {peak:.2f} GiB")
+    return {"n": n, "h": h, "initial_stats_s": stats_ms / 1e3,
+            "register_s": reg_ms / 1e3, "updates": rows,
+            "append_ms": am, "flush_ms": fm, "append_flush_ms": upd,
+            "us_per_point": 1e3 * upd / STREAM_BATCH,
+            "refit_s": refit_ms / 1e3,
+            "refit_runs_s": [t / 1e3 for t in refits],
+            "refit_over_update": refit_ms / upd,
+            "request_p50_ms_before": before, "request_p50_ms_after": after,
+            "peak_gib": peak, "vs_refit": err}
+
+
+def phase_stream(mixture, gen, serve, ops, sp, kdemod, bw, obs, dev, fs,
+                 fk, fp, fl) -> dict:
+    log(f"== phase 9: streaming, {N_TRAIN} x {D} live, {N_F64} queries")
+    x = mixture.sample(N_TRAIN, gen)
+    xa = mixture.sample((STREAM_APPENDS + STREAM_SLIDES) * STREAM_BATCH, gen)
+    y = mixture.sample(N_F64, gen)
+    sync()
+    h = float(bw.sdkde_bandwidth(x))
+    out = {"parity": stream_parity(serve, kdemod, x, xa, y, h, fs, fk, fp,
+                                   fl)}
+    out["clean_tiles"] = stream_clean_tiles(serve, ops, sp, kdemod, dev, fp)
+    out["staleness"] = stream_staleness(serve, kdemod, x, xa, y, h, obs)
+    out["scale"] = stream_scale(serve, kdemod, mixture, gen,
+                                lambda pts: float(bw.sdkde_bandwidth(pts)))
+    return out
+
+
 def prefill_profile(checkout: Path) -> int:
     """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
     weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
@@ -2023,7 +2530,7 @@ def main(argv=None) -> int:
         return prefill_profile(args.prefill_profile.resolve())
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import device as device_mod
-    from repro_torch import serve
+    from repro_torch import obs, serve
     from repro_torch.core import bandwidth as bw
     from repro_torch.core import estimator as est_mod
     from repro_torch.core import kde as kdemod
@@ -2058,6 +2565,9 @@ def main(argv=None) -> int:
         paper = phase_paper_scale(mixture, gen, est_mod, fs, fk, fp, fl)
     oracle = phase_oracle(est_mod, bw, metrics, mixtures, kdemod, dev)
     ssm_serve = phase_ssm_serve(ops, fs, fk, fp, fl)
+    stream = phase_stream(mixture, gen, serve, ops, spatial, kdemod, bw, obs,
+                          dev, fs, fk, fp, fl)
+    stream_launches = {k: r["launches"] for k, r in stream["parity"].items()}
 
     # launches: each kernel's count from the path that runs it, with its
     # counts set to 0 just before and read just after (phases 4 and 4c)
@@ -2121,9 +2631,12 @@ def main(argv=None) -> int:
         entry["bitwise"] = errors["bitwise"]
         if kname == "flash_kde":
             entry["launches_laplace_path"] = lap["nonfused"]["flash_kde"]
+            entry["launches_stream"] = stream_launches["sdkde off"][kname]
         if kname == "flash_laplace":
             entry["launches_serve"] = lap["serve_off"]["flash_laplace"]
+            entry["launches_stream"] = stream_launches["laplace off"][kname]
         if kname == "flash_kde_pruned":
+            entry["launches_stream"] = stream_launches["sdkde auto"][kname]
             # B4's laplace flag: the fused Laplace pass when pruning
             entry["laplace"] = {
                 "launches": lap["auto"]["flash_kde_pruned laplace"],
@@ -2139,6 +2652,7 @@ def main(argv=None) -> int:
     summary["fusion"] = fusion
     summary["oracle"] = oracle
     summary["ssm_serve"] = ssm_serve
+    summary["stream"] = stream
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

@@ -18,6 +18,11 @@ nothing of JAX:
     (``labels``, ``centroids``, ``method``) becomes the port's, so a
     pruned path can run on JAX's clustering (the two packages' k-means
     draw different random numbers from the same seed);
+  * ``stream_from_state`` — a flushed ``repro.stream.StreamingSDKDE``
+    (live points, ids, f64 statistics, index, slab geometry, slots,
+    labels, occupied mask, layout points, generation and layout epoch)
+    becomes the port's stream, so one sequence of updates can drive both
+    and their layouts be compared slot for slot;
   * ``lm_params_from_state`` — ``repro.models.common.init_params``'
     output (or any parameter dict of that layout) becomes the port's
     parameter dict for ``repro_torch.models``, so both packages compute
@@ -42,6 +47,7 @@ from repro_torch.kernels.spatial import SpatialIndex
 from repro_torch.models.common import ModelConfig, param_shapes
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.registry import PreparedEstimator
+from repro_torch.stream import StreamConfig, StreamingSDKDE
 
 
 def sdkde_from_state(x_train: np.ndarray, x_sd: np.ndarray, h: float,
@@ -110,6 +116,74 @@ def prepared_from_state(key: str, points: np.ndarray, h: float, n_true: int,
     return prep
 
 
+def stream_from_state(x: np.ndarray, ids: np.ndarray, next_id: int,
+                      h: float, *, gen: int, layout_epoch: int,
+                      s0: Optional[np.ndarray] = None,
+                      s1: Optional[np.ndarray] = None,
+                      method: str = "sdkde", score_h: Optional[float] = None,
+                      backend: str = "flash", block_n: int = 128,
+                      precision: str = "f32",
+                      config: StreamConfig | None = None, seed: int = 0,
+                      index: Optional[SpatialIndex] = None,
+                      starts: Optional[np.ndarray] = None,
+                      caps: Optional[np.ndarray] = None,
+                      slots: Optional[np.ndarray] = None,
+                      labels: Optional[np.ndarray] = None,
+                      real: Optional[np.ndarray] = None,
+                      xp: Optional[np.ndarray] = None,
+                      policy: Optional[dict] = None,
+                      device: str = "cuda") -> StreamingSDKDE:
+    """The port's ``StreamingSDKDE`` for a JAX one, taken after a flush
+    (nothing dirty, its snapshot at ``gen``).
+
+    ``x`` / ``ids`` / ``next_id`` are the live set, ``s0`` / ``s1`` its
+    f64 statistics (sdkde).  On the flash backend the layout comes over
+    as it is: ``index`` (``index_from_state``), the slab ``starts`` /
+    ``caps``, each live point's ``slots`` and ``labels``, the occupied
+    mask ``real`` and the layout points ``xp``.  ``policy`` carries the
+    rebuild policy's counters (``base_size``, ``appends``, ``evicts``,
+    ``base_mean_radius``, ``overflowed``).  The port publishes generation
+    ``gen`` from the carried layout, every tier's columns built anew; no
+    k-means runs, so both packages then place the same appends in the
+    same slots.
+    """
+    st = StreamingSDKDE.__new__(StreamingSDKDE)
+    st._setup(h, method=method, score_h=score_h, backend=backend,
+              block_n=block_n, precision=precision, config=config,
+              seed=seed, device=device)
+    dev = st.device
+    st.x = torch.as_tensor(np.array(x, np.float32), device=dev)
+    st.d = int(st.x.shape[1])
+    st.ids = np.array(ids, np.int64)
+    st.next_id = int(next_id)
+    if method == "sdkde":
+        st.s0 = torch.as_tensor(np.array(s0, np.float64), device=dev)
+        st.s1 = torch.as_tensor(np.array(s1, np.float64), device=dev)
+    else:
+        st.s0 = st.s1 = None
+    st.gen, st.layout_epoch = int(gen), int(layout_epoch)
+    st.policy.reset(st.x.shape[0])
+    for k, v in (policy or {}).items():
+        if k not in ("base_size", "appends", "evicts", "base_mean_radius",
+                     "overflowed"):
+            raise ValueError(f"unknown rebuild-policy field {k!r}")
+        setattr(st.policy, k, v)
+    st._dirty = torch.zeros(st.x.shape[0], dtype=torch.bool, device=dev)
+    x_sd = st._shifted()
+    if backend == "flash":
+        st._index = index
+        st._starts = np.array(starts, np.int64)
+        st._caps = np.array(caps, np.int64)
+        st._slots = np.array(slots, np.int64)
+        st._labels = np.array(labels, np.int64)
+        st._real = np.array(real, bool)
+        st._xp = torch.as_tensor(np.array(xp, np.float32), device=dev)
+        st._snapshot = st._publish_full(x_sd, st._norm(st.x.shape[0]))
+    else:
+        st._snapshot = st._build_snapshot()
+    return st
+
+
 def lm_params_from_state(params: "dict[str, np.ndarray]", cfg: ModelConfig,
                          device: str = "cuda") -> "dict[str, torch.Tensor]":
     """The port's parameter dict for a ``repro`` one given as numpy
@@ -133,4 +207,4 @@ def lm_params_from_state(params: "dict[str, np.ndarray]", cfg: ModelConfig,
 
 
 __all__ = ["sdkde_from_state", "laplace_from_state", "prepared_from_state",
-           "index_from_state", "lm_params_from_state"]
+           "index_from_state", "stream_from_state", "lm_params_from_state"]

@@ -14,8 +14,8 @@ The counterpart of ``repro.core.estimator``.  Backends:
   * ``ring``  — multi-device ring sharding: not ported yet (ROADMAP A13).
 
 Estimators run on ``config.device`` ("cuda" by default; asking for the
-card where there is none raises).  ``SDKDE.append``/``evict`` wait for the
-streaming delta pass (ROADMAP A8).
+card where there is none raises).  ``SDKDE.append``/``evict`` update a
+fitted estimator through the streaming delta pass (``stream/delta.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import device as device_mod
@@ -112,14 +113,23 @@ class SDKDE(KDE):
     ``fit`` performs the quadratic score pass (the paper's hot spot, kernel
     B1 on the flash backend) and caches the debiased samples; ``evaluate``
     is then a standard KDE pass (kernel B2; B3 / B4 when pruning).
+
+    ``append``/``evict`` update a fitted estimator *incrementally* — the
+    O(n·b·d) delta score pass of ``repro_torch.stream.delta`` instead of a
+    fresh O(n²·d) fit.  The first incremental call pays one full pass to
+    seed float64 score statistics; every later update is a delta against
+    them, and the debiased samples are recomputed from the maintained
+    statistics.  The bandwidth stays the fit-time one.
     """
 
     def __init__(self, h=None, config: EstimatorConfig | None = None):
         super().__init__(h, config)
         self.x_sd: torch.Tensor | None = None
+        self._s0 = self._s1 = None       # f64 score stats (lazy, streaming)
 
     def fit(self, x) -> "SDKDE":
         self.x_train = self._as_points(x)
+        self._s0 = self._s1 = None       # a refit invalidates seeded stats
         if self.h is None:
             self.h = float(bw.sdkde_bandwidth(self.x_train))
         cfg = self.config
@@ -137,6 +147,62 @@ class SDKDE(KDE):
         if self.x_sd is None:
             raise RuntimeError("call fit() first")
         return self.x_sd
+
+    # -- incremental updates (repro_torch.stream.delta) ------------------
+
+    def _score_h(self) -> float:
+        sh = self.config.score_h
+        return float(self.h if sh is None else sh)
+
+    def _seed_stats(self) -> None:
+        from repro_torch.stream import delta
+
+        if self._s0 is None:
+            self._s0, self._s1 = delta.initial_stats(self.x_train,
+                                                     self._score_h())
+
+    def _refresh_shift(self) -> None:
+        from repro_torch.stream import delta
+
+        self.x_sd = delta.apply_shift(self.x_train, self._s0, self._s1,
+                                      self.h, self._score_h()).to(
+            torch.float32)
+
+    def append(self, x_new) -> "SDKDE":
+        """Fold new points into a fitted estimator without a refit."""
+        from repro_torch.stream import delta
+
+        self._train_points()
+        x_new = torch.atleast_2d(self._as_points(x_new))
+        self._seed_stats()
+        ds0, ds1, s0n, s1n = delta.append_delta(self.x_train, x_new,
+                                                self._score_h())
+        self._s0 = torch.cat([self._s0 + ds0, s0n])
+        self._s1 = torch.cat([self._s1 + ds1, s1n])
+        self.x_train = torch.cat([self.x_train, x_new])
+        self._refresh_shift()
+        return self
+
+    def evict(self, idx) -> "SDKDE":
+        """Remove train rows (by position) without a refit."""
+        from repro_torch.stream import delta
+
+        self._train_points()
+        out = np.zeros(self.x_train.shape[0], bool)
+        out[np.atleast_1d(np.asarray(idx, np.int64))] = True
+        if out.all():
+            raise ValueError("cannot evict every train point")
+        self._seed_stats()
+        keep = torch.as_tensor(np.flatnonzero(~out), device=self.device)
+        gone = torch.as_tensor(np.flatnonzero(out), device=self.device)
+        x_keep = self.x_train.index_select(0, keep)
+        ds0, ds1 = delta.evict_delta(
+            x_keep, self.x_train.index_select(0, gone), self._score_h())
+        self._s0 = self._s0.index_select(0, keep) - ds0
+        self._s1 = self._s1.index_select(0, keep) - ds1
+        self.x_train = x_keep
+        self._refresh_shift()
+        return self
 
 
 class LaplaceKDE(KDE):

@@ -28,11 +28,15 @@ plain PyTorch versions on the CPU (``flash_score``, ``flash_kde``,
 ``flash_laplace``, ``flash_pruned``).  The Laplace-corrected estimator
 runs fused, one pass of B5 (B4 with ``laplace`` when pruning), or
 non-fused, B2 then B6, always dense (``laplace_kde_nonfused``).  The
-pruned path syncs once per pass to size its visit lists.  Not ported:
-``repro``'s occupancy profile for the autotuner (ROADMAP A6), the prune
-telemetry (A10) and the fallback to dense under JAX tracing (PyTorch
-does not trace).  Spans carry ``repro``'s names
-(``kernels.pruned_score``, ``kernels.pruned_eval``).
+pruned path syncs once per pass to size its visit lists, and reads the
+pass's largest certified error for the ``kernels.prune.*`` telemetry in
+the same transfer.  Spans carry ``repro``'s names
+(``kernels.pruned_score``, ``kernels.pruned_eval``).  The streaming
+layer keeps its own layout and builds its columns with
+``columns_from_layout`` / ``update_train_columns``.  Not ported:
+``repro``'s occupancy profile and fine-probe metadata for the autotuner
+(ROADMAP A6) and the fallback to dense under JAX tracing (PyTorch does
+not trace).
 """
 
 from __future__ import annotations
@@ -42,9 +46,10 @@ import threading
 import weakref
 from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
-from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.core.bandwidth import gaussian_norm_const
 from repro_torch.kernels import flash_pruned, spatial
 from repro_torch.kernels import precision as prec
@@ -205,14 +210,45 @@ def _score_stats_pruned(x: torch.Tensor, h, epsilon: float,
     col_meta = spatial.tile_metadata(xrec, layout.real, block=block_n)
     tm = spatial.tile_map(xrec, col_meta, inv, epsilon, block_m=block_m,
                           kind="score")
-    vl = spatial.visit_lists(tm.keep)
-    with record_function("kernels.pruned_score"):
+    vl = spatial.visit_lists(tm.keep, err_bound=_telemetry_err(tm))
+    _note_pruned_launch("score", vl, epsilon)
+    with obs.span("kernels.pruned_score", rows=n,
+                  occupancy=round(vl.occupancy, 4)), \
+            obs.annotate("flash_score_pruned"):
         s1aug = flash_pruned.flash_score_pruned(
             vl.counts, vl.tile_map, x_ops[0], nrm, xt_ops[0], xaug_ops[0],
             inv, x_ops[1], xt_ops[1], xaug_ops[1], block_m=block_m,
             block_n=block_n)
     rows = s1aug[layout.slots]
     return rows[:, d], rows[:, :d]
+
+
+def _telemetry_err(tm: spatial.TileMap) -> Optional[torch.Tensor]:
+    """The certificate vector ``visit_lists`` reads back for telemetry,
+    or None when metrics are off (nothing extra is read then)."""
+    return tm.err_bound if obs.state.metrics_on else None
+
+
+def _note_pruned_launch(kind: str, vl: spatial.VisitLists,
+                        epsilon) -> None:
+    """Record one pruned pass: visit fraction (= 1 − skip rate) and the
+    certified error budget actually spent, so serving telemetry shows how
+    sparse traffic really is and how close certificates run to their
+    epsilon.  Everything here is already on the host (``visit_lists``
+    read it with the visit counts)."""
+    if not obs.state.metrics_on:
+        return
+    obs.counter("kernels.prune.launches", labels={"kind": kind}).inc()
+    obs.histogram("kernels.prune.visit_fraction",
+                  "column tiles visited / total per pruned pass",
+                  lo=1e-3, hi=1.0).observe(vl.occupancy)
+    obs.histogram("kernels.prune.cert_budget",
+                  "max certified abs error of the unnormalized "
+                  "accumulator per pruned pass",
+                  lo=1e-30, hi=1.0, per_decade=1).observe(vl.max_err)
+    obs.gauge("kernels.prune.epsilon",
+              "per-point contribution threshold of the last pruned "
+              "pass").set(float(epsilon))
 
 
 def flash_score_stats(x: torch.Tensor, h, *, precision: str = "f32",
@@ -400,17 +436,78 @@ def prepare_train_columns(x: torch.Tensor, *, block_n: int = 128,
         xp, real = layout.points, layout.real
     else:
         xp = _pad_to(x, block_n)
+    return columns_from_layout(xp, real, index if clustered else None,
+                               block_n=block_n, precision=precision)
+
+
+def _tier_planes(xp: torch.Tensor, precision: str):
+    """(hi, lo, rec) rows of a layout at one tier: the operand planes
+    (row-major, not yet transposed) and the f32 points they represent."""
+    x32 = xp.to(torch.float32)
     if precision == "f32":
-        xt, xt_lo = _t(xp), None
-        xrec = xp.to(torch.float32)
-    else:
-        x_hi, x_lo = prec.cast_operand(xp.to(torch.float32), precision)
-        xt, xt_lo = _t(x_hi), None if x_lo is None else _t(x_lo)
-        xrec = prec.reconstruct(x_hi, x_lo)
-    meta = None if real is None else spatial.tile_metadata(xrec, real,
+        return x32, None, x32
+    hi, lo = prec.cast_operand(x32, precision)
+    return hi, lo, prec.reconstruct(hi, lo)
+
+
+def columns_from_layout(xp: torch.Tensor, real: Optional[torch.Tensor],
+                        index: Optional[spatial.SpatialIndex], *,
+                        block_n: int,
+                        precision: str = "f32") -> TrainColumns:
+    """TrainColumns from an already-scattered padded layout.
+
+    The streaming layer owns its layout (slack slots, rows changed in
+    place) and calls this to (re)build the tier's cast planes, norms and
+    tile metadata; ``prepare_train_columns`` routes through here too, so
+    both share one casting/metadata recipe.  ``real=None`` means a plain
+    tail-padded (non-clustered) layout: no metadata is attached.
+    ``repro``'s fine-probe metadata for the autotuner (``meta_fine``)
+    waits for the Hopper launch tuner (ROADMAP A6).
+    """
+    prec.validate(precision)
+    check_blocks(1, block_n)
+    hi, lo, rec = _tier_planes(xp, precision)
+    meta = None if real is None else spatial.tile_metadata(rec, real,
                                                            block=block_n)
-    return TrainColumns(xt, xt_lo, _norms(xrec).reshape(1, -1), meta,
-                        index if clustered else None, block_n)
+    return TrainColumns(_t(hi), None if lo is None else _t(lo),
+                        _norms(rec).reshape(1, -1), meta, index, block_n)
+
+
+def update_train_columns(cols: TrainColumns, xp: torch.Tensor,
+                         real: torch.Tensor, tiles, *,
+                         precision: str = "f32") -> TrainColumns:
+    """Prepared columns with only the listed column tiles refreshed.
+
+    The streaming delta path: after appends, evictions and shift drift
+    touch some tiles, re-cast those tiles' operand columns, recompute
+    their norms and tile metadata, and carry every other column over bit
+    for bit.  ``cols`` is not changed: the planes are copied before the
+    write (Θ(n·d), as ``repro``'s functional updates copy), so a snapshot
+    that still holds ``cols`` keeps its bytes.  ``tiles`` may contain
+    repeats (pow2-padded index lists); each write is recomputed from the
+    current layout, so repeated writes carry equal values.
+    """
+    prec.validate(precision)
+    block = cols.block_n
+    tiles_np = np.asarray(tiles, np.int64).reshape(-1)
+    if tiles_np.size == 0:
+        return cols
+    rows = spatial.upload((tiles_np[:, None] * block
+                           + np.arange(block)[None, :]).reshape(-1),
+                          xp.device)
+    hi, lo, rec = _tier_planes(xp.index_select(0, rows), precision)
+    xt = cols.xt.clone().index_copy_(1, rows, hi.T.to(cols.xt.dtype))
+    xt_lo = None if cols.xt_lo is None else cols.xt_lo.clone().index_copy_(
+        1, rows, lo.T)
+    nrm_x = cols.nrm_x.clone().index_copy_(1, rows,
+                                           _norms(rec).reshape(1, -1))
+    meta = cols.meta
+    if meta is not None:
+        meta = spatial.merge_tile_meta(meta, tiles_np,
+                                       spatial.tile_meta_from_rows(
+            rec.reshape(tiles_np.size, block, -1),
+            real.index_select(0, rows).reshape(tiles_np.size, block)))
+    return cols._replace(xt=xt, xt_lo=xt_lo, nrm_x=nrm_x, meta=meta)
 
 
 def _cast_queries(yp: torch.Tensor, precision: str):
@@ -452,10 +549,15 @@ def _pruned_eval_sums(y: torch.Tensor, cols: TrainColumns, h,
                                      block_m, bucket_rows=True)
     y_hi, y_lo, nrm_y, yrec = _cast_queries(qlayout.points, precision)
     inv = _inv2h2(h, y.device)
+    kind = "laplace" if laplace else "kde"
     tm = spatial.tile_map(yrec, cols.meta, inv, epsilon, block_m=block_m,
-                          kind="laplace" if laplace else "kde")
-    vl = spatial.visit_lists(tm.keep)
-    with record_function("kernels.pruned_eval"):
+                          kind=kind)
+    vl = spatial.visit_lists(tm.keep, err_bound=_telemetry_err(tm))
+    _note_pruned_launch(kind, vl, epsilon)
+    with obs.span("kernels.pruned_eval", rows=nr, kind=kind,
+                  occupancy=round(vl.occupancy, 4),
+                  max_visits=vl.max_visits), \
+            obs.annotate("flash_kde_pruned"):
         sums = flash_pruned.flash_kde_pruned(
             vl.counts, vl.tile_map, y_hi, nrm_y, cols.xt, cols.nrm_x, inv,
             y_lo, cols.xt_lo, block_m=block_m, block_n=block_n,
@@ -557,5 +659,6 @@ __all__ = [
     "resolve_prune", "check_prune", "check_blocks", "flash_score_stats",
     "flash_sdkde_shift", "flash_kde", "flash_laplace_kde",
     "laplace_kde_nonfused", "TrainColumns", "prepare_train_columns",
-    "flash_kde_prepared", "flash_sdkde",
+    "columns_from_layout", "update_train_columns", "flash_kde_prepared",
+    "flash_sdkde",
 ]

@@ -43,10 +43,13 @@ centroids from a ``torch.Generator`` seeded with ``seed`` (so its clusters
 differ from JAX's; carry a JAX index across with ``convert.index_from_state``
 to compare layouts), ``tile_map`` runs in row-tile chunks whose
 ``(rows × t)`` distance block stays near 1 GiB, and ``visit_lists``
-compacts on the tensors' device, reading back only the largest count.
-Streaming's ``place_points`` / ``merge_tile_meta`` /
-``tile_metadata_update`` (ROADMAP A8) and ``partition_clusters`` (A12)
-are not ported yet.
+compacts on the tensors' device, reading back only the largest count
+(and, when asked, the pass's largest certified error) in one transfer.
+Streaming keeps a layout in place between rebuilds: ``place_points``
+claims free slack slots for appended points, and
+``tile_metadata_update`` / ``merge_tile_meta`` refresh the metadata of
+only the tiles that changed.  ``partition_clusters`` (ROADMAP A12) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -120,6 +123,7 @@ class VisitLists(NamedTuple):
     tile_map: torch.Tensor   # (mt, max_visits) int32 column-tile indices
     max_visits: int          # visit-slot extent (pow2-bucketed)
     occupancy: float         # mean(counts) / n_tiles — the skip-rate stat
+    max_err: float = 0.0     # largest err_bound passed to visit_lists
 
 
 def _numpy(a) -> np.ndarray:
@@ -127,6 +131,16 @@ def _numpy(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a new tensor on ``device``.  On the card the copy
+    goes through pinned memory without blocking, so the host does not
+    wait for the queued work (a pageable copy would synchronize)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +288,31 @@ def cluster_slots(labels, block: int, *, slack: float = 0.0) -> np.ndarray:
     return (starts[lab] + within).astype(np.int32)
 
 
+def place_points(real, labels_new, starts, caps) -> Optional[np.ndarray]:
+    """Free slots for appended points, respecting the cluster slabs.
+
+    ``real`` marks occupied rows of the existing layout (host array); each
+    new point (cluster ``labels_new[i]``) takes the first free sentinel
+    slot inside its cluster's ``[starts[c], starts[c] + caps[c])`` slab,
+    so no tile ever straddles clusters and no existing row moves.
+    Returns the claimed slots, or ``None`` when some cluster's slab is
+    full — slack overflow, the caller's signal to rebuild the layout.
+    """
+    occ = _numpy(real).astype(bool)
+    lab = _numpy(labels_new)
+    slots = np.empty(lab.shape[0], np.int32)
+    # one pass per cluster: its points, in order, take its free slots in
+    # order — what a point-by-point first-free walk gives
+    for c in np.unique(lab):
+        mine = np.flatnonzero(lab == c)
+        s, e = int(starts[c]), int(starts[c] + caps[c])
+        free = np.flatnonzero(~occ[s:e])
+        if free.size < mine.size:
+            return None
+        slots[mine] = s + free[:mine.size]
+    return slots
+
+
 def cluster_layout(x: torch.Tensor, labels, block: int, *,
                    total_multiple: Optional[int] = None,
                    bucket_rows: bool = False,
@@ -339,6 +378,45 @@ def tile_metadata(xp: torch.Tensor, real: torch.Tensor, *,
                                real.reshape(t, block))
 
 
+def merge_tile_meta(meta: TileMeta, tiles, sub: TileMeta) -> TileMeta:
+    """A new ``TileMeta``: ``meta`` with ``sub``'s rows written over the
+    listed tile indices (``meta`` itself is not changed, so a published
+    snapshot holding it keeps its bytes).
+
+    ``tiles`` may contain repeats (pow2-padded index buffers): each row of
+    ``sub`` is the freshly recomputed geometry of its tile, so repeated
+    writes carry equal values.
+    """
+    tiles = np.asarray(tiles, np.int64).reshape(-1)
+    if tiles.size == 0:
+        return meta
+    idx = upload(tiles, meta.counts.device)
+    return TileMeta(*(full.clone().index_copy_(0, idx, part)
+                      for full, part in zip(meta, sub)))
+
+
+def tile_metadata_update(meta: TileMeta, xp: torch.Tensor,
+                         real: torch.Tensor, tiles, *,
+                         block: int) -> TileMeta:
+    """Refresh the metadata of only the listed tiles.
+
+    The streaming layer calls this after an append / evict / shift pass
+    with the tiles whose points changed; every other tile's geometry is
+    carried over bit for bit, so certificates derived from it stay as
+    valid as at the last full build.
+    """
+    tiles = np.asarray(tiles, np.int64).reshape(-1)
+    if tiles.size == 0:
+        return meta
+    rows = upload((tiles[:, None] * block
+                   + np.arange(block)[None, :]).reshape(-1), xp.device)
+    sub = tile_meta_from_rows(
+        xp.to(torch.float32).index_select(0, rows).reshape(
+            tiles.size, block, -1),
+        real.index_select(0, rows).reshape(tiles.size, block))
+    return merge_tile_meta(meta, tiles, sub)
+
+
 # ---------------------------------------------------------------------------
 # The bounds prepass.
 # ---------------------------------------------------------------------------
@@ -400,8 +478,8 @@ def tile_map(
     return TileMap(~skip, err)
 
 
-def visit_lists(keep: torch.Tensor, *,
-                bucket_visits: bool = True) -> VisitLists:
+def visit_lists(keep: torch.Tensor, *, bucket_visits: bool = True,
+                err_bound: Optional[torch.Tensor] = None) -> VisitLists:
     """Compact a keep matrix into the per-row-tile visit-list layout.
 
     Row ``i`` lists its kept column tiles in ascending order; slots past
@@ -409,12 +487,21 @@ def visit_lists(keep: torch.Tensor, *,
     as ``repro``'s do.  The extent ``max_visits`` is the largest count,
     rounded up to a power of two (capped at the tile count) when
     ``bucket_visits``.  Runs on ``keep``'s device; only the largest count
-    and the visit total are read back.
+    and the visit total are read back, with the largest ``err_bound``
+    (``TileMap.err_bound``, telemetry) in the same transfer when given.
     """
     mt, t = keep.shape
     counts = keep.sum(dim=1, dtype=torch.int32)
-    cmax, total = (int(v) for v in torch.stack(
-        [counts.max(), counts.sum()]).tolist()) if mt else (0, 0)
+    max_err = 0.0
+    if mt:
+        parts = [counts.max().double(), counts.sum().double()]
+        if err_bound is not None and err_bound.numel():
+            parts.append(err_bound.max().double())
+        got = torch.stack(parts).tolist()
+        cmax, total = int(got[0]), int(got[1])
+        max_err = got[2] if len(got) > 2 else 0.0
+    else:
+        cmax, total = 0, 0
     kmax = max(cmax, 1)
     if bucket_visits and kmax < t:
         kmax = min(t, 1 << max(0, math.ceil(math.log2(kmax))))
@@ -425,7 +512,8 @@ def visit_lists(keep: torch.Tensor, *,
     tmap = first[:, None].expand(mt, kmax).contiguous()
     tmap[rows, pos] = cols
     occ = float(total / mt / t) if t and mt else 1.0
-    return VisitLists(counts, tmap.to(torch.int32), int(kmax), occ)
+    return VisitLists(counts, tmap.to(torch.int32), int(kmax), occ,
+                      float(max_err))
 
 
 def point_mass_bound(y: torch.Tensor, meta: TileMeta, inv2h2,
@@ -460,7 +548,8 @@ __all__ = [
     "PAD_VALUE", "UNDERFLOW_ARG", "MARGIN", "KINDS", "TILE_MAP_CHUNK_ELEMS",
     "SpatialIndex", "ClusterLayout", "TileMeta", "TileMap", "VisitLists",
     "default_n_clusters", "build_index", "assign", "cluster_capacities",
-    "cluster_slots", "cluster_layout", "tile_meta_from_rows",
-    "tile_metadata", "tile_map", "visit_lists", "point_mass_bound",
+    "cluster_slots", "place_points", "cluster_layout", "upload",
+    "tile_meta_from_rows", "tile_metadata", "merge_tile_meta",
+    "tile_metadata_update", "tile_map", "visit_lists", "point_mass_bound",
     "epsilon_for_density_error",
 ]

@@ -1,3 +1,69 @@
-"""Observability for the port: the bounded latency histogram.  Trace
-spans are ``torch.profiler.record_function`` ranges named as in ``repro``
-(``serve.request``, ``serve.dispatch``, ``serve.bucket``)."""
+"""Unified observability for the port: metrics, trace spans, profiler
+ranges (``repro.obs``'s counterpart, same names and exports).
+
+    from repro_torch import obs
+
+    obs.counter("serve.requests").inc()
+    obs.histogram("serve.latency_s", lo=1e-5, hi=100).observe(dt)
+    with obs.span("serve.dispatch", key=key, bucket=bucket) as sp:
+        sp.set(cache="hit")
+        ...
+
+Metrics (counters / gauges / fixed log-bucketed histograms — bounded
+state, no sample lists) are ON by default; trace spans (bounded ring
+buffer, parent ids, monotonic µs timestamps, each also a
+``torch.profiler.record_function`` range) are OFF by default and cost
+one branch per ``span()`` call while off.  ``obs.configure(metrics=...,
+trace=...)`` flips either plane at runtime.
+
+Export surfaces:
+
+  * ``obs.metrics_snapshot()`` — JSON-safe dict of every instrument;
+  * ``obs.prometheus_text()`` — Prometheus text exposition
+    (``lint_prometheus`` / ``python -m repro_torch.obs`` validate it);
+  * ``obs.trace_events()`` / ``obs.span_tree()`` — buffered span events
+    and their parent-id reconstruction.
+
+Instrumented layers: ``serve/engine.py`` (request → dispatch → bucket →
+compile spans, latency + staleness + pad-ratio + compile-seconds
+histograms), ``serve/batching.py`` (bucket-cache hit/miss/eviction
+counters), ``stream/estimator.py`` (append/evict/flush/rebuild spans,
+dirty-tile and slack-occupancy gauges) and ``kernels/ops.py`` (prune
+visit fraction, certificate budgets, pruned-pass spans).
+"""
+
+from repro_torch.obs import state
+from repro_torch.obs.metrics import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    counter,
+    gauge,
+    histogram,
+    lint_prometheus,
+    log_bucket_bounds,
+    metrics_snapshot,
+    prometheus_text,
+    registry,
+)
+from repro_torch.obs.state import configure, enabled
+from repro_torch.obs.trace import (
+    Span,
+    annotate,
+    clear_trace,
+    set_trace_capacity,
+    span,
+    span_tree,
+    trace_events,
+)
+
+__all__ = [
+    "state", "configure", "enabled",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "registry",
+    "counter", "gauge", "histogram",
+    "log_bucket_bounds", "lint_prometheus",
+    "metrics_snapshot", "prometheus_text",
+    "Span", "span", "annotate",
+    "trace_events", "clear_trace", "set_trace_capacity", "span_tree",
+]

@@ -55,7 +55,9 @@ class QueryRequest:
 class Answer:
     """One answer: densities ``value`` (on the engine's device), the tier
     that answered and the tiers visited (``path``), the max and per-row
-    certified relative error bounds, and the dispatch's latency."""
+    certified relative error bounds, how many generations behind live a
+    streaming estimator answered (``staleness``), and the dispatch's
+    latency."""
 
     value: torch.Tensor
     key: str = ""
@@ -64,6 +66,7 @@ class Answer:
     rel_err_bound: float = 0.0
     rel_err_bounds: Optional[np.ndarray] = None
     batch_requests: int = 1
+    staleness: int = 0                  # generations behind live
     latency_s: float = 0.0
 
 

@@ -18,6 +18,7 @@ from typing import Callable, Hashable, List, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.kde import PAD_VALUE, pad_rows  # noqa: F401 - PAD_VALUE
 # is re-exported for serve users building their own padded batches.
 
@@ -50,7 +51,9 @@ def split(fused: torch.Tensor, sizes: Sequence[int]) -> List[torch.Tensor]:
 
 class ShapeBucketCache:
     """LRU cache of per-(estimator, bucket) callables, with hit, miss and
-    eviction counts."""
+    eviction counts (also fed to the process-wide ``serve.bucket_cache.*``
+    counters, so a rebuild storm under streaming shows in any metrics
+    snapshot)."""
 
     def __init__(self, capacity: int):
         if capacity < 1:
@@ -60,22 +63,31 @@ class ShapeBucketCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self._hit_counter = obs.counter("serve.bucket_cache.hits")
+        self._miss_counter = obs.counter("serve.bucket_cache.misses")
+        self._evict_counter = obs.counter("serve.bucket_cache.evictions")
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    def __contains__(self, key: Hashable) -> bool:
+        return key in self._entries
 
     def get_or_build(self, key: Hashable, build: Callable[[], Callable]):
         """Return the cached callable for ``key``, building on miss."""
         if key in self._entries:
             self.hits += 1
+            self._hit_counter.inc()
             self._entries.move_to_end(key)
             return self._entries[key]
         self.misses += 1
+        self._miss_counter.inc()
         fn = build()
         self._entries[key] = fn
         if len(self._entries) > self.capacity:
             self._entries.popitem(last=False)
             self.evictions += 1
+            self._evict_counter.inc()
         return fn
 
     def invalidate(self, predicate: Callable[[Hashable], bool]) -> None:

@@ -57,6 +57,19 @@ class ServeConfig:
     max_batch: int = 4096        # largest shape bucket (larger batches chunk)
     cache_buckets: int = 8       # LRU capacity of per-bucket callables
 
+    # streaming (repro_torch.stream): maintain the registered dataset
+    # incrementally under registry.append()/evict_ids()/slide() instead of
+    # refitting.  ``staleness_budget`` is how many applied update
+    # generations a query may be served across before the engine must
+    # publish a fresh snapshot (0 = always fresh); ``stream_slack`` is the
+    # per-cluster append headroom of the flash layout;
+    # ``stream_background`` builds snapshots on a worker thread so queries
+    # keep serving generation g while g+1 prepares.
+    stream: bool = False
+    staleness_budget: int = 0
+    stream_slack: float = 0.5
+    stream_background: bool = False
+
     device: str = "cuda"         # "cuda" (raises without a card) or "cpu"
 
     def __post_init__(self):
@@ -75,6 +88,10 @@ class ServeConfig:
             raise ValueError("cache_buckets must be >= 1")
         if self.block < 1:
             raise ValueError(f"bad block {self.block!r}")
+        if self.staleness_budget < 0:
+            raise ValueError("staleness_budget must be >= 0")
+        if self.stream_slack < 0:
+            raise ValueError("stream_slack must be >= 0")
 
     def row_multiple(self) -> int:
         """Row-count multiple every dispatched batch honors: the kernels'

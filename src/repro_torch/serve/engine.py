@@ -3,7 +3,9 @@
 The counterpart of ``repro.serve.engine``.  Request lifecycle:
 
   register(key, x)         — one-time: debias (sdkde), prepare the column
-                             layout, cache
+                             layout, cache (``stream=True``: a streaming
+                             estimator, updated through the registry's
+                             ``append`` / ``evict_ids`` / ``slide``)
   query(QueryRequest)      — resolve the tier (request pin > config), pad
                              to a shape bucket, run the bucket callable,
                              return an Answer with per-row certified bounds
@@ -22,22 +24,34 @@ kept in a small LRU:
   * ``torch`` — the streaming plain math of ``core/kde.py``
                 (``laplace_kde_eval`` for ``method="laplace"``).
 
-Spans are ``torch.profiler.record_function`` ranges with ``repro``'s
-names (``serve.request``, ``serve.dispatch``, ``serve.bucket``); they cost
-nothing unless a profiler is recording.  The accuracy cascade, streaming,
-planning and chaos hooks arrive with their slices (ROADMAP A7-A12).
+A streaming estimator's callables read the train tensors of the snapshot
+each dispatch is pinned to, and re-resolve pruning per call (appends and
+evictions move the live count across ``ops.resolve_prune``'s threshold),
+so only a layout rebuild (a new ``layout_epoch``) builds new callables.
+The staleness gate (``_dispatch``) serves a snapshot at most
+``staleness_budget`` generations behind live.
+
+Telemetry goes through ``repro_torch.obs`` with ``repro``'s names: spans
+``serve.request`` → ``serve.dispatch`` → ``serve.bucket`` (→
+``serve.compile`` on a miss), counters ``serve.requests`` /
+``serve.queries`` / ``serve.deadline_exceeded``, histograms
+``serve.pad_ratio``, ``serve.compile_s`` and ``serve.staleness_gen``.
+Chaos hooks (``fault_injection``): ``serve.dispatch``, ``serve.compile``
+and ``serve.result``.  The accuracy cascade and planning arrive with
+their slices (ROADMAP A7, A9, A11).
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence
+from collections import deque
+from typing import Deque, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch import device as device_mod
+from repro_torch import fault_injection, obs
 from repro_torch.core import kde as ref
 from repro_torch.kernels import ops
 from repro_torch.serve.api import Answer, QueryRequest, exact_bound, resolve_tier
@@ -58,6 +72,17 @@ class ServeEngine:
         self.registry = registry or EstimatorRegistry(config)
         self.cache = ShapeBucketCache(config.cache_buckets)
         self.latency = LatencyRecorder()
+        # generations-behind-live of recent streaming dispatches (a budget
+        # of 0 pins this to all zeros); bounded so a long-lived server does
+        # not grow it with request count
+        self.staleness_log: Deque[int] = deque(maxlen=8192)
+        # per-request instruments, looked up once (a lookup takes the
+        # registry's lock)
+        self._requests = obs.counter("serve.requests", "requests admitted")
+        self._rows = obs.counter("serve.queries", "density rows served")
+        self._pad_ratio = obs.histogram(
+            "serve.pad_ratio", "bucket rows / real rows per dispatch",
+            lo=1.0, hi=1e4, per_decade=12)
 
     # -- fit path --------------------------------------------------------
 
@@ -78,7 +103,9 @@ class ServeEngine:
         bucket = prep.config.bucket_sizes()[-1]
         y = torch.zeros((bucket, prep.d), dtype=torch.float32,
                         device=prep.points.device)
-        self._run_bucket(prep, y, prep.config.precision)
+        snap = (prep.stream.ensure(prep.config.staleness_budget)
+                if prep.stream is not None else None)
+        self._run_bucket(prep, y, prep.config.precision, snap)
         device_mod.synchronize(prep.points.device)
 
     # -- query path ------------------------------------------------------
@@ -94,7 +121,8 @@ class ServeEngine:
         deadline = (None if request.deadline_s is None
                     else time.monotonic() + request.deadline_s)
         self._check_deadline(request.key, deadline, phase="dispatch")
-        with record_function("serve.request"):
+        with obs.span("serve.request", key=request.key, rows=int(y.shape[0]),
+                      requests=1):
             t0 = time.perf_counter()
             ans = self._serve(prep, y, request.precision)
             device_mod.synchronize(y.device)
@@ -123,7 +151,8 @@ class ServeEngine:
                      if r.deadline_s is not None]
         deadline = max(member_dl) if member_dl else None
         self._check_deadline(key, deadline, phase="dispatch")
-        with record_function("serve.request"):
+        with obs.span("serve.request", key=key, rows=int(fused.shape[0]),
+                      requests=len(sizes)):
             t0 = time.perf_counter()
             ans = self._serve(prep, fused, pin)
             device_mod.synchronize(fused.device)
@@ -135,19 +164,21 @@ class ServeEngine:
             Answer(value=dens, key=key, tier=ans.tier, path=ans.path,
                    rel_err_bound=ans.rel_err_bound,
                    rel_err_bounds=ans.rel_err_bounds[offs[i]:offs[i + 1]],
-                   batch_requests=len(reqs), latency_s=dt)
+                   batch_requests=len(reqs), staleness=ans.staleness,
+                   latency_s=dt)
             for i, dens in enumerate(split(ans.value, sizes))
         ]
 
     def _serve(self, prep: PreparedEstimator, y: torch.Tensor,
                pin: Optional[str]) -> Answer:
         tier = resolve_tier(pin, prep.config.precision)
-        value = self._dispatch(prep, y, tier)
+        value, lag = self._dispatch(prep, y, tier)
+        value = fault_injection.poison("serve.result", value)
         m = int(y.shape[0])
         bounds = np.full(m, exact_bound(tier))
         return Answer(value=value, key=prep.key, tier=tier, path=(tier,),
                       rel_err_bound=float(bounds.max()),
-                      rel_err_bounds=bounds)
+                      rel_err_bounds=bounds, staleness=lag)
 
     @staticmethod
     def _points(prep: PreparedEstimator, points) -> torch.Tensor:
@@ -166,6 +197,9 @@ class ServeEngine:
             return
         late = time.monotonic() - deadline
         if late >= 0:
+            obs.counter("serve.deadline_exceeded",
+                        "requests past their deadline at the engine",
+                        labels={"phase": phase}).inc()
             raise DeadlineExceeded(
                 f"request for {key!r} missed its deadline by "
                 f"{1e3 * late:.1f}ms "
@@ -174,11 +208,16 @@ class ServeEngine:
 
     def _note_served(self, seconds: float, rows: int, requests: int) -> None:
         self.latency.record(seconds, rows, requests)
+        self._requests.inc(requests)
+        self._rows.inc(rows)
 
     # -- telemetry --------------------------------------------------------
 
     def metrics(self) -> dict:
-        """JSON-safe view of latency and bucket-cache efficiency."""
+        """One JSON-safe view of everything this engine can observe:
+        latency (bounded histogram), bucket-cache efficiency, streaming
+        staleness, and the process-wide obs registry (prune occupancy,
+        stream counters and gauges, ...)."""
         return {
             "latency": self.latency.summary().as_dict(),
             "latency_hist": self.latency.histogram_snapshot(),
@@ -188,32 +227,136 @@ class ServeEngine:
                 "evictions": self.cache.evictions,
                 "resident": len(self.cache),
             },
+            "staleness": self.staleness_summary(),
+            "registry": obs.metrics_snapshot(),
         }
+
+    def trace_events(self) -> list:
+        """The buffered obs span events (enable with
+        ``obs.configure(trace=True)``)."""
+        return obs.trace_events()
+
+    def staleness_summary(self) -> dict:
+        """p50/p99/max of how many generations behind live each streaming
+        dispatch was served (empty dict when nothing streamed)."""
+        if not self.staleness_log:
+            return {}
+        xs = sorted(self.staleness_log)
+
+        def pct(q):
+            return xs[min(len(xs) - 1, max(0, round(q * (len(xs) - 1))))]
+
+        return {"count": len(xs), "p50": pct(0.5), "p99": pct(0.99),
+                "max": xs[-1]}
 
     # -- internals -------------------------------------------------------
 
     def _dispatch(self, prep: PreparedEstimator, y: torch.Tensor,
-                  tier: str) -> torch.Tensor:
-        with record_function("serve.dispatch"):
-            top = prep.config.bucket_sizes()[-1]
+                  tier: str):
+        """(values, lag): the densities, and how many generations behind
+        live a streaming estimator answered (0 otherwise)."""
+        cfg = prep.config
+        snap, lag = None, 0
+        with obs.span("serve.dispatch", key=prep.key, backend=cfg.backend,
+                      tier=tier, rows=int(y.shape[0])) as sp:
+            # chaos hook: a killed replica raises InjectedFailure here, a
+            # slow one sleeps — before any compute, like a dead device
+            fault_injection.fire("serve.dispatch", key=prep.key)
+            if prep.stream is not None:
+                # the staleness gate: a snapshot at most ``staleness_
+                # budget`` generations behind live (waiting for or
+                # performing a flush only past the budget), then the whole
+                # dispatch pinned to it — concurrent updates publish NEW
+                # snapshots and never change the one in flight
+                snap = prep.stream.ensure(cfg.staleness_budget)
+                lag = prep.stream.gen - snap.gen
+                self.staleness_log.append(lag)
+                obs.histogram("serve.staleness_gen",
+                              "generations behind live per streaming "
+                              "dispatch", lo=1, hi=1e4,
+                              per_decade=8).observe(lag)
+                sp.set(staleness=lag, stream_gen=snap.gen,
+                       layout_epoch=snap.layout_epoch)
+            top = cfg.bucket_sizes()[-1]
             m = y.shape[0]
             if m <= top:
-                return self._run_bucket(prep, y, tier)
+                return self._run_bucket(prep, y, tier, snap), lag
             # oversize batch: chunk at the largest bucket
-            return torch.cat([self._run_bucket(prep, y[off:off + top], tier)
-                              for off in range(0, m, top)])
+            sp.set(chunks=-(-m // top))
+            return torch.cat([self._run_bucket(prep, y[off:off + top], tier,
+                                               snap)
+                              for off in range(0, m, top)]), lag
 
     def _run_bucket(self, prep: PreparedEstimator, y: torch.Tensor,
-                    tier: str) -> torch.Tensor:
+                    tier: str, snap=None) -> torch.Tensor:
         m = y.shape[0]
         bucket = prep.config.bucket_for(m)
-        # the fit generation keys out stale callables after a refit; the
-        # tier keys each precision to its own prepared columns
-        ck = (prep.key, prep.generation, tier, bucket)
-        with record_function("serve.bucket"):
+        if prep.stream is not None:
+            # streaming callables read the pinned snapshot per call, so
+            # value-only generations reuse them; only a rebuild changes
+            # the column shapes, so the layout epoch joins the key
+            ck = (prep.key, prep.generation, "stream", snap.layout_epoch,
+                  tier, bucket)
+            build = lambda: self._build_stream_executable(prep, tier)  # noqa: E731
+        else:
+            # the fit generation keys out stale callables after a refit;
+            # the tier keys each precision to its own prepared columns
+            ck = (prep.key, prep.generation, tier, bucket)
+            build = lambda: self._build_executable(prep, tier)  # noqa: E731
+        hit = ck in self.cache
+        self._pad_ratio.observe(bucket / m)
+        with obs.span("serve.bucket", key=prep.key, bucket=bucket, rows=m,
+                      pad_ratio=round(bucket / m, 4),
+                      cache="hit" if hit else "miss"):
             fn = self.cache.get_or_build(
-                ck, lambda: self._build_executable(prep, tier))
-            return fn(pad_queries(y, bucket), m)[:m]
+                ck, lambda: self._timed_build(build, prep, bucket))
+            yp = pad_queries(y, bucket)
+            if prep.stream is not None:
+                return fn(yp, m, snap)[:m]
+            return fn(yp, m)[:m]
+
+    @staticmethod
+    def _timed_build(build, prep: PreparedEstimator, bucket: int):
+        """Build a bucket callable under a compile span + histogram, so a
+        rebuild storm is visible as ``serve.compile_s`` mass."""
+        t0 = time.perf_counter()
+        with obs.span("serve.compile", key=prep.key, bucket=bucket):
+            fault_injection.fire("serve.compile", key=prep.key)
+            fn = build()
+        obs.histogram("serve.compile_s", "bucket-callable build seconds",
+                      lo=1e-5, hi=1e3).observe(time.perf_counter() - t0)
+        return fn
+
+    @staticmethod
+    def _build_stream_executable(prep: PreparedEstimator, tier: str):
+        """Bucket callable for a streaming estimator: ``fn(yp, n_real,
+        snap)``.  No train tensor is closed over — each call reads the
+        snapshot its dispatch is pinned to; normalization uses the
+        snapshot's live count, and the prune decision re-resolves per
+        call, since the live count drifts across the "auto" threshold."""
+        cfg = prep.config
+        laplace = cfg.method == "laplace"
+        if cfg.backend == "flash":
+            def fn(yp, n_real, snap):
+                cols = prep.stream.columns_for(tier, snap)
+                eps = ops.resolve_prune(cfg.prune, snap.n_live, prep.block_n)
+                prune = (cfg.prune if eps is not None
+                         and cols.meta is not None else "off")
+                sums = ops.flash_kde_prepared(
+                    yp, cols.xt, cols.nrm_x, prep.h, cols.xt_lo,
+                    precision=tier, block_m=prep.block_m,
+                    block_n=prep.block_n, laplace=laplace, prune=prune,
+                    columns=cols, n_real=n_real)
+                return sums / snap.norm
+
+            return fn
+        eval_fn = ref.laplace_kde_eval if laplace else ref.kde_eval
+        # snap.xp is the live set padded to a pow2 row bucket; sentinel
+        # rows add exactly 0.0 to the sums but enter eval_fn's 1/n, so
+        # rescale from the padded count to the live one
+        return lambda yp, n_real, snap: eval_fn(
+            snap.xp, yp, prep.h, block=cfg.block) * (
+            snap.xp.shape[0] / snap.n_live)
 
     @staticmethod
     def _build_executable(prep: PreparedEstimator, tier: str):

@@ -10,6 +10,13 @@ with the Silverman bandwidth (no debias), as ``repro`` does.  When the
 config's ``prune`` engages for the train set (``ops.resolve_prune``),
 every tier's columns are clustered, and all tiers share ONE spatial
 index, clustered once.
+
+With ``ServeConfig(stream=True)`` a registered dataset is a
+``repro_torch.stream.StreamingSDKDE``: ``append`` / ``evict_ids`` /
+``slide`` fold updates in without a refit, and the prepared state is the
+stream's published snapshot.  ``repro``'s RFF tier on a stream (its
+``_RFFTier`` and the id-diff ``_sync``) arrives with the RFF half of
+ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import fault_injection
 from repro_torch.core import bandwidth as bw
 from repro_torch.core.bandwidth import gaussian_norm_const
 from repro_torch.kernels import ops, spatial
@@ -45,6 +53,9 @@ class PreparedEstimator:
     block_n: Optional[int] = None
     # the spatial index every tier's clustered columns share (pruning)
     index: Optional[spatial.SpatialIndex] = None
+    # streaming (config.stream): the incrementally maintained live state;
+    # the prepared-state accessors read its published snapshot
+    stream: object = None
     _columns: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def columns_for(self, precision: str) -> ops.TrainColumns:
@@ -53,7 +64,10 @@ class PreparedEstimator:
         Clustered only when pruning can engage for this set ("auto" below
         the size threshold stays dense end to end); the first clustered
         tier fits the index the others reuse, so their tile layouts agree.
+        A streaming estimator answers from its published snapshot.
         """
+        if self.stream is not None:
+            return self.stream.columns_for(precision)
         if precision not in self._columns:
             clustered = ops.resolve_prune(
                 self.config.prune, self.n_true, self.block_n) is not None
@@ -88,6 +102,31 @@ class EstimatorRegistry:
     def evict(self, key: str) -> None:
         self._store.pop(key, None)
 
+    # -- streaming updates (config.stream estimators) --------------------
+
+    def _stream_of(self, key: str):
+        prep = self.get(key)
+        if prep.stream is None:
+            raise ValueError(
+                f"estimator {key!r} is not streaming (register it with "
+                "ServeConfig(stream=True) to append/evict points)")
+        return prep.stream
+
+    def append(self, key: str, xs):
+        """Fold new train points into a streaming estimator — the O(n·b·d)
+        delta pass, never the O(n²·d) refit.  Returns the assigned ids."""
+        return self._stream_of(key).append(xs)
+
+    def evict_ids(self, key: str, ids) -> int:
+        """Remove train points (by the ids ``append`` returned) from a
+        streaming estimator.  Not to be confused with ``evict(key)``,
+        which drops a whole registered estimator."""
+        return self._stream_of(key).evict(ids)
+
+    def slide(self, key: str, xs):
+        """Sliding-window update: append ``xs``, evict the oldest as many."""
+        return self._stream_of(key).slide(xs)
+
     def adopt(self, prep: PreparedEstimator) -> PreparedEstimator:
         """Register an estimator prepared elsewhere (``convert``), as a new
         generation under its key."""
@@ -103,6 +142,7 @@ class EstimatorRegistry:
             return self._store[key]
         cfg = config or self.config
         dev = device_mod.resolve(cfg.device)
+        fault_injection.fire("registry.fit", key=key)
         self.n_fits += 1
         prep = self._prepare(
             key, torch.as_tensor(x, dtype=torch.float32, device=dev), h, cfg)
@@ -118,6 +158,8 @@ class EstimatorRegistry:
             h = (bw.sdkde_bandwidth(x) if cfg.method == "sdkde"
                  else bw.silverman_bandwidth(x))
         h = float(h)
+        if cfg.stream:
+            return self._prepare_stream(key, x, h, cfg)
         points = self._debias(x, h, cfg) if cfg.method == "sdkde" else x
         prep = PreparedEstimator(
             key=key, config=cfg, h=h, n_true=n, d=d,
@@ -127,6 +169,32 @@ class EstimatorRegistry:
         if cfg.backend == "flash":
             prep.block_m, prep.block_n = cfg.block_m, cfg.block_n
             prep.columns_for(cfg.precision)
+        return prep
+
+    def _prepare_stream(self, key: str, x: torch.Tensor, h: float,
+                        cfg: ServeConfig) -> PreparedEstimator:
+        """Fit a streaming estimator: the one full score pass happens in
+        the stream's constructor; every later ``append``/``evict_ids`` is
+        an O(n·b·d) delta against this state."""
+        from repro_torch.stream import StreamConfig, StreamingSDKDE
+
+        n, d = x.shape
+        prep = PreparedEstimator(
+            key=key, config=cfg, h=h, n_true=n, d=d,
+            generation=self.n_fits, points=x,
+            norm=n * gaussian_norm_const(d, 1.0) * h**d,
+        )
+        if cfg.backend == "flash":
+            prep.block_m, prep.block_n = cfg.block_m, cfg.block_n
+        prep.stream = StreamingSDKDE(
+            x, h, method=cfg.method, score_h=cfg.score_h,
+            backend=cfg.backend, block_n=cfg.block_n,
+            precision=cfg.precision,
+            config=StreamConfig(slack=cfg.stream_slack,
+                                staleness_budget=cfg.staleness_budget,
+                                background=cfg.stream_background),
+            device=x.device)
+        prep.points = prep.stream.snapshot().points
         return prep
 
     def _debias(self, x: torch.Tensor, h: float, cfg: ServeConfig):

@@ -40,6 +40,8 @@ class LatencyRecorder:
     """
 
     def __init__(self):
+        # a private (unregistered) histogram: an engine resets its recorder
+        # without zeroing the process-wide obs registry
         self._hist = Histogram("serve.latency_s", lo=LATENCY_LO_S,
                                hi=LATENCY_HI_S)
         self._lock = threading.Lock()
@@ -49,6 +51,11 @@ class LatencyRecorder:
         self._hist.observe(seconds, k=n_requests)
         with self._lock:
             self._queries += n_queries
+
+    def reset(self) -> None:
+        self._hist.reset()
+        with self._lock:
+            self._queries = 0
 
     def summary(self) -> LatencySummary:
         h = self._hist
