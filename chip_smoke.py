@@ -151,7 +151,36 @@ Run from the repository root.  Phases, each printing its lines:
                   calls an update makes (and where the first one's
                   are), and
                   peak memory: printed, not gated; the streamed answers
-                  against the refit's are.
+                  against the refit's are;
+ 10. decisions    the decision layer at the main path's size, every time
+                  printed with the card's name and power limit: (a) the
+                  launch tuner's measured resolves of B2 (4096 x 32768),
+                  B1 (32768^2) and B4 on the clustered set (pruned
+                  model; repro's probe, B2 dense) with the shortlist,
+                  each probe's modeled and measured time and their
+                  ratio, the winner and 128x128's time; a second resolve
+                  must hit the cache; SDKDE with "auto" tiles within the
+                  f32 bar of the explicit tiles and of float64; (b) the
+                  RFF tier fitted on the debiased points (D 8192, K 256,
+                  G 32), 16384 queries at f32 and bf16x2: no row of
+                  phase 4's float64 queries above its band, hit
+                  fractions at 1e-1, 3e-2, 1e-2, and a 4096-row request
+                  beside B2 and B4; (c) ServeEngine(rff="on") at those
+                  targets with prune "auto" and "off": hits + escalated
+                  = rows, escalations launch B4 (B2) only, every row
+                  within its bound against float64, p50 of a 4096-row
+                  request, synchronizing calls; and on Fig. 3's 1-D
+                  set (n 8192, h 0.3), where the bands fit, rows
+                  answered at the fast tier within their bands; (d) the
+                  planner's
+                  decisions at the main and clustered shapes equal the
+                  golden fixture's, ServeConfig(plan="auto") answers
+                  within the planned tier's bar of float64, and planning
+                  probes nothing; (e) the RFF tier on a stream (8
+                  appends of 256, an eviction of 512): the synced feature
+                  sums within the f32 phase model of a fresh fit's, sync
+                  and refit times, host reads; (f) density weights at
+                  32768 x 16 within 2·alpha·bar of float64 weights.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -225,15 +254,22 @@ CHECK_LAYERS, CHECK_BATCH, CHECK_PROMPT = 2, 2, 512
 # magnitude per product, carried through two layers and the head.
 MODEL_RTOL, MODEL_ATOL = 2e-4, 2e-5
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): FP32
-# outside the tensor cores, bf16 on the tensor cores, HBM3 bandwidth.
-# exp runs on the SFU: 16 results per clock per SM (CUDA C++ Programming
-# Guide, arithmetic instruction throughput, compute capability 9.0) at
-# 132 SMs and the 1980 MHz boost clock.
+# H100 SXM peaks for B7's bound (NVIDIA data sheet, dense, at the 700 W
+# limit): FP32 outside the tensor cores, HBM3 bandwidth, exp on the SFU at
+# 16 results per clock per SM (CUDA C++ Programming Guide, compute
+# capability 9.0), 132 SMs, the 1980 MHz boost clock.  The pair passes'
+# bound (B1-B6) is the launch tuner's, kernels.tuning.pair_bound.
 PEAK_F32 = 67e12
-PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 PEAK_EXP = 16 * 132 * 1.98e9
+# phase 10: the decision layer.  The RFF tier at repro's defaults (D 8192
+# features, K 256 pilot cells, G 32 groups), the cascade's targets, one
+# request of RFF_ROWS rows, and the timed requests per target
+RFF_FEATURES, RFF_PILOT, RFF_GROUPS = 8192, 256, 32
+CASCADE_TARGETS = (1e-1, 3e-2, 1e-2)
+RFF_ROWS = 4096
+CASCADE_REPEATS = 11
+DENSITY_ALPHA = 0.5
 
 
 def log(msg: str) -> None:
@@ -382,19 +418,12 @@ def bound_ms(kind: str, tier: str, pairs: int, d: int, moved: int) -> tuple:
     move over the HBM rate and the operations on ``pairs`` (row, column)
     pairs over their peak rates.  ``kind`` is "score" (B1/B3), "kde"
     (B2/B4), "laplace" (B5, B4's flag: two more per pair for the factor)
-    or "sq_moment" (B6: one more, the weight's multiply)."""
-    gemm = 2 * d + (2 * (d + 1) if kind == "score" else 0)
-    gemm *= 4 if tier == "bf16x2" else 1
-    elementwise = {"score": 3, "kde": 4, "laplace": 6, "sq_moment": 5}[kind]
-    if tier == "f32":
-        ops_s = pairs * (gemm + elementwise) / PEAK_F32
-    else:
-        ops_s = max(pairs * gemm / PEAK_BF16,
-                    pairs * elementwise / PEAK_F32)
-    ops_s = max(ops_s, pairs / PEAK_EXP)
-    bytes_s = moved / PEAK_BYTES
-    return (1e3 * max(ops_s, bytes_s),
-            "operations" if ops_s >= bytes_s else "bytes")
+    or "sq_moment" (B6: one more, the weight's multiply).  One definition
+    with the launch tuner's floor: ``kernels.tuning.pair_bound``."""
+    from repro_torch.kernels import tuning
+
+    s, by = tuning.pair_bound(kind, tier, pairs, d, moved)
+    return 1e3 * s, by
 
 
 def clustered_points(rng: np.random.Generator, centres, n: int, dev):
@@ -1226,6 +1255,9 @@ def phase_main_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
             "p50_ms", "p99_ms", "qps", "query_many_ms",
             "latency_ms_by_rows")
     return {
+        # for phase 10, not printed
+        "data": {"x": x, "y": y, "h": h, "f64": f64,
+                 "auto_dens": auto["dens"], "x_sd": off["est"].x_sd},
         "launches": {**{k: launches["off"][k]
                         for k in ("flash_score", "flash_kde")},
                      **{k: launches["auto"][k]
@@ -2463,6 +2495,399 @@ def phase_stream(mixture, gen, serve, ops, sp, kdemod, bw, obs, dev, fs,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the decision layer
+# ---------------------------------------------------------------------------
+
+
+def tuner_case(autotune, label, rows, cols, out_width, card, dev,
+               pruned=False) -> dict:
+    """One measured resolve: the model's shortlist, the probed candidates
+    (modeled vs measured device time and the model's ratio), the winner
+    and the default (128, 128) tile's time on the same probe; then a
+    second resolve, which must hit the cache without a probe."""
+    cands = autotune.shortlist(rows, cols, D, out_width=out_width,
+                               occupancy_fn=(lambda bn: autotune.
+                                             expected_occupancy(
+                                                 rows, cols, D, bn))
+                               if pruned else None)
+    before = len(autotune.probe_log())
+    blocks, resolve_ms = host_ms(lambda: autotune.resolve_blocks(
+        "auto", "auto", rows, cols, D, out_width=out_width, measure=True,
+        pruned=pruned, device=dev))
+    probes = autotune.probe_log()[before:]
+    if not probes:
+        raise AssertionError(f"{label}: the measured resolve probed nothing")
+    probe = autotune._probe_time_fn(rows, cols, D, out_width, "f32", dev)
+    default_s = probe(128, 128)
+    again = autotune.resolve_blocks("auto", "auto", rows, cols, D,
+                                    out_width=out_width, measure=True,
+                                    pruned=pruned, device=dev)
+    if again != blocks or len(autotune.probe_log()) != before + len(probes):
+        raise AssertionError(f"{label}: a second resolve re-tuned")
+    log(f"  {label}: shortlist (block_m, block_n: modeled ms) "
+        + ", ".join(f"{c.block_m}x{c.block_n}: {c.step_time * 1e3:.4f}"
+                    for c in cands[:6]))
+    for pr in probes:
+        log(f"    probed {pr['block_m']}x{pr['block_n']}: modeled "
+            f"{pr['modeled_s'] * 1e3:.4f} ms, measured "
+            f"{pr['measured_s'] * 1e3:.4f} ms, measured/modeled "
+            f"{pr['measured_s'] / pr['modeled_s']:.3f} [{card}]")
+    log(f"    winner {blocks[0]}x{blocks[1]}; default 128x128 "
+        f"{default_s * 1e3:.4f} ms; resolve with its probes "
+        f"{resolve_ms:.1f} ms; second resolve: cache hit, no probe [{card}]")
+    return {"winner": list(blocks), "resolve_ms": resolve_ms,
+            "default_128x128_ms": default_s * 1e3,
+            "shortlist": [[c.block_m, c.block_n, c.step_time * 1e3]
+                          for c in cands[:6]],
+            "probes": [{"blocks": [p["block_m"], p["block_n"]],
+                        "modeled_ms": p["modeled_s"] * 1e3,
+                        "measured_ms": p["measured_s"] * 1e3,
+                        "ratio": p["measured_s"] / p["modeled_s"]}
+                       for p in probes]}
+
+
+def decisions_tuner(data, clustered, est_mod, ops, card, dev) -> dict:
+    """Phase 10a: measured resolves of B2, B1 and (pruned) B4, and an
+    SD-KDE with "auto" tiles against explicit ones and float64."""
+    from repro_torch.kernels import autotune
+
+    autotune.clear_cache()
+    out = {"B2 4096x32768": tuner_case(autotune, "B2 rows 4096 x cols "
+                                       f"{N_TRAIN}", 4096, N_TRAIN, 1, card,
+                                       dev),
+           "B1 32768^2": tuner_case(autotune, f"B1 {N_TRAIN}^2", N_TRAIN,
+                                    N_TRAIN, D + 1, card, dev)}
+    # B4: the pruned pass on the clustered set feeds the occupancy
+    # profile (launch width 128 = the fine probe's), then the resolve
+    # prices candidates at it; the probe times B2 dense, as repro's does
+    cx, cy = clustered["x"], clustered["y"]
+    ops.flash_kde(cx, cy, CLU_H, prune="auto")
+    occ = autotune.expected_occupancy(cy.shape[0], cx.shape[0], D, 128)
+    log(f"  clustered occupancy profile at block_n 128: {occ:.4f}")
+    out["B4 clustered"] = tuner_case(
+        autotune, f"B4 clustered rows {cy.shape[0]} x cols {cx.shape[0]} "
+        "(pruned model; probe B2 dense)", cy.shape[0], cx.shape[0], 1, card,
+        dev, pruned=True)
+    out["B4 clustered"]["occupancy"] = occ
+
+    x, y, f64 = data["x"], data["y"], data["f64"]
+    est = est_mod.SDKDE(data["h"], est_mod.EstimatorConfig(
+        block_m="auto", block_n="auto"))
+    _, fit_ms = host_ms(lambda: est.fit(x))
+    dens, ev_ms = host_ms(lambda: est.evaluate(y))
+    bar = TIER_BAR["f32"]
+    out["sdkde_auto"] = {
+        "fit_ms": fit_ms, "evaluate_ms": ev_ms,
+        "vs_explicit": compare(dens, data["auto_dens"], bar,
+                               'SDKDE block_m/block_n="auto" vs explicit '
+                               "128x128 tiles"),
+        "vs_f64": compare(dens[:N_F64], f64, bar,
+                          f'SDKDE "auto" tiles vs float64 ({N_F64} q)')}
+    log(f"  SDKDE \"auto\" tiles: fit {fit_ms:.2f} ms, evaluate "
+        f"{ev_ms:.2f} ms (first use, probes included) [{card}]")
+    return out
+
+
+def decisions_rff(data, card) -> dict:
+    """Phase 10b: fit the RFF tier on the main path's debiased points,
+    evaluate the 16384 queries at f32 and bf16x2, hold every row's
+    realized error against phase 4's float64 sums within its band, hit
+    fractions by target, and one 4096-row evaluation beside B2 and B4
+    for the same rows."""
+    from repro_torch.kernels import flash_rff
+
+    x_sd, y, h, f64 = data["x_sd"], data["y"], data["h"], data["f64"]
+    st, fit_ms = host_ms(lambda: flash_rff.fit(
+        x_sd, h, n_features=RFF_FEATURES, n_pilot=RFF_PILOT,
+        groups=RFF_GROUPS))
+    srv = st.serving()
+    log(f"  RFF fit on {N_TRAIN} x {D} debiased points, D {RFF_FEATURES}, "
+        f"K {RFF_PILOT}, G {RFF_GROUPS}: {fit_ms:.2f} ms; p_scale "
+        f"{st.p_scale:.4e} [{card}]")
+    out = {"fit_ms": fit_ms, "p_scale": st.p_scale, "tiers": {}}
+    for tier in ("f32", "bf16x2"):
+        (p, band), ms = host_ms(lambda: flash_rff.eval_density(
+            srv, y, precision=tier))
+        if not (bool(torch.isfinite(p).all()) and p.shape == (N_QUERY,)):
+            raise AssertionError(f"RFF {tier}: bad densities")
+        real = flash_rff.realized_error(p[:N_F64], f64, st.p_scale)
+        b = band[:N_F64].double().cpu().numpy()
+        worst = float((real / b).max())
+        hits = {t: float((band <= t).double().mean()) for t in
+                CASCADE_TARGETS}
+        log(f"  RFF eval {N_QUERY} queries {tier}: {ms:.3f} ms; realized "
+            f"error / band max {worst:.3f} over {N_F64} rows (must be <= "
+            f"1); median band {float(band.median()):.4e}; hit fraction "
+            + ", ".join(f"{t:g}: {v:.4f}" for t, v in hits.items())
+            + f" [{card}]")
+        if worst > 1.0:
+            raise AssertionError(f"RFF {tier}: a row's realized error "
+                                 f"exceeds its band ({worst:.3f})")
+        out["tiers"][tier] = {"evaluate_ms": ms, "max_realized_over_band":
+                              worst, "median_band": float(band.median()),
+                              "hit_fraction": hits}
+    # one request of RFF_ROWS rows: the RFF evaluation beside B2 (dense)
+    # and B4 (pruned, prepass included) on the same rows
+    from repro_torch.kernels import ops
+
+    yq = y[:RFF_ROWS]
+    rff_ms = cuda_ms(lambda: flash_rff.eval_density(srv, yq), 10)
+    b2_ms = cuda_ms(lambda: ops.flash_kde(x_sd, yq, h, prune="off"), 10)
+    b4_ms = cuda_ms(lambda: ops.flash_kde(x_sd, yq, h, prune=0.0), 10)
+    model_ms = flash_rff.modeled_query_cost_us(
+        RFF_ROWS, D, n_features=RFF_FEATURES, n_pilot=RFF_PILOT) / 1e3
+    log(f"  one {RFF_ROWS}-row request (CUDA-event medians, host work "
+        f"included): RFF {rff_ms:.4f} ms (modeled {model_ms:.4f}), B2 "
+        f"through ops {b2_ms:.4f} ms, B4 through ops {b4_ms:.4f} ms "
+        f"[{card}]")
+    out.update(request_rff_ms=rff_ms, request_rff_modeled_ms=model_ms,
+               request_b2_ms=b2_ms, request_b4_ms=b4_ms)
+    return out
+
+
+def decisions_cascade(data, serve, fs, fk, fp, fl, card) -> dict:
+    """Phase 10c: ServeEngine with the RFF tier at the three targets,
+    prune "auto" and "off": hits + escalated = rows, escalations launch
+    B4 (B2) only, every row within its bound against float64, p50 of a
+    4096-row request and the host reads a request makes."""
+    from repro_torch.kernels import flash_rff
+
+    x, y, h, f64 = data["x"], data["y"], data["h"], data["f64"]
+    yq = y[:RFF_ROWS]
+    out = {}
+    for prune, kernel in (("auto", "flash_kde_pruned"), ("off",
+                                                        "flash_kde")):
+        eng = serve.ServeEngine(serve.ServeConfig(
+            backend="flash", method="sdkde", prune=prune, rff="on",
+            rff_features=RFF_FEATURES, rff_pilot=RFF_PILOT,
+            rff_groups=RFF_GROUPS))
+        _, reg_ms = host_ms(lambda: eng.register("c", x, h=h))
+        p_scale = eng.registry.get("c").rff.state.p_scale
+        rows = {}
+        for t in CASCADE_TARGETS:
+            req = serve.QueryRequest(key="c", points=yq, accuracy_target=t)
+            eng.query(req)                       # builds the bucket
+            reset_counts(fs, fk, fp, fl)
+            ans, _, syncs = sync_counted(lambda: eng.query(req))
+            counts = read_counts(fs, fk, fp, fl)
+            if ans.rff_hits + ans.escalated != RFF_ROWS:
+                raise AssertionError(f"cascade {prune} {t}: hits + "
+                                     f"escalated != rows")
+            if ans.escalated:
+                check_launches(counts, (kernel,),
+                               f"cascade escalations prune={prune!r}")
+            elif any(counts.values()):
+                raise AssertionError(f"cascade {prune} {t}: a kernel "
+                                     f"launched with nothing escalated")
+            real = flash_rff.realized_error(ans.value[:N_F64], f64, p_scale)
+            over = float((real / ans.rel_err_bounds[:N_F64]).max())
+            if over > 1.0:
+                raise AssertionError(f"cascade {prune} {t}: a row's error "
+                                     f"exceeds its bound ({over:.3f})")
+            lat = sorted(eng.query(req).latency_s * 1e3
+                         for _ in range(CASCADE_REPEATS))
+            rows[t] = {"hits": ans.rff_hits, "escalated": ans.escalated,
+                       "launches": counts[kernel], "p50_ms":
+                       lat[len(lat) // 2], "max_err_over_bound": over,
+                       "sync_calls": len(syncs)}
+            log(f"  cascade prune={prune!r} target {t:g}: {ans.rff_hits} "
+                f"hits, {ans.escalated} escalated ({kernel} launches "
+                f"{counts[kernel]}), max error/bound {over:.3f}, p50 "
+                f"{rows[t]['p50_ms']:.3f} ms for {RFF_ROWS} rows, "
+                f"synchronizing calls a request {len(syncs)} [{card}]")
+        out[prune] = {"register_ms": reg_ms, "targets": rows}
+    return out
+
+
+def decisions_cascade_1d(mix1, gen, serve, kdemod, fs, fk, fp, fl,
+                         card) -> dict:
+    """Phase 10c, the fast tier answering: on the 16-d mixture the bands
+    exceed every target and all rows escalate, so the 1-D setting of
+    Fig. 3 (n = 8192, h 0.3, kde, prune "off") shows rows answered at
+    the RFF tier on the card, each within its band against float64.  An
+    escalated row is held to the f32 tier's bar with the norm-trick
+    model (``tier_bar``): at h 0.3 that model, not the ladder's 1e-5
+    (``exact_bound``, repro's), bounds an f32 row (ROADMAP C)."""
+    from repro_torch.kernels import flash_rff
+    from repro_torch.serve import cascade
+
+    x = mix1.sample(ORACLE_N_1D, gen)
+    y = mix1.sample(RFF_ROWS, gen)
+    eng = serve.ServeEngine(serve.ServeConfig(
+        backend="flash", method="kde", prune="off", rff="on",
+        rff_features=RFF_FEATURES, rff_pilot=RFF_PILOT,
+        rff_groups=RFF_GROUPS))
+    eng.register("c1", x, h=FIG4_H)
+    p_scale = eng.registry.get("c1").rff.state.p_scale
+    want = kdemod.kde_eval(x.double(), y.double(), FIG4_H)
+    req = serve.QueryRequest(key="c1", points=y, accuracy_target=1e-2)
+    eng.query(req)
+    reset_counts(fs, fk, fp, fl)
+    ans = eng.query(req)
+    counts = read_counts(fs, fk, fp, fl)
+    if ans.rff_hits < 1 or ans.rff_hits + ans.escalated != RFF_ROWS:
+        raise AssertionError(f"1-D cascade: {ans.rff_hits} hits, "
+                             f"{ans.escalated} escalated")
+    if ans.escalated:
+        check_launches(counts, ("flash_kde",), "1-D cascade escalations")
+    real = flash_rff.realized_error(ans.value, want, p_scale)
+    exact = ans.rel_err_bounds == cascade.exact_bound("f32", "off")
+    bound = np.where(exact, np.maximum(
+        ans.rel_err_bounds, tier_bar("f32", torch.cat([x, y]), FIG4_H)),
+        ans.rel_err_bounds)
+    over = float((real / bound).max())
+    if over > 1.0:
+        raise AssertionError(f"1-D cascade: a row's error exceeds its "
+                             f"bound ({over:.3f})")
+    lat = sorted(eng.query(req).latency_s * 1e3
+                 for _ in range(CASCADE_REPEATS))
+    log(f"  cascade 1-D (n {ORACLE_N_1D}, h {FIG4_H}, prune 'off') target "
+        f"1e-2: {ans.rff_hits} hits, {ans.escalated} escalated (flash_kde "
+        f"launches {counts['flash_kde']}), max error/bound {over:.3f}, p50 "
+        f"{lat[len(lat) // 2]:.3f} ms for {RFF_ROWS} rows [{card}]")
+    return {"hits": ans.rff_hits, "escalated": ans.escalated,
+            "max_err_over_bound": over, "p50_ms": lat[len(lat) // 2]}
+
+
+def decisions_planner(data, serve, card) -> dict:
+    """Phase 10d: the planner's decisions at the main and clustered
+    shapes equal the golden fixture's; plan="auto" registers and answers
+    within the planned tier's bar of float64; the planner times nothing."""
+    from repro_torch import plan as plan_mod
+    from repro_torch.kernels import autotune
+
+    golden = plan_mod.load_golden()["plans"]
+    bench = plan_mod.golden_bench()
+    probes0 = len(autotune.probe_log())
+    out = {}
+    for label, req in plan_mod.golden_requests():
+        if label not in ("main", "clustered"):
+            continue
+        p = plan_mod.plan(req, bench=bench)
+        want = golden[plan_mod.request_key(req)]["plan"]
+        if p.as_dict() != want:
+            raise AssertionError(f"plan {label} {req.accuracy:g} differs "
+                                 f"from the golden fixture: {p.as_dict()} "
+                                 f"vs {want}")
+        out[f"{label} {req.accuracy:g}"] = p.plan_id
+        log(f"  plan {label} (n {req.n}, d {req.d}, q {req.q}) accuracy "
+            f"{req.accuracy:g}: {p.plan_id}, modeled "
+            f"{p.modeled_cost_s * 1e6:.1f} us ({p.bound}), rff {p.rff} "
+            "= golden")
+    x, y, h, f64 = data["x"], data["y"], data["h"], data["f64"]
+    eng = serve.ServeEngine(serve.ServeConfig(plan="auto"))
+    prep, reg_ms = host_ms(lambda: eng.register("p", x, h=h))
+    if len(autotune.probe_log()) != probes0:
+        raise AssertionError("planning timed the card")
+    ans = eng.query(serve.QueryRequest(key="p", points=y[:N_F64]))
+    err = compare(ans.value, f64, TIER_BAR[prep.plan.precision],
+                  f'ServeConfig(plan="auto") {prep.plan.plan_id} vs float64')
+    log(f"  plan=\"auto\" registered in {reg_ms:.2f} ms (prewarm included), "
+        f"answer plan_id {ans.plan_id} [{card}]")
+    out["served"] = {"plan_id": prep.plan.plan_id, "register_ms": reg_ms,
+                     "vs_f64": err}
+    return out
+
+
+def decisions_stream(data, serve, mixture, gen, card) -> dict:
+    """Phase 10e: the RFF tier on a stream of 32768 live points: after 8
+    appends of 256 and an eviction of 512 the synced feature sums equal
+    a fresh fit's within the f32 phase model, the sync's and a refit's
+    times, and the sync's host reads."""
+    from repro_torch.kernels import flash_rff
+
+    x, h = data["x"], data["h"]
+    xa = mixture.sample(STREAM_APPENDS * STREAM_BATCH, gen)
+    eng = serve.ServeEngine(serve.ServeConfig(
+        backend="flash", prune="auto", stream=True, rff="on",
+        rff_features=RFF_FEATURES, rff_pilot=RFF_PILOT,
+        rff_groups=RFF_GROUPS))
+    eng.register("s", x, h=h)
+    prep = eng.registry.get("s")
+    eng.registry.rff_serving(prep)                  # the first fit
+    tier = prep.rff
+    pts0 = prep.stream.snapshot().points
+    for i in range(STREAM_APPENDS):
+        eng.registry.append("s", xa[i * STREAM_BATCH:(i + 1) * STREAM_BATCH])
+    rng = np.random.default_rng(SEED + 100)
+    eng.registry.evict_ids("s", rng.choice(prep.stream.ids, STREAM_EVICT,
+                                           replace=False))
+    snap = prep.stream.ensure(0)
+    syncs0, fits0 = tier.syncs, tier.fits
+    _, sync_ms, where = sync_counted(lambda: eng.registry.rff_serving(
+        prep, snap=snap))
+    if tier.syncs != syncs0 + 1 or tier.fits != fits0:
+        raise AssertionError("the stream's RFF tier refitted instead of "
+                             "syncing")
+    fresh, refit_ms = host_ms(lambda: flash_rff.fit(
+        snap.points, h, n_features=RFF_FEATURES, n_pilot=RFF_PILOT,
+        groups=RFF_GROUPS))
+    # the two sums differ by the f32 phase rounding of the fits that made
+    # them (the synced one's first fit over the registered points, the
+    # fresh one over the live points; the deltas are float64): a phase
+    # w·x within d·eps·Σ|w_k x_k|, cos and sin within 2 eps each term
+    eps = torch.finfo(torch.float32).eps
+    w_abs = tier.state.w.abs().T
+
+    def phase_model(points):
+        p = points.double().abs()
+        return D * eps * (p @ w_abs).sum(0) + 2 * eps * p.shape[0]
+
+    model = phase_model(pts0) + phase_model(snap.points)
+    diffs = [(tier.state.z_cos - fresh.z_cos).abs(),
+             (tier.state.z_sin - fresh.z_sin).abs()]
+    ratio = max(float((dz / model).max()) for dz in diffs)
+    log(f"  RFF on a stream ({N_TRAIN} live, {STREAM_APPENDS} appends of "
+        f"{STREAM_BATCH}, eviction of {STREAM_EVICT}, {snap.n_live} live): "
+        f"sync {sync_ms:.2f} ms vs refit {refit_ms:.2f} ms; synced sums vs "
+        f"a fresh fit: max |diff| / f32 phase model {ratio:.3e} (bar 1); "
+        f"synchronizing calls (host reads) a sync {len(where)} (must be 0)"
+        f" [{card}]")
+    if ratio > 1.0 or tier.state.n != snap.n_live:
+        raise AssertionError(f"synced RFF sums off a fresh fit's by "
+                             f"{ratio:.3f} of the model")
+    if where:
+        raise AssertionError(f"the RFF sync read the card: {where}")
+    return {"sync_ms": sync_ms, "refit_ms": refit_ms,
+            "diff_over_model": ratio, "sync_calls": len(where),
+            "n_live": snap.n_live}
+
+
+def decisions_density(data, est_mod, kdemod, card) -> dict:
+    """Phase 10f: density weights at 32768 x 16 against float64 weights.
+    |Δw/w| <= alpha·(the densities' bar) + the mean's, 2·alpha·bar."""
+    from repro_torch.data.density import density_weights
+
+    x, h = data["x"], data["h"]
+    w, ms = host_ms(lambda: density_weights(x, alpha=DENSITY_ALPHA, h=h))
+    p64 = torch.clamp(kdemod.sdkde_eval(x.double(), x.double(), h),
+                      min=1e-12)
+    w64 = p64 ** (-DENSITY_ALPHA)
+    w64 = w64 / w64.mean()
+    bar = 2 * DENSITY_ALPHA * tier_bar("f32", x, h)
+    err = compare(w, w64, bar, f"density weights {N_TRAIN} x {D} vs "
+                  "float64")
+    log(f"  density_weights {N_TRAIN} x {D}: {ms:.2f} ms [{card}]")
+    return {"ms": ms, "vs_f64": err}
+
+
+def phase_decisions(data, clustered, mixture, mix1, gen, serve, est_mod,
+                    ops, kdemod, fs, fk, fp, fl, card, dev) -> dict:
+    log(f"== phase 10: decisions (tuner, RFF tier, cascade, planner, "
+        f"density weighting) at {N_TRAIN} x {D}, {N_QUERY} queries [{card}]")
+    out = {"tuner": decisions_tuner(data, clustered, est_mod, ops, card,
+                                    dev)}
+    out["rff"] = decisions_rff(data, card)
+    out["cascade"] = decisions_cascade(data, serve, fs, fk, fp, fl, card)
+    out["cascade"]["1d"] = decisions_cascade_1d(mix1, gen, serve, kdemod,
+                                                fs, fk, fp, fl, card)
+    out["planner"] = decisions_planner(data, serve, card)
+    out["stream"] = decisions_stream(data, serve, mixture, gen, card)
+    out["density"] = decisions_density(data, est_mod, kdemod, card)
+    return out
+
+
 def prefill_profile(checkout: Path) -> int:
     """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
     weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
@@ -2542,7 +2967,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_score as fs
 
     dev = device_mod.resolve("cuda")
-    name, _ = phase_device()
+    name, card = phase_device()
     hmma, scan_regs = phase_build(_build)
     mixture = mixtures.benchmark_mixture_16d()
     mix1 = mixtures.benchmark_mixture_1d()
@@ -2553,6 +2978,7 @@ def main(argv=None) -> int:
                            cfg.block_n)
     main_path = phase_main_path(mixture, gen, est_mod, kdemod, serve, fk,
                                 fs, fp, fl)
+    data = main_path.pop("data")
     clustered = phase_clustered(ops, spatial, kdemod, fp, dev)
     laplace = phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk,
                                  fs, fp, fl)
@@ -2568,6 +2994,9 @@ def main(argv=None) -> int:
     stream = phase_stream(mixture, gen, serve, ops, spatial, kdemod, bw, obs,
                           dev, fs, fk, fp, fl)
     stream_launches = {k: r["launches"] for k, r in stream["parity"].items()}
+    decisions = phase_decisions(data, clustered, mixture, mix1, gen, serve,
+                                est_mod, ops, kdemod, fs, fk, fp, fl, card,
+                                dev)
 
     # launches: each kernel's count from the path that runs it, with its
     # counts set to 0 just before and read just after (phases 4 and 4c)
@@ -2653,6 +3082,7 @@ def main(argv=None) -> int:
     summary["oracle"] = oracle
     summary["ssm_serve"] = ssm_serve
     summary["stream"] = stream
+    summary["decisions"] = decisions
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

@@ -23,6 +23,10 @@ nothing of JAX:
     labels, occupied mask, layout points, generation and layout epoch)
     becomes the port's stream, so one sequence of updates can drive both
     and their layouts be compared slot for slot;
+  * ``rff_from_state`` — a fitted ``repro.kernels.flash_rff.RFFState``
+    (frequencies, feature sums, pilot anchors and moments, ``p_scale``,
+    ``h``, ``n``, ``groups``) becomes the port's, so both packages
+    evaluate one state (each package's k-means draws its own anchors);
   * ``lm_params_from_state`` — ``repro.models.common.init_params``'
     output (or any parameter dict of that layout) becomes the port's
     parameter dict for ``repro_torch.models``, so both packages compute
@@ -42,7 +46,9 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.core.bandwidth import gaussian_norm_const
 from repro_torch.core.estimator import SDKDE, EstimatorConfig, LaplaceKDE
+from repro_torch.kernels.flash_rff import RFFState
 from repro_torch.kernels.spatial import SpatialIndex
 from repro_torch.models.common import ModelConfig, param_shapes
 from repro_torch.serve.config import ServeConfig
@@ -182,6 +188,30 @@ def stream_from_state(x: np.ndarray, ids: np.ndarray, next_id: int,
     else:
         st._snapshot = st._build_snapshot()
     return st
+
+
+def rff_from_state(w: np.ndarray, z_cos: np.ndarray, z_sin: np.ndarray,
+                   centroids: np.ndarray, pilot_n: np.ndarray,
+                   pilot_s1: np.ndarray, pilot_ss: np.ndarray, *,
+                   p_scale: float, h: float, n: int, groups: int,
+                   seed: int = 0, device: str = "cuda") -> RFFState:
+    """The port's ``RFFState`` for a JAX-fitted one: its float64 arrays
+    (``w`` (D/2, d), ``z_cos`` / ``z_sin`` (D/2,), ``centroids`` (K, d),
+    ``pilot_n`` / ``pilot_ss`` (K,), ``pilot_s1`` (K, d)) on ``device``,
+    and its scalars."""
+    dev = device_mod.resolve(device)
+
+    def f64(a):
+        return torch.as_tensor(np.array(a, np.float64), device=dev)
+
+    wt = f64(w)
+    d = int(wt.shape[1])
+    return RFFState(
+        h=float(h), d=d, n=int(n), groups=int(groups), seed=int(seed),
+        npp=gaussian_norm_const(d, 1.0) * float(h) ** d, w=wt,
+        z_cos=f64(z_cos), z_sin=f64(z_sin), centroids=f64(centroids),
+        pilot_n=f64(pilot_n), pilot_s1=f64(pilot_s1),
+        pilot_ss=f64(pilot_ss), p_scale=float(p_scale))
 
 
 def lm_params_from_state(params: "dict[str, np.ndarray]", cfg: ModelConfig,

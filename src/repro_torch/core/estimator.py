@@ -50,8 +50,10 @@ def check_backend(backend: str) -> None:
 class EstimatorConfig:
     backend: Backend = "flash"
     block: int = 1024            # streaming column-block size (torch backend)
-    block_m: int = 128           # kernel row tile (rows padded to it)
-    block_n: int = 128           # kernel column tile (points per stage)
+    # kernel tiles: ints, or "auto" (tuned per shape by kernels/autotune,
+    # timed on the card when the points live there)
+    block_m: "int | str" = 128   # kernel row tile (rows padded to it)
+    block_n: "int | str" = 128   # kernel column tile (points per stage)
     score_h: Optional[float] = None  # score-estimation bandwidth (None = h)
     precision: str = "f32"       # GEMM-operand tier (kernels/precision)
     # cluster pruning (kernels/spatial.py): "auto" = exact pruning at

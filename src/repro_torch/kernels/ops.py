@@ -12,9 +12,12 @@ Three launch knobs thread through every wrapper:
     ``"bf16x2"``, ``kernels/precision.py``).  Norms come from the
     tier-cast operands; distances, ``exp`` and sums stay f32.
   * ``block_m`` / ``block_n`` — the kernels' row tile and column tile
-    (the unit of the visit lists and of each partial sum), both explicit
-    ints.  Rows are padded to ``block_m`` and columns to ``block_n``
-    multiples, as the JAX wrappers pad.
+    (the unit of the visit lists and of each partial sum): ints (128 by
+    default), or ``"auto"``, which the Hopper launch tuner resolves per
+    shape (``kernels/autotune.py``: the H100 cost model's shortlist,
+    timed on the card when the operands live there).  Rows are padded to
+    ``block_m`` and columns to ``block_n`` multiples, as the JAX wrappers
+    pad.
   * ``prune`` — cluster pruning (``kernels/spatial.py``): ``"off"``
     streams every tile pair (B1 / B2), a float ``epsilon ≥ 0`` reorders
     the train set spatially and skips column tiles whose certified
@@ -30,13 +33,15 @@ runs fused, one pass of B5 (B4 with ``laplace`` when pruning), or
 non-fused, B2 then B6, always dense (``laplace_kde_nonfused``).  The
 pruned path syncs once per pass to size its visit lists, and reads the
 pass's largest certified error for the ``kernels.prune.*`` telemetry in
-the same transfer.  Spans carry ``repro``'s names
-(``kernels.pruned_score``, ``kernels.pruned_eval``).  The streaming
-layer keeps its own layout and builds its columns with
+the same transfer; it also feeds the launch tuner's occupancy profile at
+the launch width and, until the regime has one, at
+``autotune.FINE_PROBE_BLOCK`` (``TrainColumns.meta_fine``).  Spans carry
+``repro``'s names (``kernels.pruned_score``, ``kernels.pruned_eval``).
+The streaming layer keeps its own layout and builds its columns with
 ``columns_from_layout`` / ``update_train_columns``.  Not ported:
-``repro``'s occupancy profile and fine-probe metadata for the autotuner
-(ROADMAP A6) and the fallback to dense under JAX tracing (PyTorch does
-not trace).
+``repro``'s fallback to dense under JAX tracing (PyTorch does not
+trace), and the wrappers' ``plan=`` argument (the planner is reached
+through ``ServeConfig(plan="auto")``).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.bandwidth import gaussian_norm_const
-from repro_torch.kernels import flash_pruned, spatial
+from repro_torch.kernels import autotune, flash_pruned, spatial, tuning
 from repro_torch.kernels import precision as prec
 from repro_torch.kernels.flash_kde import flash_kde as _kde_kernel
 from repro_torch.kernels.flash_laplace import flash_laplace as _laplace_kernel
@@ -99,14 +104,31 @@ def check_prune(prune) -> None:
 
 
 def check_blocks(block_m, block_n) -> None:
-    """Both tiles must be explicit positive ints."""
+    """Each tile is a positive int or ``"auto"`` (tuned per shape)."""
     for name, b in (("block_m", block_m), ("block_n", block_n)):
         if b == "auto":
-            raise NotImplementedError(
-                f"{name}='auto' needs the Hopper launch tuner, which is not "
-                "ported yet (ROADMAP A6); pass an int")
+            continue
         if not (isinstance(b, int) and not isinstance(b, bool) and b > 0):
-            raise ValueError(f"bad {name} {b!r} (a positive int)")
+            raise ValueError(f"bad {name} {b!r} (a positive int or 'auto')")
+
+
+def _resolve(block_m, block_n, rows: int, cols: int, d: int, *,
+             out_width: int, precision: str, device: torch.device,
+             row_multiple: Optional[int] = None,
+             col_multiple: Optional[int] = None, pruned: bool = False):
+    """``"auto"`` tiles resolved by the launch tuner (measured when the
+    operands are on the card, the model alone on the CPU), then held to
+    the kernels' limits."""
+    check_blocks(block_m, block_n)
+    block_m, block_n = autotune.resolve_blocks(
+        block_m, block_n, rows, cols, d, out_width=out_width,
+        precision=precision, row_multiple=row_multiple,
+        col_multiple=col_multiple, pruned=pruned, device=device)
+    why = tuning.infeasible(d, block_m=block_m, block_n=block_n,
+                            precision=precision, out_width=out_width)
+    if why is not None:
+        raise ValueError(f"the kernels refuse this launch: {why}")
+    return block_m, block_n
 
 
 def _pad_to(x: torch.Tensor, mult: int,
@@ -211,6 +233,13 @@ def _score_stats_pruned(x: torch.Tensor, h, epsilon: float,
     tm = spatial.tile_map(xrec, col_meta, inv, epsilon, block_m=block_m,
                           kind="score")
     vl = spatial.visit_lists(tm.keep, err_bound=_telemetry_err(tm))
+    fine = autotune.FINE_PROBE_BLOCK
+    fine_meta = None
+    if (block_n > fine and layout.points.shape[0] % fine == 0
+            and not autotune.has_occupancy(n, n, d, fine)):
+        fine_meta = spatial.tile_metadata(xrec, layout.real, block=fine)
+    _record_occupancy_profile(n, {n}, d, vl.occupancy, block_n, xrec,
+                              fine_meta, inv, epsilon, block_m, "score")
     _note_pruned_launch("score", vl, epsilon)
     with obs.span("kernels.pruned_score", rows=n,
                   occupancy=round(vl.occupancy, 4)), \
@@ -221,6 +250,30 @@ def _score_stats_pruned(x: torch.Tensor, h, epsilon: float,
             block_n=block_n)
     rows = s1aug[layout.slots]
     return rows[:, d], rows[:, :d]
+
+
+def _record_occupancy_profile(rows, col_counts, d, launch_occ, block_n,
+                              yrec, meta_fine, inv2h2, epsilon, block_m,
+                              kind) -> None:
+    """Feed the tuner's occupancy profile after one bounds prepass.
+
+    The launch-width occupancy (already on the host) is recorded under
+    every column count a later resolve may key on.  The fine-width probe,
+    a second bounds pass at ``FINE_PROBE_BLOCK`` with one device read,
+    runs only until the profile has a fine record for this regime; after
+    that the query path skips it."""
+    fine = autotune.FINE_PROBE_BLOCK
+    for n_key in col_counts:
+        autotune.record_occupancy(rows, n_key, d, launch_occ,
+                                  block_n=block_n)
+    if meta_fine is None or all(
+            autotune.has_occupancy(rows, k, d, fine) for k in col_counts):
+        return
+    fine_tm = spatial.tile_map(yrec, meta_fine, inv2h2, epsilon,
+                               block_m=block_m, kind=kind)
+    fine_occ = float(fine_tm.keep.float().mean())
+    for n_key in col_counts:
+        autotune.record_occupancy(rows, n_key, d, fine_occ, block_n=fine)
 
 
 def _telemetry_err(tm: spatial.TileMap) -> Optional[torch.Tensor]:
@@ -252,13 +305,15 @@ def _note_pruned_launch(kind: str, vl: spatial.VisitLists,
 
 
 def flash_score_stats(x: torch.Tensor, h, *, precision: str = "f32",
-                      block_m: int = 128, block_n: int = 128,
+                      block_m=128, block_n=128,
                       prune: PruneArg = "auto", seed: int = 0):
     """(S0, S1) score statistics over the train set via kernel B1, or B3
     when ``prune`` engages (``seed`` seeds the k-means index)."""
     prec.validate(precision)
-    check_blocks(block_m, block_n)
     n, d = x.shape
+    block_m, block_n = _resolve(block_m, block_n, n, n, d, out_width=d + 1,
+                                precision=precision, device=x.device,
+                                pruned=prune != "off")
     eps = resolve_prune(prune, n, block_n)
     if eps is not None:
         return _score_stats_pruned(
@@ -282,8 +337,8 @@ def _apply_score_shift(x32: torch.Tensor, s0, s1, h, sh) -> torch.Tensor:
 
 
 def flash_sdkde_shift(x: torch.Tensor, h, *, score_h=None,
-                      precision: str = "f32", block_m: int = 128,
-                      block_n: int = 128, prune: PruneArg = "auto",
+                      precision: str = "f32", block_m=128,
+                      block_n=128, prune: PruneArg = "auto",
                       seed: int = 0) -> torch.Tensor:
     """Debiased samples x^SD = x + (h²/2)·ŝ(x), score via kernel B1 (B3
     when ``prune`` engages)."""
@@ -320,16 +375,18 @@ def _flash_eval(x, y, h, *, laplace, precision, block_m, block_n, prune,
     """Normalized KDE or fused-Laplace densities: B2 / B5 dense, B4 (its
     ``laplace`` flag) when ``prune`` engages."""
     prec.validate(precision)
-    check_blocks(block_m, block_n)
     n, d = x.shape
     m = y.shape[0]
+    block_m, block_n = _resolve(block_m, block_n, m, n, d, out_width=1,
+                                precision=precision, device=x.device,
+                                pruned=prune != "off")
     eps = resolve_prune(prune, n, block_n)
     if eps is not None:
         cols = _cached_columns(x, block_n=block_n, precision=precision,
                                seed=seed)
         sums = _pruned_eval_sums(y, cols, h, eps, precision=precision,
                                  block_m=block_m, block_n=block_n,
-                                 laplace=laplace)
+                                 laplace=laplace, n_true=n)
         return _normalize(sums, n, d, h)
     y_ops, xt_ops, nrm_y, nrm_x = _prep_eval(x, y, block_m, block_n,
                                              precision)
@@ -342,8 +399,8 @@ def _flash_eval(x, y, h, *, laplace, precision, block_m, block_n, prune,
 
 
 def flash_kde(x: torch.Tensor, y: torch.Tensor, h, *,
-              precision: str = "f32", block_m: int = 128,
-              block_n: int = 128, prune: PruneArg = "auto",
+              precision: str = "f32", block_m=128,
+              block_n=128, prune: PruneArg = "auto",
               seed: int = 0) -> torch.Tensor:
     """Normalized Gaussian KDE densities at ``y`` (train set ``x``), via
     B2, or B4 when ``prune`` engages (the clustered columns of ``x`` are
@@ -354,8 +411,8 @@ def flash_kde(x: torch.Tensor, y: torch.Tensor, h, *,
 
 
 def flash_laplace_kde(x: torch.Tensor, y: torch.Tensor, h, *,
-                      precision: str = "f32", block_m: int = 128,
-                      block_n: int = 128, prune: PruneArg = "auto",
+                      precision: str = "f32", block_m=128,
+                      block_n=128, prune: PruneArg = "auto",
                       seed: int = 0) -> torch.Tensor:
     """Fused Flash-Laplace-KDE densities at ``y`` — one quadratic pass:
     B5, or B4 with ``laplace`` (and the Laplace bound kind in its prepass)
@@ -366,17 +423,18 @@ def flash_laplace_kde(x: torch.Tensor, y: torch.Tensor, h, *,
 
 
 def laplace_kde_nonfused(x: torch.Tensor, y: torch.Tensor, h, *,
-                         precision: str = "f32", block_m: int = 128,
-                         block_n: int = 128) -> torch.Tensor:
+                         precision: str = "f32", block_m=128,
+                         block_n=128) -> torch.Tensor:
     """Non-fused Laplace baseline (Fig. 4): two quadratic launches, B2 for
     S = Σφ and B6 for M = Σφ·sq, combined as (1 + d/2)·S − M/(2h²).
 
     Stays dense on purpose, as in ``repro``: it is the measured baseline
     of the fusion."""
     prec.validate(precision)
-    check_blocks(block_m, block_n)
     n, d = x.shape
     m = y.shape[0]
+    block_m, block_n = _resolve(block_m, block_n, m, n, d, out_width=1,
+                                precision=precision, device=x.device)
     y_ops, xt_ops, nrm_y, nrm_x = _prep_eval(x, y, block_m, block_n,
                                              precision)
     args = (y_ops[0], nrm_y, xt_ops[0], nrm_x, _inv2h2(h, y.device),
@@ -404,10 +462,14 @@ class TrainColumns(NamedTuple):
     # index whose centroids order incoming query batches.
     meta: Optional[spatial.TileMeta] = None
     index: Optional[spatial.SpatialIndex] = None
+    # the same geometry at the tuner's fine probe width: the pruned
+    # wrappers measure occupancy there too, so the tuner can extrapolate
+    # skip rates to tile widths it has never launched
+    meta_fine: Optional[spatial.TileMeta] = None
     block_n: int = 0                 # prepare-time column-tile width
 
 
-def prepare_train_columns(x: torch.Tensor, *, block_n: int = 128,
+def prepare_train_columns(x: torch.Tensor, *, block_n=128,
                           precision: str = "f32", clustered: bool = False,
                           index: Optional[spatial.SpatialIndex] = None,
                           seed: int = 0) -> TrainColumns:
@@ -421,10 +483,15 @@ def prepare_train_columns(x: torch.Tensor, *, block_n: int = 128,
     sentinel-padded layout (k-means seeded by ``seed``; pass ``index`` to
     reuse a clustering — its labels apply directly when it was fitted on a
     row-aligned set, e.g. the pre-shift points) and attaches the per-tile
-    metadata the pruned kernels' bounds prepass reads.
+    metadata the pruned kernels' bounds prepass reads.  ``block_n`` may be
+    ``"auto"`` (tuned for a serving-scale request of 4096 rows).
     """
     prec.validate(precision)
     check_blocks(1, block_n)
+    if block_n == "auto":
+        _, block_n = _resolve(128, "auto", 4096, x.shape[0], x.shape[-1],
+                              out_width=1, precision=precision,
+                              device=x.device)
     real = None
     if clustered:
         if index is None:
@@ -460,17 +527,22 @@ def columns_from_layout(xp: torch.Tensor, real: Optional[torch.Tensor],
     place) and calls this to (re)build the tier's cast planes, norms and
     tile metadata; ``prepare_train_columns`` routes through here too, so
     both share one casting/metadata recipe.  ``real=None`` means a plain
-    tail-padded (non-clustered) layout: no metadata is attached.
-    ``repro``'s fine-probe metadata for the autotuner (``meta_fine``)
-    waits for the Hopper launch tuner (ROADMAP A6).
+    tail-padded (non-clustered) layout: no metadata is attached.  A
+    clustered layout wider than the tuner's fine probe also gets its
+    metadata at that width (``meta_fine``).
     """
     prec.validate(precision)
     check_blocks(1, block_n)
     hi, lo, rec = _tier_planes(xp, precision)
-    meta = None if real is None else spatial.tile_metadata(rec, real,
-                                                           block=block_n)
+    meta = meta_fine = None
+    if real is not None:
+        meta = spatial.tile_metadata(rec, real, block=block_n)
+        fine = autotune.FINE_PROBE_BLOCK
+        if block_n > fine and xp.shape[0] % fine == 0:
+            meta_fine = spatial.tile_metadata(rec, real, block=fine)
     return TrainColumns(_t(hi), None if lo is None else _t(lo),
-                        _norms(rec).reshape(1, -1), meta, index, block_n)
+                        _norms(rec).reshape(1, -1), meta, index, meta_fine,
+                        block_n)
 
 
 def update_train_columns(cols: TrainColumns, xp: torch.Tensor,
@@ -501,13 +573,24 @@ def update_train_columns(cols: TrainColumns, xp: torch.Tensor,
         1, rows, lo.T)
     nrm_x = cols.nrm_x.clone().index_copy_(1, rows,
                                            _norms(rec).reshape(1, -1))
-    meta = cols.meta
+    meta, meta_fine = cols.meta, cols.meta_fine
     if meta is not None:
+        mask = real.index_select(0, rows)
         meta = spatial.merge_tile_meta(meta, tiles_np,
                                        spatial.tile_meta_from_rows(
             rec.reshape(tiles_np.size, block, -1),
-            real.index_select(0, rows).reshape(tiles_np.size, block)))
-    return cols._replace(xt=xt, xt_lo=xt_lo, nrm_x=nrm_x, meta=meta)
+            mask.reshape(tiles_np.size, block)))
+        if meta_fine is not None:
+            fine = autotune.FINE_PROBE_BLOCK
+            ratio = block // fine
+            ftiles = (tiles_np[:, None] * ratio
+                      + np.arange(ratio)[None, :]).reshape(-1)
+            meta_fine = spatial.merge_tile_meta(
+                meta_fine, ftiles, spatial.tile_meta_from_rows(
+                    rec.reshape(ftiles.size, fine, -1),
+                    mask.reshape(ftiles.size, fine)))
+    return cols._replace(xt=xt, xt_lo=xt_lo, nrm_x=nrm_x, meta=meta,
+                         meta_fine=meta_fine)
 
 
 def _cast_queries(yp: torch.Tensor, precision: str):
@@ -522,7 +605,8 @@ def _cast_queries(yp: torch.Tensor, precision: str):
 def _pruned_eval_sums(y: torch.Tensor, cols: TrainColumns, h,
                       epsilon: float, *, precision: str, block_m: int,
                       block_n: int, laplace: bool = False,
-                      n_real: Optional[int] = None) -> torch.Tensor:
+                      n_real: Optional[int] = None,
+                      n_true: Optional[int] = None) -> torch.Tensor:
     """Pruned kernel sums (len(y),) for queries against prepared columns:
     KDE sums, or with ``laplace`` the fused Laplace sums, whose prepass
     certifies with the Laplace bound kind.
@@ -531,7 +615,10 @@ def _pruned_eval_sums(y: torch.Tensor, cols: TrainColumns, h,
     path); only real rows enter the query layout and the tail sums are 0.
     Assign queries to the train clusters → scatter into a cluster-aligned
     layout → bounds prepass → visit lists (one sync) → B4 → gather back
-    to request order.
+    to request order.  The occupancy is recorded for the tuner under the
+    padded column count and, where the caller knows it, the true train
+    count ``n_true`` (read from no tensor: ``repro`` sums the tile counts
+    on the device for it).
     """
     if cols.meta is None or cols.index is None:
         raise ValueError(
@@ -553,6 +640,10 @@ def _pruned_eval_sums(y: torch.Tensor, cols: TrainColumns, h,
     tm = spatial.tile_map(yrec, cols.meta, inv, epsilon, block_m=block_m,
                           kind=kind)
     vl = spatial.visit_lists(tm.keep, err_bound=_telemetry_err(tm))
+    keys = {cols.xt.shape[1]} | ({n_true} if n_true else set())
+    _record_occupancy_profile(m_in, keys, yr.shape[1], vl.occupancy, block_n,
+                              yrec, cols.meta_fine, inv, epsilon, block_m,
+                              kind)
     _note_pruned_launch(kind, vl, epsilon)
     with obs.span("kernels.pruned_eval", rows=nr, kind=kind,
                   occupancy=round(vl.occupancy, 4),
@@ -571,8 +662,8 @@ def _pruned_eval_sums(y: torch.Tensor, cols: TrainColumns, h,
 def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
                        nrm_x: torch.Tensor, h,
                        xt_lo: Optional[torch.Tensor] = None, *,
-                       precision: str = "f32", block_m: int = 128,
-                       block_n: int = 128, laplace: bool = False,
+                       precision: str = "f32", block_m=128,
+                       block_n=128, laplace: bool = False,
                        prune: PruneArg = "off",
                        columns: Optional[TrainColumns] = None,
                        n_real: Optional[int] = None) -> torch.Tensor:
@@ -584,15 +675,23 @@ def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
     ``prune`` ≠ "off" takes the cluster-pruned path (B4): pass the full
     ``columns`` (prepared with ``clustered=True``) and ``n_real``, the
     true query count, so sentinel padding rows stay out of the row-tile
-    geometry.
+    geometry.  ``"auto"`` tiles must divide the padded shapes; a pruned
+    launch keeps the width the columns were prepared at.
     """
     prec.validate(precision)
-    check_blocks(block_m, block_n)
     if (precision == "bf16x2") != (xt_lo is not None):
         raise ValueError(
             "bf16x2 needs prepared lo planes (and other tiers must not "
             f"pass them): precision={precision} xt_lo={xt_lo is not None}"
         )
+    if prune != "off" and columns is not None and block_n == "auto":
+        block_n = columns.block_n
+    m, d = yp.shape
+    block_m, block_n = _resolve(block_m, block_n, m, xt.shape[1], d,
+                                out_width=1, precision=precision,
+                                device=yp.device, row_multiple=m,
+                                col_multiple=xt.shape[1],
+                                pruned=prune != "off")
     eps = resolve_prune(prune, xt.shape[1], block_n)
     if eps is not None:
         if columns is None:
@@ -615,42 +714,51 @@ def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
 
 
 def flash_sdkde(x: torch.Tensor, y: torch.Tensor, h, *, score_h=None,
-                precision: str = "f32", block_m: int = 128,
-                block_n: int = 128, prune: PruneArg = "auto",
+                precision: str = "f32", block_m=128,
+                block_n=128, prune: PruneArg = "auto",
                 seed: int = 0) -> torch.Tensor:
     """Full Flash-SD-KDE: score pass → shift → KDE at queries (normalized).
 
     Dense, B1 then B2; when ``prune`` engages, B3 then B4 with one shared
     spatial index: the clustering of ``x`` orders the score pass and,
-    row for row, the O(h²)-shifted set of the KDE pass.
+    row for row, the O(h²)-shifted set of the KDE pass.  ``"auto"`` tiles
+    are tuned for each pass on its own (train × train, queries × train).
     """
     prec.validate(precision)
-    check_blocks(block_m, block_n)
     n, d = x.shape
     m = y.shape[0]
     sh = h if score_h is None else score_h
-    eps = resolve_prune(prune, n, block_n)
+    pruned = prune != "off"
+    s_bm, s_bn = _resolve(block_m, block_n, n, n, d, out_width=d + 1,
+                          precision=precision, device=x.device,
+                          pruned=pruned)
+    k_bm, k_bn = _resolve(block_m, block_n, m, n, d, out_width=1,
+                          precision=precision, device=x.device,
+                          pruned=pruned)
+    s_eps = resolve_prune(prune, n, s_bn)
+    k_eps = resolve_prune(prune, n, k_bn)
     x32 = x.to(torch.float32)
-    if eps is None:
-        index = None
-        s0, s1 = flash_score_stats(x32, sh, precision=precision,
-                                   block_m=block_m, block_n=block_n,
-                                   prune="off")
-    else:
+    index = None
+    if s_eps is not None or k_eps is not None:
         index = spatial.build_index(x32, seed=seed)
-        s0, s1 = _score_stats_pruned(x32, sh, eps, index,
-                                     precision=precision, block_m=block_m,
-                                     block_n=block_n)
-    x_sd = _apply_score_shift(x32, s0, s1, h, sh)
-    cols = prepare_train_columns(x_sd, block_n=block_n, precision=precision,
-                                 clustered=eps is not None, index=index)
-    if eps is None:
-        sums = flash_kde_prepared(_pad_to(y, block_m), cols.xt, cols.nrm_x,
-                                  h, cols.xt_lo, precision=precision,
-                                  block_m=block_m, block_n=block_n)[:m]
+    if s_eps is None:
+        s0, s1 = flash_score_stats(x32, sh, precision=precision,
+                                   block_m=s_bm, block_n=s_bn, prune="off")
     else:
-        sums = _pruned_eval_sums(y, cols, h, eps, precision=precision,
-                                 block_m=block_m, block_n=block_n)
+        s0, s1 = _score_stats_pruned(x32, sh, s_eps, index,
+                                     precision=precision, block_m=s_bm,
+                                     block_n=s_bn)
+    x_sd = _apply_score_shift(x32, s0, s1, h, sh)
+    cols = prepare_train_columns(x_sd, block_n=k_bn, precision=precision,
+                                 clustered=k_eps is not None,
+                                 index=index if k_eps is not None else None)
+    if k_eps is None:
+        sums = flash_kde_prepared(_pad_to(y, k_bm), cols.xt, cols.nrm_x,
+                                  h, cols.xt_lo, precision=precision,
+                                  block_m=k_bm, block_n=k_bn)[:m]
+    else:
+        sums = _pruned_eval_sums(y, cols, h, k_eps, precision=precision,
+                                 block_m=k_bm, block_n=k_bn, n_true=n)
     return _normalize(sums, n, d, h)
 
 

@@ -1,15 +1,21 @@
 """The typed query API: one request object, one answer object.
 
 The counterpart of ``repro.serve.api``.  A :class:`QueryRequest` carries
-the points, a relative deadline and an optional precision pin; every
-engine call returns an :class:`Answer` with the densities, the certified
-per-row relative error bound of the exact tier that answered, and the
-tier path.  Precedence for the serving tier: request pin > config.
+the points, an optional certified accuracy target, a relative deadline
+and an optional precision pin; every engine call returns an
+:class:`Answer` with the densities, the per-row certified relative error
+bounds, the tier path, how many rows the RFF fast tier answered and how
+many escalated, and the plan that shaped the estimator.
+
+Precedence for the serving tier: request pin > explicit config >
+planner (``plan.resolve_config`` folds the last two at fit time).
+``precision="rff"`` pins the random-feature fast tier
+(``kernels/flash_rff.py``); a request with an ``accuracy_target`` and no
+pin enters the accuracy cascade (``serve/cascade.py``).
 
 Not carried over: the deprecated positional-API shims of ``repro``
-(``warn_legacy``), deliberately; the per-request ``accuracy_target`` and
-the RFF tier arrive with the cascade (ROADMAP A7/A9), and
-``allow_degraded`` with the resilient layer (ROADMAP A12).
+(``warn_legacy``), deliberately, and ``allow_degraded`` with the
+resilient layer's fields (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -21,31 +27,42 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.precision import PRECISIONS
+from repro_torch.plan.planner import TIER_RTOL
 
-#: Certified relative error of one exact-tier dispatch, per tier — the
-#: accuracy ladder of ``repro.plan.planner.TIER_RTOL``.
-TIER_RTOL = {"f32": 1e-5, "bf16x2": 5e-4, "bf16": 5e-2}
+#: The pinnable serving tiers: the exact GEMM-operand tiers plus the
+#: random-feature fast tier.
+RFF_TIER = "rff"
+PINNABLE_TIERS = PRECISIONS + (RFF_TIER,)
 
 
 @dataclasses.dataclass(frozen=True)
 class QueryRequest:
     """Everything one request asks for.
 
-    ``deadline_s`` is relative seconds from submission; ``precision``
-    pins an exact tier for this request.
+    ``accuracy_target`` is the certified relative-error budget that
+    drives cascade routing (None inherits the config's, and no target at
+    all keeps the request exact); ``deadline_s`` is relative seconds from
+    submission; ``precision`` pins a tier outright: an exact tier skips
+    the cascade, ``"rff"`` forces the fast tier, its band reported as is.
     """
 
     key: str
     points: Any                              # (m, d) array-like
+    accuracy_target: Optional[float] = None
     deadline_s: Optional[float] = None       # relative seconds
-    precision: Optional[str] = None          # pin; one of PRECISIONS
+    precision: Optional[str] = None          # pin; one of PINNABLE_TIERS
 
     def __post_init__(self):
         if not self.key:
             raise ValueError("QueryRequest.key must be a non-empty string")
-        if self.precision is not None and self.precision not in PRECISIONS:
+        if self.precision is not None \
+                and self.precision not in PINNABLE_TIERS:
             raise ValueError(f"unknown precision pin {self.precision!r} "
-                             f"(choose from {PRECISIONS})")
+                             f"(choose from {PINNABLE_TIERS})")
+        if self.accuracy_target is not None \
+                and not (self.accuracy_target > 0):
+            raise ValueError(f"accuracy_target must be > 0, got "
+                             f"{self.accuracy_target!r}")
         if self.deadline_s is not None and not (self.deadline_s > 0):
             raise ValueError(f"deadline_s is relative seconds and must be "
                              f"> 0, got {self.deadline_s!r}")
@@ -54,10 +71,13 @@ class QueryRequest:
 @dataclasses.dataclass
 class Answer:
     """One answer: densities ``value`` (on the engine's device), the tier
-    that answered and the tiers visited (``path``), the max and per-row
-    certified relative error bounds, how many generations behind live a
-    streaming estimator answered (``staleness``), and the dispatch's
-    latency."""
+    that answered the final rows and the tiers visited (``path``, e.g.
+    ``("rff",)``, ``("rff", "f32")``, ``("bf16",)``), the max and per-row
+    certified relative error bounds (the RFF band on fast-tier rows, the
+    tier rtol plus any prune epsilon on exact rows), the rows answered at
+    the fast tier (``rff_hits``) and escalated (``escalated``), how many
+    generations behind live a streaming estimator answered
+    (``staleness``), the plan's id, and the dispatch's latency."""
 
     value: torch.Tensor
     key: str = ""
@@ -65,21 +85,27 @@ class Answer:
     path: Tuple[str, ...] = ()
     rel_err_bound: float = 0.0
     rel_err_bounds: Optional[np.ndarray] = None
+    rff_hits: int = 0                   # rows answered at the RFF tier
+    escalated: int = 0                  # rows escalated to an exact tier
     batch_requests: int = 1
     staleness: int = 0                  # generations behind live
+    plan_id: str = ""
     latency_s: float = 0.0
 
 
-def resolve_tier(pin: Optional[str], cfg_precision: str) -> str:
-    """Precedence for one request: a pin wins over the config's tier."""
-    return cfg_precision if pin is None else pin
+def resolve_tier(pin: Optional[str], cfg_precision: str,
+                 plan: object = None) -> Tuple[str, bool]:
+    """Precedence for one request: ``(tier, pin_overrode_plan)``.  The
+    config's tier already folds "explicit config beats planner", so only
+    the pin is left, and whether taking it departs from a planned tier
+    (the event the engine counts)."""
+    if pin is None:
+        return cfg_precision, False
+    overrode = (plan is not None
+                and getattr(plan, "precision", None) is not None
+                and getattr(plan, "precision") != pin)
+    return pin, overrode
 
 
-def exact_bound(tier: str) -> float:
-    """Certified relative bound of one exact-tier dispatch (the tier's
-    rtol; ``repro.serve.cascade.exact_bound`` with pruning off)."""
-    return TIER_RTOL[tier]
-
-
-__all__ = ["TIER_RTOL", "QueryRequest", "Answer", "resolve_tier",
-           "exact_bound"]
+__all__ = ["TIER_RTOL", "RFF_TIER", "PINNABLE_TIERS", "QueryRequest",
+           "Answer", "resolve_tier"]

@@ -2,15 +2,21 @@
 
 The counterpart of ``repro.serve.engine``.  Request lifecycle:
 
-  register(key, x)         — one-time: debias (sdkde), prepare the column
-                             layout, cache (``stream=True``: a streaming
-                             estimator, updated through the registry's
-                             ``append`` / ``evict_ids`` / ``slide``)
-  query(QueryRequest)      — resolve the tier (request pin > config), pad
-                             to a shape bucket, run the bucket callable,
-                             return an Answer with per-row certified bounds
+  register(key, x)         — one-time: resolve the plan (``plan="auto"``)
+                             and tiles, debias (sdkde), prepare the column
+                             layout, cache, optionally fit the RFF tier
+                             (``stream=True``: a streaming estimator,
+                             updated through the registry's ``append`` /
+                             ``evict_ids`` / ``slide``); a planned
+                             estimator prewarms its top bucket
+  query(QueryRequest)      — resolve the tier (request pin > explicit
+                             config > planner), route through the accuracy
+                             cascade when a target gates it, pad to a
+                             shape bucket, run the bucket callable, return
+                             an Answer with per-row certified bounds
   query_many([requests…])  — coalesce several ragged requests into ONE
-                             padded dispatch, then split the Answer back out
+                             padded dispatch (members may carry different
+                             targets), then split the Answer back out
 
 Both backends dispatch through per-(estimator, tier, bucket) callables
 kept in a small LRU:
@@ -28,17 +34,18 @@ A streaming estimator's callables read the train tensors of the snapshot
 each dispatch is pinned to, and re-resolve pruning per call (appends and
 evictions move the live count across ``ops.resolve_prune``'s threshold),
 so only a layout rebuild (a new ``layout_epoch``) builds new callables.
-The staleness gate (``_dispatch``) serves a snapshot at most
+The staleness gate (``_serve``) serves a snapshot at most
 ``staleness_budget`` generations behind live.
 
 Telemetry goes through ``repro_torch.obs`` with ``repro``'s names: spans
 ``serve.request`` → ``serve.dispatch`` → ``serve.bucket`` (→
-``serve.compile`` on a miss), counters ``serve.requests`` /
-``serve.queries`` / ``serve.deadline_exceeded``, histograms
-``serve.pad_ratio``, ``serve.compile_s`` and ``serve.staleness_gen``.
-Chaos hooks (``fault_injection``): ``serve.dispatch``, ``serve.compile``
-and ``serve.result``.  The accuracy cascade and planning arrive with
-their slices (ROADMAP A7, A9, A11).
+``serve.compile`` on a miss) and ``plan.prewarm``, counters
+``serve.requests`` / ``serve.queries`` / ``serve.deadline_exceeded`` /
+``serve.pin_overrides_plan`` / ``plan.prewarms`` (and the cascade's,
+``serve/cascade.py``), histograms ``serve.pad_ratio``,
+``serve.compile_s`` and ``serve.staleness_gen``.  Chaos hooks
+(``fault_injection``): ``serve.dispatch``, ``serve.compile`` and
+``serve.result``.
 """
 
 from __future__ import annotations
@@ -54,7 +61,8 @@ from repro_torch import device as device_mod
 from repro_torch import fault_injection, obs
 from repro_torch.core import kde as ref
 from repro_torch.kernels import ops
-from repro_torch.serve.api import Answer, QueryRequest, exact_bound, resolve_tier
+from repro_torch.serve import cascade
+from repro_torch.serve.api import RFF_TIER, Answer, QueryRequest, resolve_tier
 from repro_torch.serve.batching import ShapeBucketCache, coalesce, pad_queries, split
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.errors import BadRequest, DeadlineExceeded
@@ -87,12 +95,20 @@ class ServeEngine:
     # -- fit path --------------------------------------------------------
 
     def register(self, key: str, x, h: Optional[float] = None,
-                 config: ServeConfig | None = None,
-                 refit: bool = False) -> PreparedEstimator:
-        """Fit (or fetch) an estimator."""
+                 config: ServeConfig | None = None, refit: bool = False,
+                 prewarm: Optional[bool] = None) -> PreparedEstimator:
+        """Fit (or fetch) an estimator.  ``prewarm=None`` follows the
+        plan: a planned estimator builds its top bucket at registration,
+        so the first request finds the kernels loaded; pass False to
+        defer."""
         prep = self.registry.fit(key, x, h, config=config, refit=refit)
         if refit:
             self.cache.invalidate(lambda k: k[0] == key)
+        if prewarm is None:
+            prewarm = prep.plan is not None and getattr(prep.plan,
+                                                        "prewarm", False)
+        if prewarm:
+            self.prewarm(key)
         return prep
 
     def prewarm(self, key: str) -> None:
@@ -100,13 +116,18 @@ class ServeEngine:
         the normal LRU path, so the first request finds the kernel library
         loaded and the bucket built.  Not recorded as served latency."""
         prep = self.registry.get(key)
-        bucket = prep.config.bucket_sizes()[-1]
-        y = torch.zeros((bucket, prep.d), dtype=torch.float32,
-                        device=prep.points.device)
-        snap = (prep.stream.ensure(prep.config.staleness_budget)
-                if prep.stream is not None else None)
-        self._run_bucket(prep, y, prep.config.precision, snap)
-        device_mod.synchronize(prep.points.device)
+        cfg = prep.config
+        bucket = cfg.bucket_sizes(prep.block_m)[-1]
+        with obs.span("plan.prewarm", key=key, buckets=1,
+                      plan=getattr(prep.plan, "plan_id", "")):
+            y = torch.zeros((bucket, prep.d), dtype=torch.float32,
+                            device=prep.points.device)
+            snap = (prep.stream.ensure(cfg.staleness_budget)
+                    if prep.stream is not None else None)
+            self._run_bucket(prep, y, cfg.exact_precision, snap)
+            device_mod.synchronize(prep.points.device)
+        obs.counter("plan.prewarms",
+                    "bucket executables built ahead of traffic").inc()
 
     # -- query path ------------------------------------------------------
 
@@ -124,7 +145,7 @@ class ServeEngine:
         with obs.span("serve.request", key=request.key, rows=int(y.shape[0]),
                       requests=1):
             t0 = time.perf_counter()
-            ans = self._serve(prep, y, request.precision)
+            ans, _ = self._serve(prep, y, [request], [int(y.shape[0])])
             device_mod.synchronize(y.device)
             dt = time.perf_counter() - t0
         self._check_deadline(request.key, deadline, phase="answer")
@@ -134,8 +155,11 @@ class ServeEngine:
 
     def query_many(self, requests: Sequence[QueryRequest]) -> List[Answer]:
         """Coalesce requests sharing one key and one precision pin into
-        one padded dispatch; one Answer per request.  The fused dispatch
-        runs under the latest member deadline."""
+        one padded dispatch; one Answer per request, each with its slice
+        of the per-row bounds and cascade counts.  Members' accuracy
+        targets may differ (the cascade gates row ranges apart; a member
+        with no target, and no config default, is answered exact).  The
+        fused dispatch runs under the latest member deadline."""
         reqs = list(requests)
         if not reqs or not all(isinstance(r, QueryRequest) for r in reqs):
             raise BadRequest("query_many takes a non-empty sequence of "
@@ -154,31 +178,94 @@ class ServeEngine:
         with obs.span("serve.request", key=key, rows=int(fused.shape[0]),
                       requests=len(sizes)):
             t0 = time.perf_counter()
-            ans = self._serve(prep, fused, pin)
+            ans, esc_rows = self._serve(prep, fused, reqs, sizes)
             device_mod.synchronize(fused.device)
             dt = time.perf_counter() - t0
         self._check_deadline(key, deadline, phase="answer")
         self._note_served(dt, fused.shape[0], len(sizes))
-        offs = np.cumsum([0] + sizes)
-        return [
-            Answer(value=dens, key=key, tier=ans.tier, path=ans.path,
-                   rel_err_bound=ans.rel_err_bound,
-                   rel_err_bounds=ans.rel_err_bounds[offs[i]:offs[i + 1]],
-                   batch_requests=len(reqs), staleness=ans.staleness,
-                   latency_s=dt)
-            for i, dens in enumerate(split(ans.value, sizes))
-        ]
+        return self._split_answer(ans, len(reqs), sizes, esc_rows, dt)
 
     def _serve(self, prep: PreparedEstimator, y: torch.Tensor,
-               pin: Optional[str]) -> Answer:
-        tier = resolve_tier(pin, prep.config.precision)
-        value, lag = self._dispatch(prep, y, tier)
-        value = fault_injection.poison("serve.result", value)
+               reqs: Sequence[QueryRequest], sizes: Sequence[int]):
+        """Resolve the tier, route through the cascade when engaged, and
+        assemble one fused Answer for ``y``; returns ``(answer,
+        esc_rows)``, the fused rows that escalated marked."""
+        cfg = prep.config
+        pin = reqs[0].precision
+        tier, overrode = resolve_tier(pin, cfg.precision, prep.plan)
+        if overrode:
+            obs.counter(
+                "serve.pin_overrides_plan",
+                "requests whose precision pin overrode the planner tier",
+            ).inc()
         m = int(y.shape[0])
-        bounds = np.full(m, exact_bound(tier))
-        return Answer(value=value, key=prep.key, tier=tier, path=(tier,),
-                      rel_err_bound=float(bounds.max()),
-                      rel_err_bounds=bounds, staleness=lag)
+        target = self._targets(cfg, reqs, sizes)
+        # the staleness gate: a snapshot at most ``staleness_budget``
+        # generations behind live (a flush only past the budget), the
+        # whole request pinned to it
+        snap = (prep.stream.ensure(cfg.staleness_budget)
+                if prep.stream is not None else None)
+        res = None
+        # an exact-tier pin skips the fast tier: the pin is the routing
+        # decision; unpinned requests (or an "rff" pin) consult the gate
+        if tier == RFF_TIER or (pin is None and cascade.engaged(
+                cfg, prep, tier, target)):
+            res = cascade.run(self, prep, y, tier, target, snap=snap)
+            if res is None and tier == RFF_TIER:
+                raise BadRequest(
+                    f"precision='rff' pinned but the RFF tier is "
+                    f"unavailable for method={cfg.method!r} "
+                    f"backend={cfg.backend!r} (rff={cfg.rff!r})")
+        if res is not None:
+            value, bounds, path = res.value, res.bounds, res.path
+            hits, esc, esc_rows = res.hits, res.escalated, res.esc_rows
+        else:
+            exact = cfg.exact_precision if tier == RFF_TIER else tier
+            value = self._dispatch(prep, y, exact, snap)
+            bounds = np.full(m, cascade.exact_bound(exact, cfg.prune))
+            hits, esc, path = 0, 0, (exact,)
+            esc_rows = np.zeros(m, bool)
+        value = fault_injection.poison("serve.result", value)
+        lag = prep.stream.gen - snap.gen if snap is not None else 0
+        ans = Answer(value=value, key=prep.key, tier=path[-1], path=path,
+                     rel_err_bound=float(bounds.max()),
+                     rel_err_bounds=bounds, rff_hits=hits, escalated=esc,
+                     staleness=lag,
+                     plan_id=getattr(prep.plan, "plan_id", "") or "")
+        return ans, esc_rows
+
+    @staticmethod
+    def _targets(cfg: ServeConfig, reqs: Sequence[QueryRequest],
+                 sizes: Sequence[int]) -> Optional[np.ndarray]:
+        """Per-row accuracy targets of a fused batch, or None when no
+        member carries one.  A request's target beats the config's; a
+        member with neither gets -inf, so its rows always escalate (an
+        untargeted request expects an exact-grade answer)."""
+        per = [r.accuracy_target if r.accuracy_target is not None
+               else cfg.accuracy_target for r in reqs]
+        if all(t is None for t in per):
+            return None
+        return np.concatenate([np.full(s, -np.inf if t is None else float(t))
+                               for t, s in zip(per, sizes)])
+
+    @staticmethod
+    def _split_answer(ans: Answer, n_reqs: int, sizes: Sequence[int],
+                      esc_rows: np.ndarray, dt: float) -> List[Answer]:
+        offs = np.cumsum([0] + list(sizes))
+        cascaded = RFF_TIER in ans.path
+        out = []
+        for i, dens in enumerate(split(ans.value, sizes)):
+            lo, hi = int(offs[i]), int(offs[i + 1])
+            b = ans.rel_err_bounds[lo:hi]
+            esc = int(esc_rows[lo:hi].sum()) if cascaded else 0
+            path = (RFF_TIER,) if cascaded and not esc else ans.path
+            out.append(Answer(
+                value=dens, key=ans.key, tier=path[-1], path=path,
+                rel_err_bound=float(b.max()), rel_err_bounds=b,
+                rff_hits=(hi - lo - esc) if cascaded else 0, escalated=esc,
+                batch_requests=n_reqs, staleness=ans.staleness,
+                plan_id=ans.plan_id, latency_s=dt))
+        return out
 
     @staticmethod
     def _points(prep: PreparedEstimator, points) -> torch.Tensor:
@@ -252,23 +339,23 @@ class ServeEngine:
     # -- internals -------------------------------------------------------
 
     def _dispatch(self, prep: PreparedEstimator, y: torch.Tensor,
-                  tier: str):
-        """(values, lag): the densities, and how many generations behind
-        live a streaming estimator answered (0 otherwise)."""
+                  tier: str, snap=None) -> torch.Tensor:
+        """The exact tier's densities for ``y``.  A streaming estimator
+        answers from ``snap``, the snapshot the request's staleness gate
+        took (``_serve``; the cascade's escalation uses the one its fast
+        tier read)."""
         cfg = prep.config
-        snap, lag = None, 0
         with obs.span("serve.dispatch", key=prep.key, backend=cfg.backend,
                       tier=tier, rows=int(y.shape[0])) as sp:
             # chaos hook: a killed replica raises InjectedFailure here, a
             # slow one sleeps — before any compute, like a dead device
             fault_injection.fire("serve.dispatch", key=prep.key)
+            if prep.plan is not None:
+                sp.set(plan=prep.plan.plan_id)
             if prep.stream is not None:
-                # the staleness gate: a snapshot at most ``staleness_
-                # budget`` generations behind live (waiting for or
-                # performing a flush only past the budget), then the whole
-                # dispatch pinned to it — concurrent updates publish NEW
-                # snapshots and never change the one in flight
-                snap = prep.stream.ensure(cfg.staleness_budget)
+                # the dispatch is pinned to the gate's snapshot: concurrent
+                # updates publish NEW snapshots and never change the one in
+                # flight
                 lag = prep.stream.gen - snap.gen
                 self.staleness_log.append(lag)
                 obs.histogram("serve.staleness_gen",
@@ -277,20 +364,20 @@ class ServeEngine:
                               per_decade=8).observe(lag)
                 sp.set(staleness=lag, stream_gen=snap.gen,
                        layout_epoch=snap.layout_epoch)
-            top = cfg.bucket_sizes()[-1]
+            top = cfg.bucket_sizes(prep.block_m)[-1]
             m = y.shape[0]
             if m <= top:
-                return self._run_bucket(prep, y, tier, snap), lag
+                return self._run_bucket(prep, y, tier, snap)
             # oversize batch: chunk at the largest bucket
             sp.set(chunks=-(-m // top))
             return torch.cat([self._run_bucket(prep, y[off:off + top], tier,
                                                snap)
-                              for off in range(0, m, top)]), lag
+                              for off in range(0, m, top)])
 
     def _run_bucket(self, prep: PreparedEstimator, y: torch.Tensor,
                     tier: str, snap=None) -> torch.Tensor:
         m = y.shape[0]
-        bucket = prep.config.bucket_for(m)
+        bucket = prep.config.bucket_for(m, prep.block_m)
         if prep.stream is not None:
             # streaming callables read the pinned snapshot per call, so
             # value-only generations reuse them; only a rebuild changes

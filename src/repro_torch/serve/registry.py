@@ -14,23 +14,31 @@ index, clustered once.
 With ``ServeConfig(stream=True)`` a registered dataset is a
 ``repro_torch.stream.StreamingSDKDE``: ``append`` / ``evict_ids`` /
 ``slide`` fold updates in without a refit, and the prepared state is the
-stream's published snapshot.  ``repro``'s RFF tier on a stream (its
-``_RFFTier`` and the id-diff ``_sync``) arrives with the RFF half of
-ROADMAP A7.
+stream's published snapshot.
+
+``ServeConfig(plan="auto")`` resolves the config's unset knobs through
+the planner once per fit (``plan.resolve_config``), and ``"auto"`` tiles
+are tuned once per fit (``_resolve_fit_blocks``).  The RFF fast tier
+(``_RFFTier``) is fitted once per generation, eagerly under
+``rff="on"``, on the first cascade-routed request under ``"auto"``; on a
+stream it follows each served snapshot by an id diff (``_sync``) folded
+in on the card, and refits on a layout rebuild.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import device as device_mod
-from repro_torch import fault_injection
+from repro_torch import fault_injection, obs
 from repro_torch.core import bandwidth as bw
 from repro_torch.core.bandwidth import gaussian_norm_const
-from repro_torch.kernels import ops, spatial
+from repro_torch.kernels import autotune, flash_rff, ops, spatial
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.errors import UnknownKey
 
@@ -49,13 +57,20 @@ class PreparedEstimator:
     points: torch.Tensor     # (n, d) train points (debiased for sdkde;
                              # raw for kde and laplace)
     norm: float              # n_true · (2π)^{d/2} · h^d
-    block_m: Optional[int] = None   # flash: kernel tiles
+    block_m: Optional[int] = None   # flash: kernel tiles, resolved at fit
     block_n: Optional[int] = None
     # the spatial index every tier's clustered columns share (pruning)
     index: Optional[spatial.SpatialIndex] = None
     # streaming (config.stream): the incrementally maintained live state;
     # the prepared-state accessors read its published snapshot
     stream: object = None
+    # plan="auto": the ExecutionPlan the knobs were resolved from (spans
+    # and answers carry its id; planned estimators prewarm); None when
+    # the config pinned every knob
+    plan: object = None
+    # the RFF fast tier's lifecycle (_RFFTier), None when disabled or
+    # unsupported for the method
+    rff: object = None
     _columns: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def columns_for(self, precision: str) -> ops.TrainColumns:
@@ -80,6 +95,91 @@ class PreparedEstimator:
         return self._columns[precision]
 
 
+class _RFFTier:
+    """Lifecycle of one estimator's RFF fast-tier state.
+
+    Fits once per static generation.  On a stream, consecutive snapshots
+    are diffed by live id on the host (the ids live there): appended,
+    evicted and debias-shifted rows fold into the exact feature sums as
+    an O(b·D·d/2) float64 delta on the card — a shifted survivor counts
+    as an eviction of its old coordinates and an append of its new ones,
+    weighted by a 0/1 "moved" mask computed on the card, so nothing is
+    read back.  A layout-epoch rebuild refits,
+    since the pilot anchors are stale by construction then."""
+
+    def __init__(self, cfg: ServeConfig):
+        self.cfg = cfg
+        self.state: Optional[flash_rff.RFFState] = None
+        self._epoch: Optional[int] = None
+        self._gen: Optional[int] = None
+        self._ids: Optional[np.ndarray] = None
+        self._points: Optional[torch.Tensor] = None
+        self._lock = threading.Lock()
+        self.fits = 0
+        self.syncs = 0
+
+    def _fit(self, points: torch.Tensor, h: float) -> None:
+        cfg = self.cfg
+        with obs.span("rff.fit", n=int(points.shape[0]),
+                      features=cfg.rff_features):
+            self.state = flash_rff.fit(
+                points, h, n_features=cfg.rff_features,
+                n_pilot=cfg.rff_pilot, groups=cfg.rff_groups)
+        self.fits += 1
+        obs.counter("rff.fits", "RFF tier fits (full featurization "
+                    "passes)").inc()
+
+    def serving(self, prep: "PreparedEstimator", snap=None):
+        """The tier's serving tensors, synced to ``snap`` if streaming."""
+        with self._lock:
+            if prep.stream is None:
+                if self.state is None:
+                    self._fit(prep.points, prep.h)
+                return self.state.serving()
+            if snap is None:
+                snap = prep.stream.ensure(self.cfg.staleness_budget)
+            if snap.ids is None:
+                return None
+            if self.state is None or snap.layout_epoch != self._epoch:
+                self._fit(snap.points, prep.h)
+            elif snap.gen != self._gen:
+                self._sync(snap)
+            if snap.gen != self._gen or snap.layout_epoch != self._epoch:
+                self._epoch, self._gen = snap.layout_epoch, snap.gen
+                self._ids = np.asarray(snap.ids, np.int64)
+                self._points = snap.points
+            return self.state.serving()
+
+    def _sync(self, snap) -> None:
+        """Fold the id/value diff between the last synced snapshot and
+        ``snap`` into the accumulators (see the class docstring)."""
+        ids = np.asarray(snap.ids, np.int64)
+        pts = snap.points
+        dev = pts.device
+        _, i_new, i_old = np.intersect1d(ids, self._ids, assume_unique=True,
+                                         return_indices=True)
+        fresh = np.setdiff1d(np.arange(ids.size), i_new, assume_unique=True)
+        gone = np.setdiff1d(np.arange(self._ids.size), i_old,
+                            assume_unique=True)
+        def up(rows: np.ndarray) -> torch.Tensor:
+            return spatial.upload(rows.astype(np.int64), dev)
+
+        now = pts.index_select(0, up(i_new))
+        was = self._points.index_select(0, up(i_old))
+        moved = (now != was).any(dim=1).to(torch.float64)
+        flash_rff.update(
+            self.state,
+            added=torch.cat([pts.index_select(0, up(fresh)), now]),
+            removed=torch.cat([self._points.index_select(0, up(gone)), was]),
+            added_weights=torch.cat([moved.new_ones(fresh.size), moved]),
+            removed_weights=torch.cat([moved.new_ones(gone.size), moved]),
+            n_live=ids.size)
+        self.syncs += 1
+        obs.counter("rff.incremental_syncs",
+                    "RFF feature-sum delta updates across stream "
+                    "generations").inc()
+
+
 class EstimatorRegistry:
     """Named cache of prepared estimators.
 
@@ -101,6 +201,14 @@ class EstimatorRegistry:
 
     def evict(self, key: str) -> None:
         self._store.pop(key, None)
+
+    def rff_serving(self, prep: PreparedEstimator, snap=None):
+        """The RFF tier's serving tensors for one estimator, or None when
+        the tier is disabled or unsupported (fitted on first use under
+        ``rff="auto"``)."""
+        if prep.rff is None:
+            return None
+        return prep.rff.serving(prep, snap=snap)
 
     # -- streaming updates (config.stream estimators) --------------------
 
@@ -158,21 +266,55 @@ class EstimatorRegistry:
             h = (bw.sdkde_bandwidth(x) if cfg.method == "sdkde"
                  else bw.silverman_bandwidth(x))
         h = float(h)
+        # the plan resolves once per fit, before any backend branch: knobs
+        # still at their defaults come from the planner, set ones win
+        plan_obj = None
+        if cfg.plan == "auto":
+            from repro_torch.plan import resolve_config
+
+            cfg, plan_obj = resolve_config(cfg, n=n, d=d)
         if cfg.stream:
-            return self._prepare_stream(key, x, h, cfg)
+            return self._prepare_stream(key, x, h, cfg, plan_obj)
         points = self._debias(x, h, cfg) if cfg.method == "sdkde" else x
         prep = PreparedEstimator(
             key=key, config=cfg, h=h, n_true=n, d=d,
             generation=self.n_fits, points=points,
-            norm=n * gaussian_norm_const(d, 1.0) * h**d,
+            norm=n * gaussian_norm_const(d, 1.0) * h**d, plan=plan_obj,
         )
+        self._attach_rff(prep, cfg)
         if cfg.backend == "flash":
-            prep.block_m, prep.block_n = cfg.block_m, cfg.block_n
-            prep.columns_for(cfg.precision)
+            prep.block_m, prep.block_n = self._resolve_fit_blocks(
+                cfg, n, d, x.device)
+            prep.columns_for(cfg.exact_precision)
         return prep
 
+    @staticmethod
+    def _attach_rff(prep: PreparedEstimator, cfg: ServeConfig) -> None:
+        """Attach (and under ``rff="on"`` fit, beside the debias pass) the
+        RFF fast tier, once per generation."""
+        if cfg.rff == "off" or not flash_rff.supports(cfg.method,
+                                                      cfg.backend):
+            return
+        prep.rff = _RFFTier(cfg)
+        if cfg.rff == "on" and prep.stream is None:
+            prep.rff._fit(prep.points, prep.h)
+
+    @staticmethod
+    def _resolve_fit_blocks(cfg: ServeConfig, n: int, d: int,
+                            device: torch.device):
+        """Resolve "auto" tiles once per fit: rows the largest bucket this
+        estimator dispatches, columns the train count, launchable at
+        every tier (per-request pins reuse the tile); timed on the card
+        when the points live there.  The tiles shape the bucket ladder
+        and the prepared padding, so they live on the estimator."""
+        return autotune.resolve_blocks(
+            cfg.block_m, cfg.block_n, rows=cfg.max_batch, cols=n, d=d,
+            out_width=1, precision=cfg.exact_precision, gate_all_tiers=True,
+            pruned=cfg.prune != "off", device=device)
+
     def _prepare_stream(self, key: str, x: torch.Tensor, h: float,
-                        cfg: ServeConfig) -> PreparedEstimator:
+                        cfg: ServeConfig,
+                        plan_obj: object = None) -> PreparedEstimator:
         """Fit a streaming estimator: the one full score pass happens in
         the stream's constructor; every later ``append``/``evict_ids`` is
         an O(n·b·d) delta against this state."""
@@ -182,19 +324,23 @@ class EstimatorRegistry:
         prep = PreparedEstimator(
             key=key, config=cfg, h=h, n_true=n, d=d,
             generation=self.n_fits, points=x,
-            norm=n * gaussian_norm_const(d, 1.0) * h**d,
+            norm=n * gaussian_norm_const(d, 1.0) * h**d, plan=plan_obj,
         )
+        block_n = cfg.block_n if isinstance(cfg.block_n, int) else 128
         if cfg.backend == "flash":
-            prep.block_m, prep.block_n = cfg.block_m, cfg.block_n
+            prep.block_m, prep.block_n = self._resolve_fit_blocks(
+                cfg, n, d, x.device)
+            block_n = prep.block_n
         prep.stream = StreamingSDKDE(
             x, h, method=cfg.method, score_h=cfg.score_h,
-            backend=cfg.backend, block_n=cfg.block_n,
-            precision=cfg.precision,
+            backend=cfg.backend, block_n=block_n,
+            precision=cfg.exact_precision,
             config=StreamConfig(slack=cfg.stream_slack,
                                 staleness_budget=cfg.staleness_budget,
                                 background=cfg.stream_background),
             device=x.device)
         prep.points = prep.stream.snapshot().points
+        self._attach_rff(prep, cfg)
         return prep
 
     def _debias(self, x: torch.Tensor, h: float, cfg: ServeConfig):

@@ -130,6 +130,9 @@ class StreamingSDKDE:
         if method not in ("kde", "sdkde", "laplace"):
             raise ValueError(f"unknown method {method!r}")
         ops.check_blocks(1, block_n)
+        if block_n == "auto":   # the registry resolves it before a stream
+            raise ValueError("a stream needs an int block_n (resolve "
+                             "'auto' with kernels.autotune first)")
         self.config = config or StreamConfig()
         self.method = method
         self.backend = backend

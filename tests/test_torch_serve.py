@@ -257,7 +257,9 @@ def test_unknown_key_and_bad_requests(data):
                         QueryRequest(key="ds", points=y[:2],
                                      precision="bf16")])
     with pytest.raises(ValueError):
-        QueryRequest(key="ds", points=y[:2], precision="rff")
+        QueryRequest(key="ds", points=y[:2], precision="bogus")
+    with pytest.raises(ValueError):
+        QueryRequest(key="ds", points=y[:2], accuracy_target=0.0)
 
 
 def test_prewarm_builds_the_top_bucket(data):
