@@ -180,7 +180,35 @@ Run from the repository root.  Phases, each printing its lines:
                   appends of 256, an eviction of 512): the synced feature
                   sums within the f32 phase model of a fresh fit's, sync
                   and refit times, host reads; (f) density weights at
-                  32768 x 16 within 2·alpha·bar of float64 weights.
+                  32768 x 16 within 2·alpha·bar of float64 weights;
+ 11. resilient    the ResilientEngine and the AsyncFrontend on the card,
+                  every time with the card's name and power limit:
+                  (a) S 2 x R 2 over the main path's data, prune "off"
+                  and "auto": register (one B1 / B3 launch, prewarm
+                  included), requests of 1, 128 and 4096 rows held
+                  against a plain ServeEngine (f32 bar) and float64,
+                  launches a request (each shard's B2 or B4 once),
+                  synchronizing calls, warm p50 / p99 beside the plain
+                  engine's, and under "off" one cascade request; (b)
+                  60 requests of 128 rows through each of: a kill of
+                  shard 0 / replica 0 over requests 20-40 (all exact,
+                  retries > 0), a slow replica with a 5 ms hedge timer
+                  (hedges fired and won), NaN poison at 0.2 (no
+                  non-finite answer), a broken bucket callable on one
+                  replica (its breaker opens); (c) the clustered set at
+                  S 4 with both replicas of shard 3 killed: rows around
+                  shard 0's centres get certified degraded answers
+                  (each row's float64 error within its bound, plus the
+                  answer's f32 bar; SD-KDE and Laplace's two-sided
+                  bound), rows around shard 3's a typed Degraded; (d)
+                  AsyncFrontend(workers 2, max_queue 64) over (a)'s
+                  "off" engine, 512 open-loop arrivals at 4x the probed
+                  capacity, shedding rung bf16x2: every future resolves
+                  typed, nothing is unaccounted, backpressure is
+                  reached, answers hold their tier's bar (and, as
+                  information, the default bf16 rung's error); (e) ``launch.serve_kde.main`` run in
+                  this process with --shards 2 --replicas 2 --chaos
+                  shard_kill --verify, and --open-loop --expect-shed.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -270,6 +298,25 @@ CASCADE_TARGETS = (1e-1, 3e-2, 1e-2)
 RFF_ROWS = 4096
 CASCADE_REPEATS = 11
 DENSITY_ALPHA = 0.5
+# phase 11: resilient serving.  repro's defaults, S 2 x R 2, at the main
+# path's size, timed over RES_REPEATS warm requests a size; the chaos
+# runs' traffic, kill window and faults; the clustered set at S 4 with
+# shard 3 lost; the admission burst at ADMIT_LOAD x the probed capacity
+RES_SHARDS, RES_REPLICAS = 2, 2
+RES_SIZES = (1, 128, 4096)
+RES_REPEATS = 11
+RES_HEDGE_MS = 1000.0
+CHAOS_REQUESTS, CHAOS_ROWS, CHAOS_WINDOW = 60, 128, (20, 40)
+CHAOS_SLOW_MS, CHAOS_HEDGE_MS, CHAOS_NAN = 25.0, 5.0, 0.2
+DEG_SHARDS, DEG_LOST, DEG_ROWS = 4, 3, 256
+ADMIT_WORKERS, ADMIT_QUEUE, ADMIT_ARRIVALS, ADMIT_LOAD = 2, 64, 512, 4.0
+ADMIT_PROBE = 64                        # requests of the capacity probe
+# the shedding rung serves bf16x2, not the default bf16: on the 16-d
+# mixture's tails the bf16 tier misses its ladder rtol (5e-2) against f32
+# (10.8% at most over 16384 queries, the plain version at 32768 x 16 on
+# the CPU; phase 11d prints the card's), so answers browned to bf16
+# could not be held to their tier's bar
+ADMIT_BROWNOUT = (None, None, "bf16x2")
 
 
 def log(msg: str) -> None:
@@ -296,10 +343,11 @@ def tier_bar(precision: str, pts, h: float) -> float:
     return max(TIER_BAR[precision], f32_bar(pts, 1 / (2 * h * h)))
 
 
-def compare(got, want, rtol: float, what: str, *,
-            atol_frac: float = 1e-6) -> dict:
-    """allclose(rtol, atol = atol_frac·peak) on the card; raises on a
-    miss.  Sums that cross zero (Laplace) go through ``compare_mass``."""
+def close_stats(got, want, rtol: float, what: str,
+                atol_frac: float = 1e-6) -> tuple:
+    """(errors, excess) of allclose(rtol, atol = atol_frac·peak): the
+    largest absolute and relative errors and how far the worst element
+    lies outside the bar (> 0 is a miss); raises on a non-finite value."""
     got = got.double()
     want = want.double()
     peak = float(want.abs().max())
@@ -310,10 +358,19 @@ def compare(got, want, rtol: float, what: str, *,
     excess = float((diff - (atol + rtol * want.abs())).max())
     big = want.abs() > (atol / rtol if rtol else peak * 1e-3)
     rel = float((diff[big] / want.abs()[big]).max()) if bool(big.any()) else 0.0
-    out = {"max_abs_err": float(diff.max()), "max_rel_err": rel,
-           "rtol": rtol, "atol": atol}
-    log(f"  {what}: max rel err {rel:.3e} (bar rtol {rtol:.1e}, atol "
-        f"{atol:.2e}), max abs err {out['max_abs_err']:.3e}")
+    return {"max_abs_err": float(diff.max()), "max_rel_err": rel,
+            "rtol": rtol, "atol": atol}, excess
+
+
+def compare(got, want, rtol: float, what: str, *,
+            atol_frac: float = 1e-6) -> dict:
+    """allclose(rtol, atol = atol_frac·peak) on the card, logged; raises
+    on a miss.  Sums that cross zero (Laplace) go through
+    ``compare_mass``."""
+    out, excess = close_stats(got, want, rtol, what, atol_frac)
+    log(f"  {what}: max rel err {out['max_rel_err']:.3e} (bar rtol "
+        f"{rtol:.1e}, atol {out['atol']:.2e}), max abs err "
+        f"{out['max_abs_err']:.3e}")
     if excess > 0:
         raise AssertionError(f"{what}: outside the bar by {excess:.3e}")
     return out
@@ -887,11 +944,12 @@ def check_fused_scan(ss, args, label) -> dict:
 
 def clustered_set(dev) -> tuple:
     """The clustered check's points (phase 4b): 32 centres uniform in
-    [0, 20]^16, sigma 1, train and queries drawn with numpy from SEED."""
+    [0, 20]^16, sigma 1, train and queries drawn with numpy from SEED;
+    and the centres."""
     rng = np.random.default_rng(SEED)
     centres = rng.uniform(0.0, CLU_SPREAD, (CLU_K, D))
     return (clustered_points(rng, centres, N_TRAIN, dev),
-            clustered_points(rng, centres, N_QUERY, dev))
+            clustered_points(rng, centres, N_QUERY, dev), centres)
 
 
 # the KDE-pass kernels: dense B2, B5, B6 (their rows alone must equal the
@@ -1026,7 +1084,7 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
             del opnds
     # the clustered set, where B3 and B4 skip most tiles; row tile 1's
     # lists emptied
-    cx, cy = clustered_set(gen.device)
+    cx, cy, _ = clustered_set(gen.device)
     cindex = sp.build_index(cx, seed=SEED)
     clustered_passes = ("flash_score_pruned",) + PRUNED_KDE_PASSES
     for precision in TIERS:
@@ -1388,7 +1446,7 @@ def phase_laplace_path(mixture, gen, est_mod, kdemod, serve, fk, fs, fp,
 def phase_clustered(ops, sp, kdemod, fp, dev) -> dict:
     log(f"== phase 4b: clustered check, {N_TRAIN} x {D} from {CLU_K} "
         f"centres in [0, {CLU_SPREAD:g}]^{D}, sigma 1, h {CLU_H}")
-    x, y = clustered_set(dev)
+    x, y, _ = clustered_set(dev)
     h = CLU_H
     bar = f32_bar(torch.cat([x, y]), 1 / (2 * h * h))
     fp.score_counts.reset()
@@ -2193,7 +2251,7 @@ def stream_clean_tiles(serve, ops, sp, kdemod, dev, fp) -> dict:
     other tile keeps its bytes; an evicted slab leaves B4 right."""
     from repro_torch.stream import delta
 
-    x, y = clustered_set(dev)
+    x, y, _ = clustered_set(dev)
     h = CLU_H
     eng = serve.ServeEngine(serve.ServeConfig(
         backend="flash", method="sdkde", prune="auto", stream=True))
@@ -2888,6 +2946,515 @@ def phase_decisions(data, clustered, mixture, mix1, gen, serve, est_mod,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: resilient serving and admission
+# ---------------------------------------------------------------------------
+
+
+def res_engine(serve, prune: str, *, method: str = "sdkde",
+               shards: int = RES_SHARDS, chaos=None, **rkw):
+    """A ResilientEngine on the card: repro's defaults but for ``rkw``."""
+    return serve.ResilientEngine(
+        serve.ServeConfig(backend="flash", method=method, prune=prune),
+        serve.ResilienceConfig(shards=shards, replicas=RES_REPLICAS,
+                               seed=SEED, **rkw), chaos=chaos)
+
+
+def shard_kernels(ops, table) -> list:
+    """The kernel each shard's replicas launch for a request: B4 where
+    ``prune`` engages for the shard's size (``ops.resolve_prune``), else
+    B2 (B4's Laplace flag / B5 for ``method="laplace"``)."""
+    out = []
+    for s, row in enumerate(table.engines):
+        prep = row[0].registry.get(table.skeys[s])
+        pruned = ops.resolve_prune(prep.config.prune, prep.n_true,
+                                   prep.block_n) is not None
+        laplace = prep.config.method == "laplace"
+        out.append(("flash_kde_pruned laplace" if laplace else
+                    "flash_kde_pruned") if pruned else
+                   ("flash_laplace" if laplace else "flash_kde"))
+    return out
+
+
+def within(got, want, rtol: float, what: str) -> float:
+    """``compare`` without its log line (for the many answers of phase
+    11); the largest relative error."""
+    out, excess = close_stats(got, want, rtol, what)
+    if excess > 0:
+        raise AssertionError(f"{what}: outside rtol {rtol:.1e} by "
+                             f"{excess:.3e}")
+    return out["max_rel_err"]
+
+
+def pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
+def resilient_exact(data, serve, ops, fs, fk, fp, fl, card) -> dict:
+    """Phase 11a: ResilientEngine(S 2 x R 2) on the main path's data,
+    prune "off" and "auto": register (one B1 / B3 launch), requests of
+    1, 128 and 4096 rows against a plain ServeEngine (f32 bar) and
+    float64, warm p50 / p99 beside the plain engine's, launches and
+    synchronizing calls a request; under "off" also one cascade request
+    (the full-set RFF band read once, its rows escalated).  Returns the
+    "off" engine open, for 11d."""
+    x, y, h, f64 = data["x"], data["y"], data["h"], data["f64"]
+    bar = TIER_BAR["f32"]
+    out, keep = {"launches": {}}, None
+    for prune, fit in (("off", "flash_score"),
+                       ("auto", "flash_score_pruned")):
+        reset_counts(fs, fk, fp, fl)
+        # no hedge within a second: an abandoned duplicate would launch
+        # after the count it belongs to (11b exercises hedging)
+        eng = res_engine(serve, prune, hedge_after_ms=RES_HEDGE_MS)
+        table, reg_ms = host_ms(lambda: eng.register("r", x, h=h))
+        reg = read_counts(fs, fk, fp, fl)
+        total = dict(reg)
+        kernels = shard_kernels(ops, table)
+        log(f"  prune={prune!r}: register {N_TRAIN} x {D} as {table.n_shards}"
+            f" shards x {table.n_replicas} replicas (shard sizes "
+            f"{table.shard_n}, shard kernels {kernels}): {reg_ms:.2f} ms "
+            f"with prewarm; launches {json.dumps(reg)} [{card}]")
+        other = ({"flash_score", "flash_score_pruned"} - {fit}).pop()
+        if reg[fit] != 1 or reg[other]:
+            raise AssertionError(f"resilient register prune={prune!r} must "
+                                 f"fit with one {fit} launch: {reg}")
+        plain = serve.ServeEngine(serve.ServeConfig(
+            backend="flash", method="sdkde", prune=prune))
+        plain.register("p", x, h=h)
+        rows = {}
+        for m in RES_SIZES:
+            req = serve.QueryRequest(key="r", points=y[:m])
+            preq = serve.QueryRequest(key="p", points=y[:m])
+            want = plain.query(preq).value
+            eng.query(req)
+            reset_counts(fs, fk, fp, fl)
+            ans, _, syncs = sync_counted(lambda: eng.query(req))
+            counts = read_counts(fs, fk, fp, fl)
+            for k, v in counts.items():
+                total[k] += v
+            expect = {k: kernels.count(k) for k in set(kernels)}
+            got = {k: v for k, v in counts.items() if v}
+            if got != expect:
+                raise AssertionError(f"resilient prune={prune!r} {m} rows: "
+                                     f"launches {got}, expected {expect}")
+            err = within(ans.value, want, bar,
+                         f"resilient prune={prune!r} {m} rows vs plain")
+            lat = [eng.query(req).latency_s * 1e3
+                   for _ in range(RES_REPEATS)]
+            plat = [plain.query(preq).latency_s * 1e3
+                    for _ in range(RES_REPEATS)]
+            rows[m] = {"p50_ms": pct(lat, 0.5), "p99_ms": pct(lat, 0.99),
+                       "plain_p50_ms": pct(plat, 0.5),
+                       "plain_p99_ms": pct(plat, 0.99),
+                       "launches": got, "hedges": ans.hedges,
+                       "sync_calls": len(syncs), "sync_sites": syncs,
+                       "max_rel_err_vs_plain": err}
+            log(f"  prune={prune!r} {m} rows: resilient p50 "
+                f"{rows[m]['p50_ms']:.3f} / p99 {rows[m]['p99_ms']:.3f} ms, "
+                f"plain ServeEngine p50 {rows[m]['plain_p50_ms']:.3f} / p99 "
+                f"{rows[m]['plain_p99_ms']:.3f} ms (host clock, "
+                f"{RES_REPEATS} warm requests); launches {got}; "
+                f"synchronizing calls {len(syncs)}; max rel err vs plain "
+                f"{err:.3e} [{card}]")
+        ans = eng.query(serve.QueryRequest(key="r", points=y[:N_F64]))
+        f64_err = compare(ans.value, f64, bar,
+                          f"resilient prune={prune!r} vs float64 "
+                          f"({N_F64} q, bound {ans.rel_err_bound:g})")
+        entry = {"register_ms": reg_ms, "shard_n": table.shard_n,
+                 "shard_kernels": kernels, "register_launches": reg,
+                 "requests": rows, "vs_f64": f64_err}
+        if prune == "off":
+            creq = serve.QueryRequest(key="r", points=y[:RFF_ROWS],
+                                      accuracy_target=CASCADE_TARGETS[-1])
+            eng.query(creq)                      # fits the RFF tier
+            reset_counts(fs, fk, fp, fl)
+            cans, cms, csync = sync_counted(lambda: eng.query(creq))
+            counts = read_counts(fs, fk, fp, fl)
+            for k, v in counts.items():
+                total[k] += v
+            if cans.rff_hits + cans.escalated != RFF_ROWS:
+                raise AssertionError("resilient cascade: hits + escalated "
+                                     "!= rows")
+            cerr = within(cans.value, plain.query(serve.QueryRequest(
+                key="p", points=y[:RFF_ROWS])).value, bar,
+                "resilient cascade vs plain")
+            entry["cascade"] = {"hits": cans.rff_hits,
+                                "escalated": cans.escalated, "ms": cms,
+                                "sync_calls": len(csync),
+                                "sync_sites": csync,
+                                "launches": {k: v for k, v in
+                                             counts.items() if v}}
+            log(f"  cascade request, {RFF_ROWS} rows at target "
+                f"{CASCADE_TARGETS[-1]:g}: {cans.rff_hits} hits, "
+                f"{cans.escalated} escalated to the shards, {cms:.3f} ms, "
+                f"synchronizing calls {len(csync)} (the band read and the "
+                f"NaN guard's), max rel err vs plain {cerr:.3e} [{card}]")
+            keep = eng
+        else:
+            eng.close()
+        out[prune] = entry
+        out["launches"][prune] = {k: v for k, v in total.items() if v}
+    return out, keep
+
+
+def chaos_run(serve, x, y, h, want, name, chaos, rkw, card) -> dict:
+    """One chaos scenario: CHAOS_REQUESTS requests of CHAOS_ROWS rows,
+    every answer held to the f32 bar against the plain engine's."""
+    errors, nonfinite, worst, lat = {}, 0, 0.0, []
+    with res_engine(serve, "off", chaos=chaos, **rkw) as eng:
+        eng.register("c", x, h=h)
+        for i in range(CHAOS_REQUESTS):
+            rows = slice(i * CHAOS_ROWS, (i + 1) * CHAOS_ROWS)
+            try:
+                ans = eng.query(serve.QueryRequest(key="c", points=y[rows]))
+            except serve.ServeError as e:
+                errors[type(e).__name__] = errors.get(
+                    type(e).__name__, 0) + 1
+                continue
+            if not bool(torch.isfinite(ans.value).all()):
+                nonfinite += 1
+                continue
+            worst = max(worst, within(ans.value, want[rows],
+                                      TIER_BAR["f32"], f"{name} #{i}"))
+            lat.append(ans.latency_s * 1e3)
+        st = dict(eng.stats)
+        breakers = {k: v for k, v in eng.breaker_states().items()
+                    if v != "closed"}
+        injected = {k: v for k, v in eng.injector.snapshot().items() if v}
+    out = {"answered": len(lat), "errors": errors, "nonfinite": nonfinite,
+           "max_rel_err": worst, "p50_ms": pct(lat, 0.5),
+           "p99_ms": pct(lat, 0.99), "stats": st,
+           "breakers_not_closed": breakers, "injected": injected}
+    log(f"  {name}: answered {len(lat)}/{CHAOS_REQUESTS} (max rel err vs "
+        f"plain {worst:.3e}), typed errors {errors}, non-finite answers "
+        f"{nonfinite}; retries {st['retries']}, hedges {st['hedges']} (won "
+        f"{st['hedge_wins']}), dropped {st['dropped']}; breakers not closed "
+        f"{breakers}; injected {injected}; p50 {out['p50_ms']:.3f} / p99 "
+        f"{out['p99_ms']:.3f} ms [{card}]")
+    if nonfinite:
+        raise AssertionError(f"{name}: a non-finite answer reached the "
+                             f"caller")
+    return out
+
+
+def resilient_chaos(data, serve, fi, card) -> dict:
+    """Phase 11b: four chaos scenarios on the main path's data, prune
+    "off": a kill of shard 0 / replica 0 over requests 20-40 (every
+    answer exact, retries > 0), a slow replica with a hedge timer
+    (hedges fired and won), NaN poison at 0.2 (no non-finite answer), a
+    broken bucket callable on one replica (a breaker opens, traffic
+    routes around it)."""
+    x, y, h = data["x"], data["y"], data["h"]
+    plain = serve.ServeEngine(serve.ServeConfig(backend="flash",
+                                                method="sdkde", prune="off"))
+    plain.register("p", x, h=h)
+    n = CHAOS_REQUESTS * CHAOS_ROWS
+    want = torch.cat([plain.query(serve.QueryRequest(
+        key="p", points=y[i:i + CHAOS_ROWS])).value
+        for i in range(0, n, CHAOS_ROWS)])
+    lo, hi = CHAOS_WINDOW
+    runs = {
+        "shard_kill s0r0": (fi.ChaosConfig(events=(fi.ChaosEvent(
+            "shard_kill", shard=0, replica=0, start=lo, stop=hi),),
+            seed=SEED), {}),
+        "slow_shard s0r0": (fi.ChaosConfig(events=(fi.ChaosEvent(
+            "slow_shard", shard=0, replica=0, start=lo, stop=hi),),
+            slow_ms=CHAOS_SLOW_MS, seed=SEED),
+            {"hedge_after_ms": CHAOS_HEDGE_MS}),
+        f"nan_poison {CHAOS_NAN:g}": (fi.ChaosConfig(nan_poison=CHAOS_NAN,
+                                                     seed=SEED), {}),
+        "compile_fail s0r0": (fi.ChaosConfig(events=(fi.ChaosEvent(
+            "compile_fail", shard=0, replica=0),), seed=SEED), {}),
+    }
+    out = {name: chaos_run(serve, x, y, h, want, name, chaos, rkw, card)
+           for name, (chaos, rkw) in runs.items()}
+    kill = out["shard_kill s0r0"]
+    if kill["errors"] or kill["stats"]["retries"] == 0:
+        raise AssertionError(f"shard_kill: every request must be answered "
+                             f"exactly, with retries: {kill}")
+    slow = out["slow_shard s0r0"]
+    if slow["errors"] or not (slow["stats"]["hedges"] > 0
+                              and slow["stats"]["hedge_wins"] > 0):
+        raise AssertionError(f"slow_shard: hedges must fire and win: {slow}")
+    if not out[f"nan_poison {CHAOS_NAN:g}"]["injected"].get("nan_poison"):
+        raise AssertionError("nan_poison: nothing was poisoned")
+    broken = out["compile_fail s0r0"]
+    if broken["errors"] or not any(
+            k.startswith("c/s0r0") for k in broken["breakers_not_closed"]):
+        raise AssertionError(f"compile_fail: a breaker of replica (0, 0) "
+                             f"must open and traffic route around it: "
+                             f"{broken}")
+    return out
+
+
+def resilient_degraded(serve, fi, kdemod, dev, card) -> dict:
+    """Phase 11c: the clustered set, S 4 x R 2, both replicas of shard 3
+    killed.  Queries drawn around the centres whose points all lie in
+    shard 0 get certified degraded answers: each row's error against the
+    float64 full-set density within its bound (plus the answer's own f32
+    bar); queries around shard 3's centres get a typed Degraded; one
+    Laplace request uses the two-sided bound."""
+    x, _, centres = clustered_set(dev)
+    h = CLU_H
+    bar = tier_bar("f32", x, h)
+    chaos = fi.ChaosConfig(events=(fi.ChaosEvent("shard_kill",
+                                                 shard=DEG_LOST),),
+                           seed=SEED)
+    rng = np.random.default_rng(SEED + 11)
+    c_t = torch.as_tensor(centres, dtype=torch.float32, device=dev)
+    x64 = x.double()
+    out = {}
+    for method in ("sdkde", "laplace"):
+        with res_engine(serve, "off", method=method, shards=DEG_SHARDS,
+                        chaos=chaos) as eng:
+            table, reg_ms = host_ms(lambda: eng.register("d", x, h=h))
+            # the centre owning each shard's points, and the centres whose
+            # points all lie in one shard
+            owner, near = np.full(CLU_K, -1), []
+            for s in range(table.n_shards):
+                pts = table.engines[s][0].registry.get(table.skeys[s]).points
+                near.append(torch.cdist(pts, c_t).argmin(1).cpu().numpy())
+                for c in np.unique(near[s]):
+                    owner[c] = s if owner[c] == -1 else -2
+            live_c = np.flatnonzero(owner == 0)
+            lost_c = np.flatnonzero(owner == DEG_LOST)
+            if not (live_c.size and lost_c.size):
+                raise AssertionError(f"degraded: no centre lies wholly in "
+                                     f"shard 0 or {DEG_LOST}: {owner}")
+
+            def around(cs):
+                pick = rng.choice(cs, DEG_ROWS)
+                return torch.as_tensor(
+                    centres[pick] + rng.standard_normal((DEG_ROWS, D)),
+                    dtype=torch.float32, device=dev)
+
+            if method == "sdkde":
+                yq = around(live_c)
+            else:
+                # a blob's radius away from every point the Laplace sums
+                # are negative (1 + d/2 < sq/2h² there), and no bound is
+                # two-sided below zero: rows next to shard 0's own points
+                pts0 = table.engines[0][0].registry.get(table.skeys[0]).points
+                own = np.flatnonzero(np.isin(near[0], live_c))
+                pick = torch.as_tensor(rng.choice(own, DEG_ROWS), device=dev)
+                yq = pts0[pick] + 0.05 * torch.as_tensor(
+                    rng.standard_normal((DEG_ROWS, D)), dtype=torch.float32,
+                    device=dev)
+            ans, q_ms = host_ms(lambda: eng.query(
+                serve.QueryRequest(key="d", points=yq)))
+            if not (ans.degraded and ans.missing_shards == (DEG_LOST,)):
+                raise AssertionError(f"degraded {method}: expected a "
+                                     f"degraded answer without shard "
+                                     f"{DEG_LOST}: {ans.missing_shards}")
+            if method == "sdkde":
+                f = kdemod.sdkde_eval(x64, yq.double(), h)
+                slack = bar * ans.value.double().abs()
+            else:
+                f = kdemod.laplace_kde_eval(x64, yq.double(), h)
+                slack = bar * laplace_mass(kdemod, x, yq, h)
+            got = ans.value.double()
+            err = (got - f).abs()
+            bound = torch.as_tensor(ans.rel_err_bounds, device=dev)
+            excess = float((err - bound * f.abs() - slack).max())
+            realized = err / f.abs()
+            ratio = (realized / bound).cpu().numpy()
+            entry = {"register_ms": reg_ms, "query_ms": q_ms,
+                     "shard_n": table.shard_n,
+                     "centres_shard0": int(live_c.size),
+                     "centres_lost": int(lost_c.size),
+                     "bound_median": float(np.median(ans.rel_err_bounds)),
+                     "bound_max": float(ans.rel_err_bounds.max()),
+                     "realized_over_bound_median": float(np.median(ratio)),
+                     "realized_over_bound_max": float(ratio.max()),
+                     "rows_over_bound": int((ratio > 1).sum()),
+                     "worst_margin": excess, "f32_bar": bar,
+                     "retries": ans.retries}
+            where = (f"around {live_c.size} centres" if method == "sdkde"
+                     else f"next to the points of {live_c.size} centres")
+            log(f"  degraded {method}: S {table.n_shards} (sizes "
+                f"{table.shard_n}), shard {DEG_LOST} lost; {DEG_ROWS} rows "
+                f"{where} of shard 0: bound median "
+                f"{entry['bound_median']:.4e}, max {entry['bound_max']:.4e}"
+                f"; realized / bound median "
+                f"{entry['realized_over_bound_median']:.6f}, max "
+                f"{entry['realized_over_bound_max']:.6f} ({entry['rows_over_bound']}"
+                f" rows above 1, within the answer's f32 bar {bar:.1e}); "
+                f"worst margin {excess:.3e} (must be <= 0); query "
+                f"{q_ms:.2f} ms, retries {ans.retries} [{card}]")
+            if excess > 0:
+                raise AssertionError(f"degraded {method}: a row's error "
+                                     f"exceeds its certified bound")
+            if method == "sdkde":
+                try:
+                    eng.query(serve.QueryRequest(key="d",
+                                                 points=around(lost_c)))
+                except serve.Degraded as e:
+                    entry["lost_shard_rows"] = {"bound": e.bound,
+                                                "target": e.target}
+                    log(f"  rows around shard {DEG_LOST}'s {lost_c.size} "
+                        f"centres: typed Degraded (bound {e.bound:.3e} > "
+                        f"target {e.target:g})")
+                else:
+                    raise AssertionError("degraded: rows around the lost "
+                                         "shard were answered")
+        out[method] = entry
+    return out
+
+
+def resilient_admission(data, serve, eng, card) -> dict:
+    """Phase 11d: AsyncFrontend(workers 2, max_queue 64) over 11a's
+    engine ("off"): a capacity probe (ADMIT_PROBE requests of 128 rows
+    at once, drained), then ADMIT_ARRIVALS open-loop arrivals paced at
+    ADMIT_LOAD x that capacity on the host clock.  Every future resolves
+    as an answer, Overloaded, DeadlineExceeded or Degraded, nothing is
+    unaccounted, the state machine reaches backpressure, and answered
+    rows hold their tier's bar against phase 4's f32 densities."""
+    from repro_torch.serve.frontend import BACKPRESSURE
+
+    y, ref = data["y"], data["auto_dens"]
+    bar = {t: tier_bar(t, data["x"], data["h"]) for t in TIERS}
+    spans = [slice(o, o + CHAOS_ROWS) for o in range(
+        0, N_QUERY - CHAOS_ROWS, CHAOS_ROWS)]
+    with serve.AsyncFrontend(eng, serve.FrontendConfig(
+            workers=ADMIT_WORKERS, max_queue=ADMIT_PROBE + 8,
+            default_deadline_ms=60_000.0)) as probe:
+        t0 = time.perf_counter()
+        for i in range(ADMIT_PROBE):
+            probe.submit(serve.QueryRequest(key="r",
+                                            points=y[spans[i % len(spans)]]))
+        probe.drain(timeout=60.0)
+        capacity = ADMIT_PROBE / (time.perf_counter() - t0)
+    rate = ADMIT_LOAD * capacity
+    fe = serve.AsyncFrontend(eng, serve.FrontendConfig(
+        workers=ADMIT_WORKERS, max_queue=ADMIT_QUEUE,
+        brownout_tiers=ADMIT_BROWNOUT))
+    futs, sheds, t_next = [], 0, 0.0
+    start = time.perf_counter()
+    for i in range(ADMIT_ARRIVALS):
+        while (now := time.perf_counter() - start) < t_next:
+            time.sleep(min(2e-3, t_next - now))
+        t_next += 1.0 / rate
+        sl = spans[i % len(spans)]
+        try:
+            futs.append((sl, fe.submit(serve.QueryRequest(key="r",
+                                                          points=y[sl]))))
+        except serve.Overloaded:
+            sheds += 1
+    arrive_s = time.perf_counter() - start
+    drained = fe.drain(timeout=60.0)
+    outcomes = {"answered": 0, "Overloaded": sheds, "DeadlineExceeded": 0,
+                "Degraded": 0}
+    waits, tiers, worst = [], {}, {}
+    for sl, f in futs:
+        if not f.done():
+            raise AssertionError("admission: a future did not resolve")
+        err = f.exception()
+        if err is None:
+            ans = f.result()
+            outcomes["answered"] += 1
+            waits.append(ans.queued_ms)
+            tiers[ans.tier] = tiers.get(ans.tier, 0) + 1
+            rel = within(ans.value, ref[sl], bar[ans.tier],
+                         f"admission answer at {ans.tier}")
+            worst[ans.tier] = max(worst.get(ans.tier, 0.0), rel)
+        elif type(err).__name__ in outcomes:
+            outcomes[type(err).__name__] += 1
+        else:
+            raise err
+    rep = fe.report()
+    unaccounted = fe.unaccounted()
+    fe.close()
+    visited = [t.split("->")[1] for t in rep["transitions"]]
+    out = {"capacity_rps": capacity, "offered_rps": ADMIT_ARRIVALS / arrive_s,
+           "outcomes": outcomes, "tiers": tiers, "max_rel_err": worst,
+           "queue_wait_p50_ms": pct(waits, 0.5) if waits else 0.0,
+           "queue_wait_p99_ms": pct(waits, 0.99) if waits else 0.0,
+           "states": rep["transitions"], "rejected_by": rep["rejected_by"],
+           "unaccounted": unaccounted, "drained": drained}
+    log(f"  admission: capacity probe {capacity:.0f} requests/s of "
+        f"{CHAOS_ROWS} rows; {ADMIT_ARRIVALS} arrivals paced for "
+        f"{ADMIT_LOAD:g}x, offered at {out['offered_rps']:.0f}/s "
+        f"({out['offered_rps'] / capacity:.2f}x); outcomes "
+        f"{outcomes}; answered by tier {tiers} (max rel err {worst}); "
+        f"rejected by {rep['rejected_by']}; states {rep['transitions']}; "
+        f"queue wait of answered p50 {out['queue_wait_p50_ms']:.3f} / p99 "
+        f"{out['queue_wait_p99_ms']:.3f} ms; unaccounted {unaccounted} "
+        f"[{card}]")
+    # information: the default shedding rung, bf16, on RFF_ROWS rows
+    b16 = eng.query(serve.QueryRequest(key="r", points=y[:RFF_ROWS],
+                                       precision="bf16")).value.double()
+    want = ref[:RFF_ROWS].double()
+    rel = (b16 - want).abs() / want.abs()
+    over = int(((b16 - want).abs() > TIER_BAR["bf16"] * want.abs()
+                + 1e-6 * want.abs().max()).sum())
+    out["bf16_rung"] = {"max_rel_err": float(rel.max()),
+                        "median_rel_err": float(rel.median()),
+                        "rows_over_bar": over}
+    log(f"  the default shedding rung, bf16, on {RFF_ROWS} rows against "
+        f"f32 (information): max rel err {float(rel.max()):.3e}, median "
+        f"{float(rel.median()):.3e}, {over} rows over its 5e-2 bar "
+        f"[{card}]")
+    if unaccounted or not drained:
+        raise AssertionError(f"admission: {unaccounted} unaccounted")
+    if BACKPRESSURE not in visited:
+        raise AssertionError(f"admission: the state machine never reached "
+                             f"backpressure: {rep['transitions']}")
+    return out
+
+
+def resilient_launcher(card) -> dict:
+    """Phase 11e: the serve_kde launcher in this process, twice: sharded
+    serving through a replica kill with --verify, and the open loop with
+    --expect-shed (a client_burst surge into a queue of 16)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve_kde
+
+    runs = {
+        "chaos": ["--n", str(N_TRAIN), "--d", str(D), "--shards", "2",
+                  "--replicas", "2", "--chaos", "shard_kill", "--verify"],
+        "open-loop": ["--n", str(N_TRAIN), "--d", str(D), "--open-loop",
+                      "--requests", "120", "--burst", "8", "--max-queue",
+                      "16", "--chaos", "client_burst", "--expect-shed"],
+    }
+    out = {}
+    for name, argv in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, ms = host_ms(lambda: serve_kde.main(argv))
+        text = buf.getvalue().splitlines()
+        log(f"  serve_kde {' '.join(argv)}: exit {rc}, {ms:.0f} ms [{card}]")
+        for line in text:
+            log(f"    {line}")
+        if rc != 0:
+            raise AssertionError(f"serve_kde {name}: exit code {rc}")
+        out[name] = {"argv": argv, "ms": ms, "stdout": text}
+    return out
+
+
+def phase_resilient(data, serve, ops, kdemod, fs, fk, fp, fl, card,
+                    dev) -> dict:
+    from repro_torch import fault_injection as fi
+
+    log(f"== phase 11: resilient serving and admission, {N_TRAIN} x {D}, "
+        f"S {RES_SHARDS} x R {RES_REPLICAS} [{card}]")
+    t0 = time.perf_counter()
+    out, eng = resilient_exact(data, serve, ops, fs, fk, fp, fl, card)
+    try:
+        out["chaos"] = resilient_chaos(data, serve, fi, card)
+        out["degraded"] = resilient_degraded(serve, fi, kdemod, dev, card)
+        out["admission"] = resilient_admission(data, serve, eng, card)
+    finally:
+        eng.close()
+    out["launcher"] = resilient_launcher(card)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 11 took {out['phase_s']:.1f} s")
+    return out
+
+
 def prefill_profile(checkout: Path) -> int:
     """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
     weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
@@ -2997,6 +3564,9 @@ def main(argv=None) -> int:
     decisions = phase_decisions(data, clustered, mixture, mix1, gen, serve,
                                 est_mod, ops, kdemod, fs, fk, fp, fl, card,
                                 dev)
+    resilient = phase_resilient(data, serve, ops, kdemod, fs, fk, fp, fl,
+                                card, dev)
+    res_launches = resilient["launches"]
 
     # launches: each kernel's count from the path that runs it, with its
     # counts set to 0 just before and read just after (phases 4 and 4c)
@@ -3058,6 +3628,11 @@ def main(argv=None) -> int:
              if k.startswith(body) and k.endswith(weight)}
             if lib in hmma else "not available")
         entry["bitwise"] = errors["bitwise"]
+        # phase 11a, counts zeroed before each engine's run (register,
+        # requests of 1/128/4096 rows, under "off" a cascade request)
+        entry["launches_resilient"] = {
+            prune: res_launches[prune].get(kname, 0)
+            for prune in ("off", "auto")}
         if kname == "flash_kde":
             entry["launches_laplace_path"] = lap["nonfused"]["flash_kde"]
             entry["launches_stream"] = stream_launches["sdkde off"][kname]
@@ -3083,6 +3658,7 @@ def main(argv=None) -> int:
     summary["ssm_serve"] = ssm_serve
     summary["stream"] = stream
     summary["decisions"] = decisions
+    summary["resilient"] = resilient
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

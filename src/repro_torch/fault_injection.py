@@ -24,9 +24,9 @@ Failure modes and where they strike:
   ``staleness_blowout``  slow snapshot rebuild:   ``stream.flush``
                        the flush sleeps, queries  (stream/estimator.py)
                        pile up behind staleness
-  ``client_burst``     traffic surge: the admit   ``serve.admit`` (the
-                       hook reports a burst of    admission front end,
-                       ``burst_factor`` synthetic  ROADMAP A12)
+  ``client_burst``     traffic surge: the admit   ``serve.admit``
+                       hook reports a burst of    (serve/frontend.py)
+                       ``burst_factor`` synthetic
                        admissions (``burst()``)
   ``admit_stall``      stalled admission thread:  ``serve.admit``
                        the admit path sleeps
@@ -34,10 +34,11 @@ Failure modes and where they strike:
                        back up behind it
   ===================  =========================  ==========================
 
-This port wires the ``serve.dispatch``, ``serve.compile``,
-``serve.result``, ``registry.fit`` and ``stream.flush`` hooks; the
-resilient front end that drives ``serve.admit`` and scopes dispatches to
-``(shard, replica)`` waits for ROADMAP A12.
+The resilient layer (``serve/resilience.py``) installs its injector and
+enters ``scope(shard, replica)`` inside the worker thread that runs each
+dispatch (the scope is thread-local, so a hedged duplicate is attributed
+to the replica it targets); the admission front end
+(``serve/frontend.py``) calls ``fire`` and ``burst`` at ``serve.admit``.
 
 Each mode is a probability in [0, 1] drawn per *injection opportunity*
 (deterministically: the k-th draw for a given (mode, point, shard,
@@ -49,9 +50,10 @@ sustained, scheduled faults ("kill shard 0 replica 1 for requests
 The hooks are module-level (``fire`` / ``poison`` / ``burst``) and cost
 one global read + branch when no injector is installed, so production
 paths carry them for free.  ``InjectedFailure`` is the one exception
-type every injected fault raises; a fault-tolerant layer catches exactly
-it and re-raises everything else — a real bug must never be absorbed as
-chaos.
+type every injected fault raises; the fault-tolerant layers (the
+resilient engine, the front end's requeue, ``distributed.fault``'s
+``RestartLoop``) catch exactly it and re-raise everything else — a real
+bug must never be absorbed as chaos.
 """
 
 from __future__ import annotations

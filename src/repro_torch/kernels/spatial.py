@@ -48,8 +48,9 @@ compacts on the tensors' device, reading back only the largest count
 Streaming keeps a layout in place between rebuilds: ``place_points``
 claims free slack slots for appended points, and
 ``tile_metadata_update`` / ``merge_tile_meta`` refresh the metadata of
-only the tiles that changed.  ``partition_clusters`` (ROADMAP A12) is not
-ported yet.
+only the tiles that changed.  ``partition_clusters`` assigns whole
+clusters to the resilient layer's shards, bit for bit as ``repro`` does
+for the same labels.
 """
 
 from __future__ import annotations
@@ -516,6 +517,35 @@ def visit_lists(keep: torch.Tensor, *, bucket_visits: bool = True,
                       float(max_err))
 
 
+def partition_clusters(labels, n_shards: int) -> np.ndarray:
+    """Balanced assignment of whole clusters to shards.
+
+    Greedy longest-processing-time: clusters (by point count, descending,
+    ties by cluster id) go to the currently-lightest shard (ties to the
+    lowest shard id), after the first ``n_shards`` seed one shard each.
+    Keeping clusters whole makes every shard a self-contained
+    cluster-aligned tile set with its own ``TileMeta``, which the
+    resilient layer's per-shard error certificates need.  Host numpy on
+    the labels, so the same labels give ``repro``'s partition.
+
+    Returns ``(k,)`` int32: the shard of each cluster.  Requires
+    ``1 <= n_shards <= k`` so no shard ends up empty.
+    """
+    lab = _numpy(labels)
+    k = int(lab.max()) + 1 if lab.size else 1
+    if not (1 <= n_shards <= k):
+        raise ValueError(
+            f"n_shards={n_shards} must be in [1, n_clusters={k}]")
+    sizes = np.bincount(lab, minlength=k)
+    shard_of = np.zeros(k, np.int32)
+    load = np.zeros(n_shards, np.int64)
+    for filled, c in enumerate(np.argsort(-sizes, kind="stable")):
+        s = filled if filled < n_shards else int(np.argmin(load))
+        shard_of[c] = s
+        load[s] += sizes[c]
+    return shard_of
+
+
 def point_mass_bound(y: torch.Tensor, meta: TileMeta, inv2h2,
                      *, kind: str = "kde") -> torch.Tensor:
     """Per-query upper bound on the unnormalized kernel mass of an entire
@@ -550,6 +580,7 @@ __all__ = [
     "default_n_clusters", "build_index", "assign", "cluster_capacities",
     "cluster_slots", "place_points", "cluster_layout", "upload",
     "tile_meta_from_rows", "tile_metadata", "merge_tile_meta",
-    "tile_metadata_update", "tile_map", "visit_lists", "point_mass_bound",
+    "tile_metadata_update", "tile_map", "visit_lists", "partition_clusters",
+    "point_mass_bound",
     "epsilon_for_density_error",
 ]

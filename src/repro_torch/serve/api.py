@@ -13,9 +13,12 @@ planner (``plan.resolve_config`` folds the last two at fit time).
 (``kernels/flash_rff.py``); a request with an ``accuracy_target`` and no
 pin enters the accuracy cascade (``serve/cascade.py``).
 
-Not carried over: the deprecated positional-API shims of ``repro``
-(``warn_legacy``), deliberately, and ``allow_degraded`` with the
-resilient layer's fields (ROADMAP A12).
+Every layer speaks these two types: ``ServeEngine.query`` /
+``query_many``, ``ResilientEngine.query`` (which reads
+``allow_degraded`` and fills the shard fields of the answer) and
+``AsyncFrontend.submit`` (which fills the admission fields).  Not carried
+over, deliberately: ``repro``'s deprecated positional-API shims
+(``warn_legacy``) and the answer's ``densities``/``precision`` views.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ class QueryRequest:
     accuracy_target: Optional[float] = None
     deadline_s: Optional[float] = None       # relative seconds
     precision: Optional[str] = None          # pin; one of PINNABLE_TIERS
+    allow_degraded: Optional[bool] = None    # None = the layer's default
 
     def __post_init__(self):
         if not self.key:
@@ -77,7 +81,11 @@ class Answer:
     tier rtol plus any prune epsilon on exact rows), the rows answered at
     the fast tier (``rff_hits``) and escalated (``escalated``), how many
     generations behind live a streaming estimator answered
-    (``staleness``), the plan's id, and the dispatch's latency."""
+    (``staleness``), the plan's id, and the dispatch's latency.  The
+    resilient layer fills ``degraded`` / ``shed`` and the shards that
+    answered or were missing, with its retries and hedges; the admission
+    front end fills ``browned``, ``state`` (its admission state at
+    dispatch) and ``queued_ms``."""
 
     value: torch.Tensor
     key: str = ""
@@ -87,9 +95,19 @@ class Answer:
     rel_err_bounds: Optional[np.ndarray] = None
     rff_hits: int = 0                   # rows answered at the RFF tier
     escalated: int = 0                  # rows escalated to an exact tier
-    batch_requests: int = 1
+    degraded: bool = False              # a certified partial-shard answer
+    shed: bool = False                  # served at a load-shed tier
+    browned: bool = False               # tier lowered by queue pressure
+    state: str = ""                     # admission state at dispatch
     staleness: int = 0                  # generations behind live
     plan_id: str = ""
+    queued_ms: float = 0.0
+    batch_requests: int = 1
+    live_shards: Tuple[int, ...] = ()
+    missing_shards: Tuple[int, ...] = ()
+    retries: int = 0
+    hedges: int = 0
+    hedge_wins: int = 0
     latency_s: float = 0.0
 
 

@@ -2,8 +2,9 @@
 
 ``UnknownKey`` also subclasses ``KeyError`` and ``BadRequest`` also
 subclasses ``ValueError``, so callers guarding with the builtin types keep
-working.  The shed/deadline/degraded errors of the resilient and
-admission layers come with those layers (ROADMAP A12).
+working.  ``Overloaded`` and ``Degraded`` are the resilient layer's and the
+admission front end's: a shed request and an answer whose certificate
+misses its target are told apart from a malformed one.
 """
 
 from __future__ import annotations
@@ -28,4 +29,30 @@ class DeadlineExceeded(ServeError, TimeoutError):
     """The request's deadline expired before it was answered."""
 
 
-__all__ = ["ServeError", "UnknownKey", "BadRequest", "DeadlineExceeded"]
+class Overloaded(ServeError):
+    """The service shed the request instead of queueing it unboundedly.
+
+    Raised by the resilient layer when no live replica can take a
+    dispatch, and by the admission front end at admit time (queue full,
+    token bucket empty, shedding, draining) or after its chaos retries;
+    ``reason`` is the machine-readable shed cause.
+    """
+
+    def __init__(self, msg: str, *, reason: str = "overload"):
+        super().__init__(msg)
+        self.reason = reason
+
+
+class Degraded(ServeError):
+    """A degraded (partial-shard) answer exists but its certified relative
+    error bound exceeds the configured accuracy target."""
+
+    def __init__(self, msg: str, *, bound: float = float("inf"),
+                 target: float = 0.0):
+        super().__init__(msg)
+        self.bound = bound
+        self.target = target
+
+
+__all__ = ["ServeError", "UnknownKey", "BadRequest", "DeadlineExceeded",
+           "Overloaded", "Degraded"]

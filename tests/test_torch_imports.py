@@ -2,6 +2,7 @@
 and no silent fallback from a kernel request to the CPU."""
 
 import ast
+import importlib
 import pathlib
 import re
 
@@ -33,6 +34,33 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_no_jax_and_nothing_of_repro(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+# the resilient serving and admission slice (ROADMAP A12)
+A12_MODULES = ("repro_torch.distributed", "repro_torch.distributed.fault",
+               "repro_torch.distributed.elastic",
+               "repro_torch.serve.resilience", "repro_torch.serve.frontend",
+               "repro_torch.launch.serve_kde")
+
+
+@pytest.mark.parametrize("module", A12_MODULES)
+def test_a12_modules_are_scanned_and_import(module):
+    rel = pathlib.Path("src", *module.split("."))
+    path = ROOT / (rel / "__init__.py" if (ROOT / rel).is_dir()
+                   else rel.with_suffix(".py"))
+    assert path in PORT_FILES
+    importlib.import_module(module)
+
+
+def test_serve_exports_match_repro_but_the_legacy_aliases():
+    """``repro_torch.serve`` exports ``repro.serve``'s names, less the
+    two aliases ``repro`` keeps for its deprecated answer types."""
+    import repro.serve as jserve
+    import repro_torch.serve as tserve
+
+    assert set(tserve.__all__) == set(jserve.__all__) - {
+        "FrontendAnswer", "ResilientAnswer"}
+    assert all(hasattr(tserve, name) for name in tserve.__all__)
 
 
 def test_port_has_cuda_sources_for_both_kernels():
@@ -85,6 +113,13 @@ def test_default_device_raises_without_a_card(no_card):
         SDKDE(0.5, EstimatorConfig(backend="torch")).fit(x)
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(ServeConfig())
+    from repro_torch.launch import serve_kde
+    from repro_torch.serve import ResilientEngine
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        ResilientEngine(ServeConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_kde.main(["--n", "64", "--requests", "1"])
 
 
 def test_defaults_are_the_card_and_the_flash_kernels():
