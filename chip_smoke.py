@@ -35,7 +35,10 @@ Run from the repository root.  Phases, each printing its lines:
                   rows in a 4096-row batch, and two launches of any of
                   B1-B6 on the same inputs are equal; B1, B2, B3, B5 and
                   B6 also at d = 24 and 64 (the DMAX 32 and 64 builds);
-                  B1, B2, B5 and B6 also at d = 1 (Fig. 4's dimension).
+                  B1, B2, B5 and B6 also at d = 1 (Fig. 4's dimension);
+                  B1 in its rectangular form (m rows against n other
+                  columns, a ring block) at m 8192 x n 32768, m 32768 x
+                  n 8192 and a 128-row block against 32768, every tier.
                   Score sums are held per value to bar times their
                   absolute mass, sum phi |[x | 1]|;
                   B7 selective_scan (y and h_final) at ragged shapes
@@ -85,7 +88,9 @@ Run from the repository root.  Phases, each printing its lines:
                   fusion comparison, fused (B5) against non-fused (B2 +
                   B6), kernels alone and through ops, at the main shape
                   and Fig. 4's four 1-D shapes; B7, both modes, at
-                  Falcon-Mamba-7B's layer shape;
+                  Falcon-Mamba-7B's layer shape; B1's square time beside
+                  its time before the rectangular form (PERF.md) and
+                  B1 rectangular at m 8192 x n 32768;
   6. paper scale  (--paper-scale only) fit + evaluate at the paper's size,
                   prune="auto" and prune="off", each fit timed; the
                   score pass must plan one split and no scratch;
@@ -208,7 +213,25 @@ Run from the repository root.  Phases, each printing its lines:
                   reached, answers hold their tier's bar (and, as
                   information, the default bf16 rung's error); (e) ``launch.serve_kde.main`` run in
                   this process with --shards 2 --replicas 2 --chaos
-                  shard_kill --verify, and --open-loop --expect-shed.
+                  shard_kill --verify, and --open-loop --expect-shed;
+ 12. ring         the ring backend over the main path's data, f32: (a)
+                  SDKDE(backend="ring") fit + evaluate and
+                  LaplaceKDE(backend="ring") as a ring of one, with no
+                  process group and in a one-rank NCCL group: one B1 and
+                  one B2 launch (one B5), held against backend="flash",
+                  prune="off" at the f32 bar (Laplace per row, bar times
+                  the absolute mass), host times beside the flash
+                  path's; (b) 4 gloo ranks spawned on the one card (NCCL
+                  refuses two ranks on one GPU): the 1-D ring, the
+                  two-level ring (pod 2 x data 2), ring2d (data 2 x
+                  model 2) and the Laplace ring, each rank 4 launches of
+                  B1 and of B2 a ring (B5 for Laplace; one each for
+                  ring2d), the gathered answers held to (a)'s, times
+                  labelled gloo, host-staged; (c) ServeEngine(backend=
+                  "ring") at world 1, register (one B1) and requests of 1,
+                  128 and 4096 rows (one B2 each) against the flash
+                  engine, then ``python -m repro_torch.launch.serve_kde
+                  --backend ring --n 32768 --verify`` must exit 0.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -317,6 +340,18 @@ ADMIT_PROBE = 64                        # requests of the capacity probe
 # the CPU; phase 11d prints the card's), so answers browned to bf16
 # could not be held to their tier's bar
 ADMIT_BROWNOUT = (None, None, "bf16x2")
+# B1 over rectangular blocks (a ring step's resident rows x a visiting
+# block): (rows, columns) in phase 3, the first timed in phase 5
+RECT_SHAPES = ((8192, 32768), (32768, 8192), (128, 32768))
+# B1's square time at the main shape before the rectangular form (PERF.md
+# §6's kernel table; NVIDIA H100 80GB HBM3, 700 W), by tier, printed
+# beside phase 5's
+B1_SQUARE_BEFORE_MS = {"f32": 2.726, "bf16x2": 1.876, "bf16": 1.029}
+# phase 12: the ring.  Four gloo ranks on the one card (NCCL refuses two
+# ranks on one GPU), the requests of 12c, and serve_kde's time limit
+RING_RANKS = 4
+RING_SIZES = (1, 128, 4096)
+RING_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -721,6 +756,34 @@ def kernel_operands(ops, x, y, precision, block_m, block_n, h):
     return out
 
 
+def rect_score_operands(ops, rows, cols, precision, block_m, block_n, h):
+    """Rectangular B1 at one tier: m resident rows against n other
+    columns, each side cast and normed as ``ops._score_operands`` makes
+    them (the ring's blocks are f32; the tiers are checked all the
+    same), with the kernel, plain and mass callables."""
+    from repro_torch.kernels import flash_score as fs
+
+    inv = ops._inv2h2(h, rows.device)
+    r_ops, _, _, nrm_y, rrec = ops._score_operands(
+        ops._pad_to(rows, block_m), precision)
+    _, c_xt, c_aug, nrm_x, crec = ops._score_operands(
+        ops._pad_to(cols, block_n), precision)
+    args = (r_ops[0], nrm_y, c_xt[0], c_aug[0], inv, r_ops[1], c_xt[1],
+            c_aug[1])
+    nx = nrm_x.reshape(1, -1)
+    m, n, d = rows.shape[0], cols.shape[0], rows.shape[1]
+    return dict(
+        kind="score",
+        kernel=lambda: fs.flash_score_cuda(*args, nrm_x=nx, block_m=block_m,
+                                           block_n=block_n),
+        plain=lambda: fs.flash_score_plain(*args, nrm_x=nx, block_n=512),
+        mass=lambda: fs.flash_score_plain(*score_mass_args(args, 3),
+                                          nrm_x=nx, block_n=512),
+        real=slice(0, m), pairs=m * n,
+        moved=nbytes(*args, nx) + m * (d + 1) * 4,
+        pts=torch.cat([rrec[:m], crec[:n]]))
+
+
 def prepass(ops, sp, x, y, precision, block_m, block_n, h, index, *,
             eps=0.0, empty_row=None, times=None):
     """The pruned passes' prepass, as ``ops._score_stats_pruned`` and
@@ -1122,6 +1185,20 @@ def phase_kernels(ops, sp, mixture, mix1, gen, block_m, block_n) -> dict:
         for name, c in opnds.items():
             check_kernel(name, c, precision, FIG4_H, f"d=1 n={n} m={m}")
         del opnds
+    # B1 over rectangular blocks: a ring step's rows against a visiting
+    # block of other points, wide, tall and one 128-row block
+    h = 0.78
+    for m, n in RECT_SHAPES:
+        rows, cols = mixture.sample(m, gen), mixture.sample(n, gen)
+        for precision in TIERS:
+            c = rect_score_operands(ops, rows, cols, precision, block_m,
+                                    block_n, h)
+            res = check_kernel("flash_score", c, precision, h,
+                               f"rectangular m={m} n={n} d={D}")
+            results.setdefault("flash_score rect", {}).setdefault(
+                f"{m}x{n}", {})[precision] = res
+            del c
+        del rows, cols
     # B7, unfused and fused: the ragged shapes, then Falcon-Mamba-7B's
     # layer shape
     from repro_torch.kernels import selective_scan as ss
@@ -1550,6 +1627,23 @@ def phase_timings(ops, sp, mixture, gen, block_m, block_n, errors,
         del opnds
     log("  host prepass at the main shape, f32 (ms, synchronized): "
         + ", ".join(f"{k} {v:.2f}" for k, v in prep_times["main"].items()))
+    log("  B1 square at the main shape against its time before the "
+        "rectangular form (PERF.md): " + ", ".join(
+            f"{t} {entries['flash_score'][t]['ms']:.4f} ms (was "
+            f"{B1_SQUARE_BEFORE_MS[t]:.3f}, "
+            f"{entries['flash_score'][t]['ms'] / B1_SQUARE_BEFORE_MS[t]:.3f}"
+            "x)" for t in TIERS))
+    m, n = RECT_SHAPES[0]
+    rows, cols = x[:m], mixture.sample(n, gen)
+    log(f"  B1 rectangular, m={m} rows x n={n} columns:")
+    for precision in TIERS:
+        c = rect_score_operands(ops, rows, cols, precision, block_m,
+                                block_n, h)
+        entry = timed_entry("flash_score rect", c, precision, h, None)
+        entry.update(errors["flash_score rect"][f"{m}x{n}"][precision],
+                     rows=m, cols=n)
+        entries.setdefault("flash_score rect", {})[precision] = entry
+        del c
 
     log(f"  one serving request of {REQUEST_ROWS} query rows against "
         f"n={N_TRAIN}:")
@@ -3455,6 +3549,281 @@ def phase_resilient(data, serve, ops, kdemod, fs, fk, fp, fl, card,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the ring
+# ---------------------------------------------------------------------------
+
+
+def ring_counts(fs, fk, fl) -> dict:
+    return {"flash_score": fs.launches, "flash_kde": fk.launches,
+            "flash_laplace": fl.laplace_launches}
+
+
+def ring_expect(counts: dict, want: dict, what: str) -> None:
+    """The ring's launches: exactly ``want`` (B1, B2, B5), and no other
+    flash kernel."""
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def ring_estimators(data, est_mod, fs, fk, fp, fl, card, label) -> dict:
+    """SDKDE fit + evaluate and LaplaceKDE evaluate on the ring of the
+    current default mesh, each with its launches (counts zeroed just
+    before, read just after) and host-clock ms."""
+    x, y, h = data["x"], data["y"], data["h"]
+    cfg = est_mod.EstimatorConfig(backend="ring")
+    out = {}
+    reset_counts(fs, fk, fp, fl)
+    sd = est_mod.SDKDE(h, cfg)
+    _, fit_ms = host_ms(lambda: sd.fit(x))
+    dens, eval_ms = host_ms(lambda: sd.evaluate(y))
+    out["sdkde"] = {"dens": dens, "fit_ms": fit_ms, "evaluate_ms": eval_ms,
+                    "launches": ring_counts(fs, fk, fl),
+                    "launches_all": read_counts(fs, fk, fp, fl)}
+    reset_counts(fs, fk, fp, fl)
+    lap = est_mod.LaplaceKDE(data["lap_h"], cfg).fit(x)
+    ldens, lms = host_ms(lambda: lap.evaluate(y))
+    out["laplace"] = {"dens": ldens, "evaluate_ms": lms,
+                      "launches": ring_counts(fs, fk, fl),
+                      "launches_all": read_counts(fs, fk, fp, fl)}
+    for k, r in out.items():
+        log(f"  {label} {k}: launches {r['launches']}, "
+            + (f"fit {r['fit_ms']:.2f} ms, " if "fit_ms" in r else "")
+            + f"evaluate {r['evaluate_ms']:.2f} ms [{card}]")
+    return out
+
+
+def ring_rank(rank: int, world_size: int, store: str, out_dir: str) -> None:
+    """Phase 12b, one of RING_RANKS gloo ranks on cuda:0: the 1-D ring,
+    the two-level ring (pod 2 x data 2), ring2d (data 2 x model 2) and
+    the Laplace ring over the main path's data; each rank checks its own
+    launches, rank 0 writes the gathered answers and every rank its
+    times."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import ring, ring2d, world
+    from repro_torch.kernels import flash_kde as fk
+    from repro_torch.kernels import flash_laplace as fl
+    from repro_torch.kernels import flash_pruned as fp
+    from repro_torch.kernels import flash_score as fs
+
+    torch.cuda.set_device(0)
+    world.init(rank, world_size, store)
+    import torch.distributed as dist
+
+    d = torch.load(Path(out_dir) / "data.pt")
+    x, y = d["x"].cuda(), d["y"].cuda()
+    h, lap_h, n = d["h"], d["lap_h"], x.shape[0]
+    meshes = {
+        "1d": init_device_mesh("cpu", (RING_RANKS,),
+                               mesh_dim_names=("data",)),
+        "pod": init_device_mesh("cpu", (2, RING_RANKS // 2),
+                                mesh_dim_names=("pod", "data")),
+        "2d": init_device_mesh("cpu", (2, RING_RANKS // 2),
+                               mesh_dim_names=("data", "model")),
+    }
+
+    def run_ring(mesh, axes, fn, pod=None):
+        xs = ring.shard_points(x, mesh, axes)
+        ys = ring.shard_points(y, mesh, axes)
+        return ring.gather_rows(fn(xs, ys, mesh, pod), mesh, axes)
+
+    variants = {
+        "1d": (lambda: run_ring(meshes["1d"], ("data",), lambda xs, ys, m, p:
+                                ring.ring_sdkde(xs, ys, h, n_true=n,
+                                                mesh=m)),
+               {"flash_score": RING_RANKS, "flash_kde": RING_RANKS,
+                "flash_laplace": 0}),
+        "pod": (lambda: run_ring(meshes["pod"], ("pod", "data"),
+                                 lambda xs, ys, m, p: ring.ring_sdkde(
+                                     xs, ys, h, n_true=n, mesh=m,
+                                     pod_axis="pod")),
+                {"flash_score": RING_RANKS, "flash_kde": RING_RANKS,
+                 "flash_laplace": 0}),
+        "2d": (lambda: ring2d.ring2d_sdkde(x, y, h, mesh=meshes["2d"]),
+               {"flash_score": 1, "flash_kde": 1, "flash_laplace": 0}),
+        "laplace": (lambda: run_ring(meshes["1d"], ("data",),
+                                     lambda xs, ys, m, p:
+                                     ring.ring_laplace_kde(
+                                         xs, ys, lap_h, n_true=n, mesh=m)),
+                    {"flash_score": 0, "flash_kde": 0,
+                     "flash_laplace": RING_RANKS}),
+    }
+    out = {}
+    for name, (fn, want) in variants.items():
+        fn()                                    # warm: groups, buffers
+        dist.barrier()
+        reset_counts(fs, fk, fp, fl)
+        dens, ms = host_ms(fn)
+        counts = ring_counts(fs, fk, fl)
+        others = {k: v for k, v in read_counts(fs, fk, fp, fl).items()
+                  if k not in counts and v}
+        if counts != want or others:
+            raise AssertionError(f"rank {rank} ring {name}: launches "
+                                 f"{counts} {others}, expected {want}")
+        out[name] = {"ms": ms, "launches": counts,
+                     "dens": dens.cpu() if rank == 0 else None}
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ring_serving(data, serve, fs, fk, fp, fl, card) -> dict:
+    """Phase 12c: ServeEngine(backend="ring") at world 1 against the
+    flash engine (prune "off"): register, then requests of RING_SIZES
+    rows; then serve_kde --backend ring --n N_TRAIN --verify."""
+    x, y, h = data["x"], data["y"], data["h"]
+    out = {}
+    engines = {}
+    for backend in ("flash", "ring"):
+        eng = serve.ServeEngine(serve.ServeConfig(backend=backend,
+                                                  prune="off"))
+        reset_counts(fs, fk, fp, fl)
+        prep, reg_ms = host_ms(lambda: eng.register("r", x, h=h))
+        engines[backend] = eng
+        out[backend] = {"register_ms": reg_ms,
+                        "register_launches": ring_counts(fs, fk, fl)}
+    ring_expect(out["ring"]["register_launches"],
+                {"flash_score": 1, "flash_kde": 0, "flash_laplace": 0},
+                "ServeEngine(ring) register")
+    bar = f32_bar(torch.cat([x, y]), 1 / (2 * h * h))
+    for m in RING_SIZES:
+        q = serve.QueryRequest(key="r", points=y[:m])
+        for backend, eng in engines.items():
+            eng.query(q)                        # builds the bucket
+            reset_counts(fs, fk, fp, fl)
+            ans, ms = host_ms(lambda: eng.query(q))
+            out[backend][m] = {"ms": ms,
+                               "launches": ring_counts(fs, fk, fl),
+                               "value": ans.value}
+        ring_expect(out["ring"][m]["launches"],
+                    {"flash_score": 0, "flash_kde": 1, "flash_laplace": 0},
+                    f"ServeEngine(ring) request of {m} rows")
+        compare(out["ring"][m].pop("value"), out["flash"][m].pop("value"),
+                bar, f"ServeEngine ring vs flash, {m} rows")
+        log(f"  request of {m} rows: ring {out['ring'][m]['ms']:.3f} ms, "
+            f"flash {out['flash'][m]['ms']:.3f} ms (host clock, warm) "
+            f"[{card}]")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_kde",
+           "--backend", "ring", "--n", str(N_TRAIN), "--verify"]
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    proc, ms = host_ms(lambda: subprocess.run(
+        cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=RING_TIMEOUT_S))
+    for line in proc.stdout.splitlines():
+        log(f"    {line}")
+    log(f"  {' '.join(cmd[1:])}: exit {proc.returncode}, {ms:.0f} ms "
+        f"[{card}]")
+    if proc.returncode != 0:
+        raise AssertionError(f"serve_kde --backend ring exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    out["serve_kde"] = {"argv": cmd[1:], "ms": ms,
+                        "stdout": proc.stdout.splitlines()}
+    return out
+
+
+def phase_ring(data, est_mod, serve, kdemod, fs, fk, fp, fl, card) -> dict:
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import world
+
+    log(f"== phase 12: the ring, {N_TRAIN} x {D} train, {N_QUERY} queries, "
+        f"f32 [{card}]")
+    t0 = time.perf_counter()
+    x, y, h = data["x"], data["y"], data["h"]
+    lap_h = est_mod.LaplaceKDE(config=est_mod.EstimatorConfig(
+        prune="off")).fit(x).h
+    data = dict(data, lap_h=lap_h)
+    bar = f32_bar(torch.cat([x, y]), 1 / (2 * h * h))
+    lap_bar = f32_bar(torch.cat([x, y]), 1 / (2 * lap_h * lap_h))
+    out = {}
+    # 12a: the flash path (prune "off": B1 + B2, B5), then the ring of one
+    # with no group and in a one-rank NCCL group
+    flash = {}
+    cfg = est_mod.EstimatorConfig(prune="off")
+    reset_counts(fs, fk, fp, fl)
+    sd = est_mod.SDKDE(h, cfg)
+    _, flash["fit_ms"] = host_ms(lambda: sd.fit(x))
+    flash["sdkde"], flash["evaluate_ms"] = host_ms(lambda: sd.evaluate(y))
+    flash["laplace"], flash["laplace_ms"] = host_ms(
+        lambda: est_mod.LaplaceKDE(lap_h, cfg).fit(x).evaluate(y))
+    log(f"  flash (prune off): SDKDE fit {flash['fit_ms']:.2f} ms, evaluate "
+        f"{flash['evaluate_ms']:.2f} ms, LaplaceKDE evaluate "
+        f"{flash['laplace_ms']:.2f} ms [{card}]")
+    lap_mass = laplace_mass(kdemod, x, y, lap_h)
+    runs = {"no group": ring_estimators(data, est_mod, fs, fk, fp, fl,
+                                        card, "ring of one, no group")}
+    with tempfile.TemporaryDirectory() as tmp:
+        world.init(0, 1, os.path.join(tmp, "store"), backend="nccl")
+        try:
+            runs["nccl 1"] = ring_estimators(data, est_mod, fs, fk, fp, fl,
+                                             card,
+                                             "ring of one, NCCL world of 1")
+        finally:
+            dist.destroy_process_group()
+    for label, r in runs.items():
+        ring_expect(r["sdkde"]["launches"],
+                    {"flash_score": 1, "flash_kde": 1, "flash_laplace": 0},
+                    f"SDKDE ring ({label})")
+        ring_expect(r["laplace"]["launches"],
+                    {"flash_score": 0, "flash_kde": 0, "flash_laplace": 1},
+                    f"LaplaceKDE ring ({label})")
+        for k in ("sdkde", "laplace"):
+            if any(v for n, v in r[k]["launches_all"].items()
+                   if n not in r[k]["launches"]):
+                raise AssertionError(f"ring {label} {k} launched another "
+                                     f"kernel: {r[k]['launches_all']}")
+        compare(r["sdkde"]["dens"], flash["sdkde"], bar,
+                f"SDKDE ring ({label}) vs flash")
+        compare_mass(r["laplace"]["dens"], flash["laplace"], lap_mass,
+                     lap_bar, f"LaplaceKDE ring ({label}) vs flash")
+    ref = runs["no group"]
+    out["world1"] = {
+        "flash": {k: flash[k] for k in ("fit_ms", "evaluate_ms",
+                                        "laplace_ms")},
+        **{label: {k: {kk: vv for kk, vv in v.items()
+                       if kk not in ("dens", "launches_all")}
+                   for k, v in r.items()} for label, r in runs.items()}}
+    # 12b: RING_RANKS gloo ranks on the one card
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"x": x.cpu(), "y": y.cpu(), "h": h, "lap_h": lap_h},
+                   Path(tmp) / "data.pt")
+        _, spawn_ms = host_ms(lambda: world.spawn(
+            ring_rank, RING_RANKS, tmp, timeout=RING_TIMEOUT_S))
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt")
+                 for r in range(RING_RANKS)]
+    want = {"1d": ref["sdkde"]["dens"], "pod": ref["sdkde"]["dens"],
+            "2d": ref["sdkde"]["dens"], "laplace": ref["laplace"]["dens"]}
+    out["world4"] = {"spawn_ms": spawn_ms}
+    for name, w in want.items():
+        got = ranks[0][name]["dens"].to(w.device)[:w.shape[0]]
+        if name == "laplace":
+            compare_mass(got, w, lap_mass, lap_bar,
+                         f"{RING_RANKS} gloo ranks, ring {name} vs 12a")
+        else:
+            compare(got, w, bar, f"{RING_RANKS} gloo ranks, ring {name} "
+                    "vs 12a")
+        ms = [rk[name]["ms"] for rk in ranks]
+        out["world4"][name] = {"ms_by_rank": ms,
+                               "launches_by_rank": [rk[name]["launches"]
+                                                    for rk in ranks]}
+        log(f"  {RING_RANKS} ranks, ring {name}: launches a rank "
+            f"{ranks[0][name]['launches']}; ms by rank "
+            + ", ".join(f"{v:.1f}" for v in ms)
+            + f" (gloo, host-staged) [{card}]")
+    log(f"  the {RING_RANKS}-rank spawn took {spawn_ms:.0f} ms, rank "
+        "start-up included")
+    # 12c: serving
+    out["serving"] = ring_serving(data, serve, fs, fk, fp, fl, card)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 12 took {out['phase_s']:.1f} s")
+    return out
+
+
 def prefill_profile(checkout: Path) -> int:
     """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
     weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
@@ -3567,6 +3936,8 @@ def main(argv=None) -> int:
     resilient = phase_resilient(data, serve, ops, kdemod, fs, fk, fp, fl,
                                 card, dev)
     res_launches = resilient["launches"]
+    ring_out = phase_ring(data, est_mod, serve, kdemod, fs, fk, fp, fl,
+                          card)
 
     # launches: each kernel's count from the path that runs it, with its
     # counts set to 0 just before and read just after (phases 4 and 4c)
@@ -3639,6 +4010,20 @@ def main(argv=None) -> int:
         if kname == "flash_laplace":
             entry["launches_serve"] = lap["serve_off"]["flash_laplace"]
             entry["launches_stream"] = stream_launches["laplace off"][kname]
+        if kname in ("flash_score", "flash_kde", "flash_laplace"):
+            # phase 12, counts zeroed before each run: the ring of one
+            # (fit + evaluate, Laplace evaluate) and each of the gloo
+            # ranks on the card (every rank launched as many)
+            one = ring_out["world1"]["no group"]
+            entry["launches_ring"] = {
+                "world1": one["sdkde"]["launches"][kname]
+                + one["laplace"]["launches"][kname],
+                "world4_per_rank": {
+                    name: r["launches_by_rank"][0][kname]
+                    for name, r in ring_out["world4"].items()
+                    if isinstance(r, dict)}}
+        if kname == "flash_score":
+            entry["rect"] = timings["entries"]["flash_score rect"]
         if kname == "flash_kde_pruned":
             entry["launches_stream"] = stream_launches["sdkde auto"][kname]
             # B4's laplace flag: the fused Laplace pass when pruning
@@ -3659,6 +4044,7 @@ def main(argv=None) -> int:
     summary["stream"] = stream
     summary["decisions"] = decisions
     summary["resilient"] = resilient
+    summary["ring"] = ring_out
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

@@ -11,7 +11,17 @@ The counterpart of ``repro.core.estimator``.  Backends:
                 The default.  On CPU tensors the kernels' plain PyTorch
                 versions run instead.
   * ``torch`` — the streaming plain math of ``core/kde.py``.
-  * ``ring``  — multi-device ring sharding: not ported yet (ROADMAP A13).
+  * ``ring``  — ring sharding over ``torch.distributed``
+                (``repro_torch.distributed.ring``) on the world the
+                process runs in, a ring of one without one: each ring
+                step one launch of B1 (rectangular: resident rows against
+                a visiting block), B2 or B5.  Every rank passes the whole
+                arrays and gets the whole result, as ``repro``'s callers
+                see one global array; the points are padded with
+                sentinels to the ring size and sharded in rank order.
+                f32 and dense: ``precision``, ``prune`` and the tiles
+                are ignored, as ``repro``'s ring ignores them, and
+                ``LaplaceKDE(fused=False)`` runs fused too.
 
 Estimators run on ``config.device`` ("cuda" by default; asking for the
 card where there is none raises).  ``SDKDE.append``/``evict`` update a
@@ -29,18 +39,15 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.core import bandwidth as bw
 from repro_torch.core import kde as ref
+from repro_torch.distributed import ring
 from repro_torch.kernels import ops
 from repro_torch.kernels import precision as prec
 
-Backend = Literal["flash", "torch"]
-BACKENDS = ("flash", "torch")
+Backend = Literal["flash", "torch", "ring"]
+BACKENDS = ("flash", "torch", "ring")
 
 
 def check_backend(backend: str) -> None:
-    if backend == "ring":
-        raise NotImplementedError(
-            "backend='ring' (torch.distributed ring sharding) is not ported "
-            "yet (ROADMAP A13)")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r} (choose from "
                          f"{BACKENDS})")
@@ -104,9 +111,21 @@ class KDE:
             return ops.flash_kde(x, y, self.h, precision=cfg.precision,
                                  block_m=cfg.block_m, block_n=cfg.block_n,
                                  prune=cfg.prune)
+        if cfg.backend == "ring":
+            return _on_ring(ring.ring_kde, x, y, h=self.h,
+                            n_true=x.shape[0])
         return ref.kde_eval(x, y, self.h, block=cfg.block)
 
     __call__ = evaluate
+
+
+def _on_ring(fn, *arrays: torch.Tensor, **kw) -> torch.Tensor:
+    """``fn`` on this rank's shards of whole ``arrays`` over the default
+    mesh, and its rows (one per row of the last array) gathered back."""
+    mesh = ring.default_mesh()
+    out = fn(*(ring.shard_points(a, mesh, ("data",)) for a in arrays),
+             mesh=mesh, **kw)
+    return ring.gather_rows(out, mesh, ("data",))[:arrays[-1].shape[0]]
 
 
 class SDKDE(KDE):
@@ -140,6 +159,9 @@ class SDKDE(KDE):
                 self.x_train, self.h, score_h=cfg.score_h,
                 precision=cfg.precision, block_m=cfg.block_m,
                 block_n=cfg.block_n, prune=cfg.prune)
+        elif cfg.backend == "ring":
+            self.x_sd = _on_ring(ring.ring_sdkde_shift, self.x_train,
+                                 h=self.h, score_h=cfg.score_h)
         else:
             self.x_sd = ref.sdkde_shift(self.x_train, self.h,
                                         score_h=cfg.score_h, block=cfg.block)
@@ -233,6 +255,9 @@ class LaplaceKDE(KDE):
             return ops.laplace_kde_nonfused(
                 x, y, self.h, precision=cfg.precision, block_m=cfg.block_m,
                 block_n=cfg.block_n)
+        if cfg.backend == "ring":
+            return _on_ring(ring.ring_laplace_kde, x, y, h=self.h,
+                            n_true=x.shape[0])
         if self.fused:
             return ref.laplace_kde_eval(x, y, self.h, block=cfg.block)
         return ref.laplace_kde_eval_nonfused(x, y, self.h, block=cfg.block)

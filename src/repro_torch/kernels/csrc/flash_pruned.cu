@@ -79,10 +79,11 @@ extern "C" int flash_pruned_score_launch(
   const flash::VisitList tiles{static_cast<const int*>(counts),
                                static_cast<const int*>(tile_map),
                                max_visits};
-  return flash::score_pass_dispatch(x, x_lo, nrm, xt, xt_lo, xaug, xaug_lo,
-                                    inv2h2, part, out, n, d, tier, block_m,
-                                    block_n, per_split, splits, tiles,
-                                    stream);
+  // the square pass: rows and columns are the one train set
+  return flash::score_pass_dispatch(x, x_lo, nrm, nrm, xt, xt_lo, xaug,
+                                    xaug_lo, inv2h2, part, out, n, n, d,
+                                    tier, block_m, block_n, per_split,
+                                    splits, tiles, stream);
 }
 
 extern "C" const char* flash_pruned_error(int code) {

@@ -5,7 +5,11 @@
 //   phi_ij = exp(-max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0) * inv2h2),
 //
 // over the column tiles of an AllTiles (B1) or of row tile i's VisitList
-// (B3): the score numerator and denominator of SD-KDE in one pass.
+// (B3): the score numerator and denominator of SD-KDE in one pass.  The
+// rows i (m of them, their norms nrm_y) and the columns j (n, their norms
+// nrm_x) are two point sets: B1's ring blocks pair a rank's resident rows
+// with a visiting block.  The square pass over one train set is the case
+// m = n with one norm vector passed for both, as B3 always runs.
 //
 // Bound: the operations.  Per pair 2d flops of Gram, 2(d+1) of the
 // second product phi.[X|1] and one exp.  At the main shape (32768 x
@@ -19,16 +23,16 @@
 //  * Split-column grid.  Block (b, s, g) takes 64 rows (kRows) of one
 //    block_m row tile and split s: the per_split column tiles (B1) or
 //    visit slots (B3) [s * per_split, (s + 1) * per_split), and writes
-//    its rows of S1aug partials to part[s] (n x (d+1) f32), or straight
+//    its rows of S1aug partials to part[s] (m x (d+1) f32), or straight
 //    to out when there is one split.  score_combine_kernel then adds the
 //    splits of each value in split order: no atomics, two launches give
-//    the same bits.  The splits are planned from n, block_n, d and the
-//    visit width (kernels/flash_score.py, plan_score_splits), with the
-//    scratch capped.  A B3 block whose slots start past counts[i] writes
+//    the same bits.  The splits are planned from m, n, block_n, d and
+//    the visit width (kernels/flash_score.py, plan_score_splits), with
+//    the scratch capped.  A B3 block whose slots start past counts[i] writes
 //    zeros; it reads the next tile index one slot ahead.
 //  * Staging.  Each cp.async chunk of 128 columns (kCols) carries the
 //    columns of xt (the Gram's B operand, as in the KDE pass), their
-//    norms and their [X|1] rows.  A chunk's rows of xaug, (n, d+1)
+//    norms (nrm_x) and their [X|1] rows.  A chunk's rows of xaug, (n, d+1)
 //    row-major, are one contiguous run of 128 (d+1) values, copied as
 //    is (16-byte copies where aligned) into the stage.  A row of d+1
 //    values is not 16 bytes wide, so the bf16 tiers relay the rows kLa
@@ -183,11 +187,12 @@ __device__ __forceinline__ void relayout_aug(const unsigned char* raw_base,
 template <typename T, bool X2, int DMAX, typename Tiles>
 __global__ void __launch_bounds__(kThreads, ScoreSmem<T, X2, DMAX>::kMinBlocks)
 score_pass_kernel(const T* __restrict__ x, const T* __restrict__ x_lo,
-                  const float* __restrict__ nrm, const T* __restrict__ xt,
+                  const float* __restrict__ nrm_y,
+                  const float* __restrict__ nrm_x, const T* __restrict__ xt,
                   const T* __restrict__ xt_lo, const T* __restrict__ xaug,
                   const T* __restrict__ xaug_lo,
                   const float* __restrict__ inv2h2_ptr,
-                  float* __restrict__ dst, int n, int d, int block_m,
+                  float* __restrict__ dst, int m, int n, int d, int block_m,
                   int block_n, int per_split, int vector, Tiles tiles) {
   using S = ScoreSmem<T, X2, DMAX>;
   using P = typename S::P;
@@ -199,8 +204,8 @@ score_pass_kernel(const T* __restrict__ x, const T* __restrict__ x_lo,
   const int subs = (block_m + kRows - 1) / kRows;
   const int tile_row = blockIdx.x / subs;
   const int row0 = tile_row * block_m + (blockIdx.x - tile_row * subs) * kRows;
-  const int row_end = min(min(row0 + kRows, (tile_row + 1) * block_m), n);
-  float* out = dst + (size_t)blockIdx.y * n * w;
+  const int row_end = min(min(row0 + kRows, (tile_row + 1) * block_m), m);
+  float* out = dst + (size_t)blockIdx.y * m * w;
 
   // The block's slots, as in the KDE pass.
   const int v0 = blockIdx.y * per_split;
@@ -225,7 +230,7 @@ score_pass_kernel(const T* __restrict__ x, const T* __restrict__ x_lo,
     unsigned char* base = stage_ptr(cur.buf);
     const int j = cur.column(block_n);
     const int cols = chunk_cols(cur.c);
-    stage_columns<P, T, X2, DMAX>(base, xt, xt_lo, nrm, n, d, j, cols,
+    stage_columns<P, T, X2, DMAX>(base, xt, xt_lo, nrm_x, n, d, j, cols,
                                   vector, tid);
     stage_aug<S, T, X2>(base + S::kAugOff, xaug + (size_t)j * w,
                         X2 ? xaug_lo + (size_t)j * w : nullptr, cols * w,
@@ -258,7 +263,7 @@ score_pass_kernel(const T* __restrict__ x, const T* __restrict__ x_lo,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + 4 * tr + i;
-      nrm_r[i] = row < row_end ? nrm[row] : 0.f;
+      nrm_r[i] = row < row_end ? nrm_y[row] : 0.f;
     }
     float den[4] = {0.f, 0.f, 0.f, 0.f};
     float tile_den[4] = {0.f, 0.f, 0.f, 0.f};
@@ -394,7 +399,7 @@ score_pass_kernel(const T* __restrict__ x, const T* __restrict__ x_lo,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = rbase + gid + 8 * h;
-      nrm_r[h] = row < row_end ? nrm[row] : 0.f;
+      nrm_r[h] = row < row_end ? nrm_y[row] : 0.f;
     }
     // running sums and the column tile's chains hh (or the one chain at
     // bf16), hl, lh, ll of each n8 tile
@@ -520,12 +525,13 @@ __global__ void score_combine_kernel(const float* __restrict__ part,
 
 template <typename T, bool X2, int DMAX, typename Tiles>
 cudaError_t score_pass_launch(const void* x, const void* x_lo,
-                              const void* nrm, const void* xt,
-                              const void* xt_lo, const void* xaug,
-                              const void* xaug_lo, const void* inv2h2,
-                              void* part, void* out, int n, int d,
-                              int block_m, int block_n, int per_split,
-                              int splits, Tiles tiles, cudaStream_t stream) {
+                              const void* nrm_y, const void* nrm_x,
+                              const void* xt, const void* xt_lo,
+                              const void* xaug, const void* xaug_lo,
+                              const void* inv2h2, void* part, void* out,
+                              int m, int n, int d, int block_m, int block_n,
+                              int per_split, int splits, Tiles tiles,
+                              cudaStream_t stream) {
   using S = ScoreSmem<T, X2, DMAX>;
   static_assert(S::kBytes <= kMaxSmem, "shared memory");
   auto kernel = score_pass_kernel<T, X2, DMAX, Tiles>;
@@ -540,53 +546,57 @@ cudaError_t score_pass_launch(const void* x, const void* x_lo,
     return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   const int vector = n % V == 0 && block_n % V == 0 && aligned(xt) &&
-                     aligned(xt_lo) && aligned(nrm) && aligned(xaug) &&
+                     aligned(xt_lo) && aligned(nrm_x) && aligned(xaug) &&
                      aligned(xaug_lo);
   const int subs = (block_m + kRows - 1) / kRows;
   // bf16 tiers: runs of kNTG n8 tiles of the d+1 output coordinates
   const int groups =
       S::kTensor ? ((d + 1 + 7) / 8 + S::kNTG - 1) / S::kNTG : 1;
-  const dim3 grid((unsigned)((n / block_m) * subs), (unsigned)splits,
+  const dim3 grid((unsigned)((m / block_m) * subs), (unsigned)splits,
                   (unsigned)groups);
   float* dst = static_cast<float*>(splits > 1 ? part : out);
   kernel<<<grid, kThreads, S::kBytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(x_lo),
-      static_cast<const float*>(nrm), static_cast<const T*>(xt),
-      static_cast<const T*>(xt_lo), static_cast<const T*>(xaug),
-      static_cast<const T*>(xaug_lo), static_cast<const float*>(inv2h2), dst,
-      n, d, block_m, block_n, per_split, vector, tiles);
+      static_cast<const float*>(nrm_y), static_cast<const float*>(nrm_x),
+      static_cast<const T*>(xt), static_cast<const T*>(xt_lo),
+      static_cast<const T*>(xaug), static_cast<const T*>(xaug_lo),
+      static_cast<const float*>(inv2h2), dst, m, n, d, block_m, block_n,
+      per_split, vector, tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  const size_t count = (size_t)n * (d + 1);
+  const size_t count = (size_t)m * (d + 1);
   score_combine_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(part), static_cast<float*>(out), count,
       splits);
   return cudaGetLastError();
 }
 
-// tier: 0 = f32, 1 = bf16, 2 = bf16x2.  n must be a multiple of block_m
-// and block_n, and the splits must cover the slots: splits * per_split
-// >= the column tiles (AllTiles) or the visit width (VisitList), checked
-// by the caller.  part is the (splits, n, d+1) f32 scratch, unused (and
-// may be null) when splits == 1.  Returns a cudaError_t code.
+// tier: 0 = f32, 1 = bf16, 2 = bf16x2.  m rows (norms nrm_y) against n
+// columns (norms nrm_x; the same pointer for the square pass): m must be
+// a multiple of block_m and n of block_n, and the splits must cover the
+// slots: splits * per_split >= the column tiles (AllTiles) or the visit
+// width (VisitList), checked by the caller.  part is the (splits, m, d+1)
+// f32 scratch, unused (and may be null) when splits == 1.  Returns a
+// cudaError_t code.
 template <typename Tiles>
 cudaError_t score_pass_dispatch(const void* x, const void* x_lo,
-                                const void* nrm, const void* xt,
-                                const void* xt_lo, const void* xaug,
-                                const void* xaug_lo, const void* inv2h2,
-                                void* part, void* out, int n, int d,
-                                int tier, int block_m, int block_n,
-                                int per_split, int splits, Tiles tiles,
-                                void* stream) {
-  if (n <= 0 || d < 1 || d > kMaxD || block_m < 1 || block_m > kMaxRows ||
-      block_n < 1 || n % block_m || n % block_n || per_split < 1 ||
-      splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr))
+                                const void* nrm_y, const void* nrm_x,
+                                const void* xt, const void* xt_lo,
+                                const void* xaug, const void* xaug_lo,
+                                const void* inv2h2, void* part, void* out,
+                                int m, int n, int d, int tier, int block_m,
+                                int block_n, int per_split, int splits,
+                                Tiles tiles, void* stream) {
+  if (m <= 0 || n <= 0 || d < 1 || d > kMaxD || block_m < 1 ||
+      block_m > kMaxRows || block_n < 1 || m % block_m || n % block_n ||
+      per_split < 1 || splits < 1 || splits > kMaxSplits ||
+      (splits > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_SCORE(TT, X, DM)                                            \
   return score_pass_launch<TT, X, DM, Tiles>(                             \
-      x, x_lo, nrm, xt, xt_lo, xaug, xaug_lo, inv2h2, part, out, n, d,    \
-      block_m, block_n, per_split, splits, tiles, s)
+      x, x_lo, nrm_y, nrm_x, xt, xt_lo, xaug, xaug_lo, inv2h2, part, out, \
+      m, n, d, block_m, block_n, per_split, splits, tiles, s)
   switch (tier) {
     case 0:
       if (d <= 4) FLASH_SCORE(float, false, 4);

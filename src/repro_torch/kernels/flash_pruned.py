@@ -310,8 +310,8 @@ def flash_score_pruned_cuda(
     returns (n, d+1) f32.  The visit slots are split as
     ``flash_score.plan_score_splits(n, block_n, d, max_visits)`` plans
     them."""
-    n, d = _dense_score._check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo,
-                               xaug_lo, block_m, block_n)
+    n, _, d = _dense_score._check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo,
+                                  xaug_lo, block_m, block_n)
     mt, t = _check_visits(counts, tile_map, n, n, block_m, block_n)
     los = (x_lo, xt_lo, xaug_lo)
     tier = prec.tier_of(x, x_lo)

@@ -133,9 +133,10 @@ class RFFState:
 
 def supports(method: str, backend: str) -> bool:
     """Whether the tier can serve an estimator: the Gaussian kernel (kde,
-    and sdkde on its debiased points) on the port's backends.  The
-    Laplace kernel's spectral weight inflates exactly the residuals the
-    pilot cannot absorb."""
+    and sdkde on its debiased points) on the flash and torch backends,
+    not on the ring (whose points are sharded over ranks), as ``repro``'s
+    cascade refuses it.  The Laplace kernel's spectral weight inflates
+    exactly the residuals the pilot cannot absorb."""
     return method in ("kde", "sdkde") and backend in ("flash", "torch")
 
 

@@ -1,6 +1,6 @@
 """Flash score pass (kernel B1): the SD-KDE empirical-score statistics.
 
-Computes, for every train row i, ``S1aug_i = Σ_j φ_ij · [x_j | 1]`` with
+Computes, for every row i, ``S1aug_i = Σ_j φ_ij · [x_j | 1]`` with
 ``φ_ij = exp(-‖x_i - x_j‖²/(2h²))`` — the score numerator ``Φ X`` and the
 denominator ``Φ 1`` in one pass.  Three functions:
 
@@ -12,21 +12,25 @@ denominator ``Φ 1`` in one pass.  Three functions:
     kernel for CUDA tensors — no fallback between them.
 
 Arguments follow ``repro.kernels.flash_score.flash_score_pallas``: x
-(n, d), nrm (n, 1) f32, xt (d, n), xaug (n, d+1), ``inv2h2`` a (1, 1) f32
-tensor, and for bf16x2 the three lo planes.  The result is (n, d+1) f32.
+(m, d), nrm (m, 1) f32, xt (d, n), xaug (n, d+1), ``inv2h2`` a (1, 1) f32
+tensor, and for bf16x2 the three lo planes.  The result is (m, d+1) f32.
+The rows and the columns may be two point sets (the ring pairs a rank's
+resident rows with a visiting block): ``nrm_x`` then holds the columns'
+n norms.  Without it the call is the fit's square pass over one train
+set (m = n, ``nrm`` for both sides), the only form ``repro`` has.
 xaug's last column is the ones of ``[X | 1]``, as ``ops._score_operands``
 makes it: the f32 kernel sums φ for that column instead of reading it.
 At the bf16 tiers φ is rounded (bf16) or split (bf16x2) before it
 multiplies ``[X|1]``, as ``precision.weighted_accum`` does.
 
 The kernel splits the columns, as the KDE pass does: each block sums 64
-rows over one split of ``plan_score_splits(n, block_n, d).per_split``
-column tiles into an (splits, n, d+1) f32 scratch, and a second pass in
-the same launch adds each value's splits in order.  The fit has no
-request batch, so the plan follows n, block_n and d (and, for B3, the
+rows over one split of ``plan_score_splits(n, block_n, d, rows=m)
+.per_split`` column tiles into an (splits, m, d+1) f32 scratch, and a
+second pass in the same launch adds each value's splits in order.  The
+plan follows the rows m, the columns n, block_n and d (and, for B3, the
 visit width): enough splits for about eight blocks per SM, the scratch
 held to ``SCORE_SCRATCH_BYTES``, and one split, with no scratch and no
-second pass, once the row blocks alone fill the card (n = 1M).
+second pass, once the row blocks alone fill the card (m = 1M).
 """
 
 from __future__ import annotations
@@ -41,14 +45,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import precision as prec
 from repro_torch.kernels.flash_kde import TIER_CODES, SplitPlan, check_cuda
 
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 #: Rows a block of the score pass sums (the kernel's kRows).
 SCORE_ROWS = 64
 #: Blocks the score pass aims for: eight per SM of the H100's 132, two
 #: waves or more at the 2-4 blocks an SM holds.
 SCORE_TARGET_BLOCKS = 8 * 132
-#: The most bytes the (splits, n, d+1) f32 scratch may take.
+#: The most bytes the (splits, m, d+1) f32 scratch may take.
 SCORE_SCRATCH_BYTES = 256 << 20
 
 #: Kernel launches made by ``flash_score_cuda``; set to 0 to start a count.
@@ -62,49 +66,61 @@ class ScorePlan(SplitPlan):
 
     width: int = 1
 
-    def scratch_shape(self, n: int) -> Optional[Tuple[int, int, int]]:
-        """The (splits, n, d+1) f32 partial sums the wrapper allocates;
-        None with one split, where the kernel writes S1aug itself."""
-        return (self.splits, n, self.width) if self.splits > 1 else None
+    def scratch_shape(self, m: int) -> Optional[Tuple[int, int, int]]:
+        """The (splits, m, d+1) f32 partial sums of m rows the wrapper
+        allocates; None with one split, where the kernel writes S1aug
+        itself."""
+        return (self.splits, m, self.width) if self.splits > 1 else None
 
 
 def plan_score_splits(n: int, block_n: int, d: int,
-                      visits: Optional[int] = None) -> ScorePlan:
-    """The column splits of the score pass for n train points of d
-    coordinates in column tiles of ``block_n``, over the n/block_n column
-    tiles (B1) or ``visits`` visit slots, the visit lists' width (B3).
+                      visits: Optional[int] = None,
+                      rows: Optional[int] = None) -> ScorePlan:
+    """The column splits of the score pass of ``rows`` rows (n, the
+    square pass, by default) against n columns of d coordinates in
+    column tiles of ``block_n``, over the n/block_n column tiles (B1) or
+    ``visits`` visit slots, the visit lists' width (B3).
 
-    Splits are added until the n/64 row blocks times the splits reach
-    ``SCORE_TARGET_BLOCKS``, within the slots and within the scratch cap;
-    n = 32768 gets 3 (1536 blocks), n = 1M one."""
-    if (n < 1 or block_n < 1 or d < 1
+    Splits are added until the rows/64 row blocks times the splits reach
+    ``SCORE_TARGET_BLOCKS``, within the slots and within the scratch cap
+    of (splits, rows, d+1) f32; n = 32768 square gets 3 (1536 blocks),
+    n = 1M one."""
+    m = n if rows is None else rows
+    if (n < 1 or m < 1 or block_n < 1 or d < 1
             or (visits is not None and visits < 1)):
-        raise ValueError(f"bad split plan input n={n} block_n={block_n} "
-                         f"d={d} visits={visits}")
+        raise ValueError(f"bad split plan input n={n} rows={m} "
+                         f"block_n={block_n} d={d} visits={visits}")
     slots = -(-n // block_n) if visits is None else visits
     width = d + 1
-    want = -(-SCORE_TARGET_BLOCKS // -(-n // SCORE_ROWS))
-    cap = SCORE_SCRATCH_BYTES // (n * width * 4)
+    want = -(-SCORE_TARGET_BLOCKS // -(-m // SCORE_ROWS))
+    cap = SCORE_SCRATCH_BYTES // (m * width * 4)
     splits = max(1, min(want, slots, cap))
     per_split = -(-slots // splits)
     return ScorePlan(per_split, -(-slots // per_split), slots, width)
 
 
 def _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo, block_m,
-           block_n):
-    n, d = x.shape
-    if n % block_m or n % block_n:
-        raise ValueError(f"n={n} must be a multiple of block_m={block_m} "
-                         f"and block_n={block_n}")
+           block_n, nrm_x=None):
+    """(m, n, d) of a launch: m rows of x against the n columns of xt;
+    without ``nrm_x`` the square pass (n = m)."""
+    m, d = x.shape
+    n = m if nrm_x is None else xt.shape[-1]
+    if m % block_m or n % block_n:
+        raise ValueError(f"rows m={m} must be a multiple of block_m="
+                         f"{block_m} and columns n={n} of block_n={block_n}")
     if tuple(xt.shape) != (d, n) or tuple(xaug.shape) != (n, d + 1):
         raise ValueError(f"xt {tuple(xt.shape)} / xaug {tuple(xaug.shape)} "
-                         f"do not match x {tuple(x.shape)}")
-    if tuple(nrm.shape) != (n, 1) or inv2h2.numel() != 1:
-        raise ValueError("nrm must be (n, 1) and inv2h2 hold one value")
+                         f"do not match x {tuple(x.shape)} and n={n}")
+    if tuple(nrm.shape) != (m, 1) or inv2h2.numel() != 1:
+        raise ValueError("nrm must be (m, 1) and inv2h2 hold one value")
+    if nrm_x is not None and (nrm_x.numel() != n
+                              or not nrm_x.is_contiguous()):
+        raise ValueError(f"nrm_x must hold the n={n} column norms "
+                         f"(contiguous), got {tuple(nrm_x.shape)}")
     los = (x_lo, xt_lo, xaug_lo)
     if not (all(v is None for v in los) or all(v is not None for v in los)):
         raise ValueError("bf16x2 needs all three lo planes")
-    return n, d
+    return m, n, d
 
 
 def flash_score_plain(
@@ -117,12 +133,16 @@ def flash_score_plain(
     xt_lo: Optional[torch.Tensor] = None,
     xaug_lo: Optional[torch.Tensor] = None,
     *,
+    nrm_x: Optional[torch.Tensor] = None,
     block_n: int = 128,
 ) -> torch.Tensor:
-    """Plain PyTorch B1, one column block of ``block_n`` at a time."""
-    n, d = x.shape
-    out = torch.zeros((n, d + 1), dtype=torch.float32, device=x.device)
-    nrm_col = nrm.reshape(1, -1)
+    """Plain PyTorch B1, one column block of ``block_n`` at a time: m rows
+    against the n columns of ``xt`` (norms ``nrm_x``, or ``nrm`` for the
+    square pass)."""
+    m, d = x.shape
+    n = xt.shape[-1]
+    out = torch.zeros((m, d + 1), dtype=torch.float32, device=x.device)
+    nrm_col = (nrm if nrm_x is None else nrm_x).reshape(1, -1)
     for j0 in range(0, n, block_n):
         cols = slice(j0, j0 + block_n)
         if x_lo is None:
@@ -146,40 +166,43 @@ def flash_score_cuda(
     xt_lo: Optional[torch.Tensor] = None,
     xaug_lo: Optional[torch.Tensor] = None,
     *,
+    nrm_x: Optional[torch.Tensor] = None,
     block_m: int = 128,
     block_n: int = 128,
 ) -> torch.Tensor:
     """Launch kernel B1 (both of its passes) on the current stream;
-    returns (n, d+1) f32.  The column tiles are split as
-    ``plan_score_splits(n, block_n, d)`` plans them."""
+    returns (m, d+1) f32.  The column tiles are split as
+    ``plan_score_splits(n, block_n, d, rows=m)`` plans them; without
+    ``nrm_x`` the square pass, one norm pointer for both sides."""
     global launches
-    n, d = _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo,
-                  block_m, block_n)
+    m, n, d = _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo,
+                     block_m, block_n, nrm_x)
     tier = prec.tier_of(x, x_lo)
+    nrm_col = nrm if nrm_x is None else nrm_x
     dev = check_cuda("flash_score_cuda", tier,
-                     (x, xt, xaug, x_lo, xt_lo, xaug_lo), (nrm, inv2h2), d,
-                     block_m)
-    plan = plan_score_splits(n, block_n, d)
+                     (x, xt, xaug, x_lo, xt_lo, xaug_lo),
+                     (nrm, nrm_col, inv2h2), d, block_m)
+    plan = plan_score_splits(n, block_n, d, rows=m)
     launch, error = _build.load("flash_score", _ARGTYPES)
-    shape = plan.scratch_shape(n)
+    shape = plan.scratch_shape(m)
     part = None if shape is None else torch.empty(
         shape, dtype=torch.float32, device=dev)
-    out = torch.empty((n, d + 1), dtype=torch.float32, device=dev)
+    out = torch.empty((m, d + 1), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(ptr(x), ptr(x_lo), ptr(nrm), ptr(xt), ptr(xt_lo),
-                    ptr(xaug), ptr(xaug_lo), ptr(inv2h2), ptr(part),
-                    ptr(out), n, d, TIER_CODES[tier], block_m, block_n,
-                    plan.per_split, plan.splits, stream)
+        rc = launch(ptr(x), ptr(x_lo), ptr(nrm), ptr(nrm_col), ptr(xt),
+                    ptr(xt_lo), ptr(xaug), ptr(xaug_lo), ptr(inv2h2),
+                    ptr(part), ptr(out), m, n, d, TIER_CODES[tier], block_m,
+                    block_n, plan.per_split, plan.splits, stream)
     if rc != 0:
         raise RuntimeError(f"flash_score kernel launch failed ({rc}): "
-                           f"{error(rc).decode()} [n={n} d={d} tier={tier} "
-                           f"block_m={block_m} block_n={block_n} "
-                           f"splits={plan.splits}]")
+                           f"{error(rc).decode()} [m={m} n={n} d={d} "
+                           f"tier={tier} block_m={block_m} "
+                           f"block_n={block_n} splits={plan.splits}]")
     launches += 1
     return out
 
@@ -194,18 +217,20 @@ def flash_score(
     xt_lo: Optional[torch.Tensor] = None,
     xaug_lo: Optional[torch.Tensor] = None,
     *,
+    nrm_x: Optional[torch.Tensor] = None,
     block_m: int = 128,
     block_n: int = 128,
 ) -> torch.Tensor:
     """B1 on the tensors' device: plain PyTorch on the CPU, the kernel on
-    the card.  Returns S1aug (n, d+1) f32."""
+    the card.  Returns S1aug (m, d+1) f32: the square pass, or with
+    ``nrm_x`` m rows against n other columns."""
     if x.device.type == "cpu":
         _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo, block_m,
-               block_n)
+               block_n, nrm_x)
         return flash_score_plain(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo,
-                                 xaug_lo, block_n=block_n)
+                                 xaug_lo, nrm_x=nrm_x, block_n=block_n)
     return flash_score_cuda(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo,
-                            block_m=block_m, block_n=block_n)
+                            nrm_x=nrm_x, block_m=block_m, block_n=block_n)
 
 
 __all__ = ["SCORE_ROWS", "SCORE_TARGET_BLOCKS", "SCORE_SCRATCH_BYTES",

@@ -42,6 +42,12 @@ The streaming layer keeps its own layout and builds its columns with
 ``repro``'s fallback to dense under JAX tracing (PyTorch does not
 trace), and the wrappers' ``plan=`` argument (the planner is reached
 through ``ServeConfig(plan="auto")``).
+
+The ring (``distributed/ring.py``, ``ring2d.py``) runs its blocks through
+``score_block`` (rectangular B1) and ``kde_block`` (B2, or B5 for
+Laplace): resident rows prepared once (``ring_rows``), each visiting
+block padded to a tile multiple with ``PAD_VALUE``; f32 and dense, as
+``repro``'s ring is.
 """
 
 from __future__ import annotations
@@ -709,6 +715,66 @@ def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Per-block pieces of the ring (distributed/ring.py, ring2d.py).
+# ---------------------------------------------------------------------------
+
+#: The ring's kernel tiles: B1, B2 and B5 over one (rows, block) pair.
+RING_BLOCK_M = 128
+RING_BLOCK_N = 128
+
+
+class RingRows(NamedTuple):
+    """A rank's resident rows, prepared once for every block they meet:
+    padded to a ``block_m`` multiple with ``PAD_VALUE`` and normed."""
+
+    x: torch.Tensor      # (m_padded, d) f32, contiguous
+    nrm: torch.Tensor    # (m_padded, 1) f32
+    m: int               # real rows (the rest are sentinels)
+    block_m: int
+
+
+def ring_rows(x: torch.Tensor, block_m: int = RING_BLOCK_M) -> RingRows:
+    """Resident rows for ``score_block`` / ``kde_block``."""
+    xp = _pad_to(x.to(torch.float32), block_m).contiguous()
+    return RingRows(xp, _norms(xp), int(x.shape[0]), block_m)
+
+
+def pad_block(x: torch.Tensor, block_n: int = RING_BLOCK_N) -> torch.Tensor:
+    """A column block padded to a ``block_n`` multiple with sentinels (far
+    points whose weight underflows to exactly 0.0), f32 and contiguous:
+    the form a ring rotates, padded once before its first step."""
+    return _pad_to(x.to(torch.float32), block_n).contiguous()
+
+
+def score_block(rows: RingRows, cols: torch.Tensor, inv2h2: torch.Tensor, *,
+                block_n: int = RING_BLOCK_N) -> torch.Tensor:
+    """Partial score statistics S1aug = Σ_j φ_ij·[x_j | 1] (rows.m, d+1) of
+    the resident rows against one block of columns: one launch of B1 in
+    its rectangular form (its plain version on the CPU), f32 and dense.
+    ``inv2h2`` is ``_inv2h2(h, device)``, made once a ring (each upload
+    of h is a host-to-device copy); column d holds the S0 part."""
+    cp = pad_block(cols, block_n)
+    xaug = torch.cat([cp, cp.new_ones((cp.shape[0], 1))], dim=1)
+    s1aug = _score_kernel(rows.x, rows.nrm, _t(cp), xaug, inv2h2,
+                          nrm_x=_norms(cp).reshape(1, -1),
+                          block_m=rows.block_m, block_n=block_n)
+    return s1aug[:rows.m]
+
+
+def kde_block(rows: RingRows, cols: torch.Tensor, inv2h2: torch.Tensor, *,
+              laplace: bool = False,
+              block_n: int = RING_BLOCK_N) -> torch.Tensor:
+    """Partial unnormalized KDE sums (rows.m,) of the resident queries
+    against one block of train columns: one launch of B2, or of B5 with
+    ``laplace`` (their plain versions on the CPU), f32 and dense."""
+    cp = pad_block(cols, block_n)
+    kernel = _laplace_kernel if laplace else _kde_kernel
+    sums = kernel(rows.x, rows.nrm, _t(cp), _norms(cp).reshape(1, -1),
+                  inv2h2, block_m=rows.block_m, block_n=block_n)
+    return sums[:rows.m, 0]
+
+
+# ---------------------------------------------------------------------------
 # Full pipeline.
 # ---------------------------------------------------------------------------
 
@@ -768,5 +834,6 @@ __all__ = [
     "flash_sdkde_shift", "flash_kde", "flash_laplace_kde",
     "laplace_kde_nonfused", "TrainColumns", "prepare_train_columns",
     "columns_from_layout", "update_train_columns", "flash_kde_prepared",
-    "flash_sdkde",
+    "flash_sdkde", "RING_BLOCK_M", "RING_BLOCK_N", "RingRows", "ring_rows",
+    "pad_block", "score_block", "kde_block",
 ]

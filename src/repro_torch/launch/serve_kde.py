@@ -8,7 +8,11 @@ reports throughput, tail latency and bucket-cache efficiency.  Modes:
   * default: one ``ServeEngine``; ``--stream`` interleaves sliding-window
     updates (``registry.slide``), ``--plan auto`` lets the planner fill
     the knobs left unset, ``--rff`` / ``--accuracy-target`` route
-    requests through the RFF cascade;
+    requests through the RFF cascade; ``--backend ring`` serves through
+    the ring over ``torch.distributed``, in the world the environment
+    describes (``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR``, as torchrun
+    sets them: NCCL with ``--device cuda``, gloo with ``cpu``; every rank
+    runs the same traffic) and as a ring of one without one;
   * ``--replicas R`` (> 1) or ``--chaos MODES``: the ``ResilientEngine``
     over ``--shards`` shards × R replicas, with the fault injector;
   * ``--open-loop``: arrivals paced by ``--qps`` (with a ``--burst``
@@ -31,11 +35,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import device as device_mod
 from repro_torch import fault_injection, obs
@@ -63,7 +69,8 @@ def _parser() -> argparse.ArgumentParser:
     # Plannable knobs default to None = "not supplied": under --plan auto
     # they stay unset for the planner; under --plan off they take the
     # CLI defaults of ``_build_config``.
-    ap.add_argument("--backend", default=None, choices=["flash", "torch"])
+    ap.add_argument("--backend", default=None,
+                    choices=["flash", "torch", "ring"])
     ap.add_argument("--method", default="sdkde",
                     choices=["kde", "sdkde", "laplace"])
     ap.add_argument("--device", default="cuda", choices=device_mod.DEVICES)
@@ -204,10 +211,39 @@ def main(argv=None) -> int:
         obs.configure(trace=True)
     dev = device_mod.resolve(args.device)
     cfg = _build_config(args)
+    joined = cfg.backend == "ring" and _join_world(args.device)
+    try:
+        return _run(ap, args, cfg, dev)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _join_world(device: str) -> bool:
+    """For the ring: join the world the environment describes (NCCL on
+    the card, gloo on the CPU); False when there is none (a ring of one)
+    or the process is already in one."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    if device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device == "cuda" else "gloo")
+    return True
+
+
+def _run(ap, args, cfg, dev) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     mix = mixture_for_dim(args.d)
     x = mix.sample(args.n, gen)
     pool = mix.sample(4 * args.max_batch, gen)
+    if cfg.backend == "ring" and (args.replicas > 1 or args.chaos):
+        ap.error("--backend ring does not run under the resilient layer "
+                 "(--replicas/--chaos): the ring is its own sharding")
+    if cfg.backend == "ring" and args.open_loop and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        ap.error("--open-loop serves from concurrent workers; a ring of "
+                 "more than one rank needs every rank's requests in one "
+                 "order")
 
     if args.open_loop:
         if args.stream:
@@ -249,7 +285,11 @@ def _run_closed_loop(args, cfg, x, pool, mix, gen) -> int:
               f"block_n={prep.block_n}"
               + (" (tuned)" if "auto" in (args.block_m, args.block_n)
                  else ""))
-    print(f"shape buckets: {rcfg.bucket_sizes(prep.block_m)}")
+    print(f"shape buckets: "
+          f"{rcfg.bucket_sizes(prep.block_m, ring_size=prep.ring_size)}")
+    if rcfg.backend == "ring":
+        print(f"ring: {prep.ring_size} rank(s), this rank's shard "
+              f"{tuple(prep.x_sharded.shape)}")
     if args.plan_json:
         plan = prep.plan
         _write_json(args.plan_json, {

@@ -4,9 +4,9 @@ One ``ModelConfig`` carries every field of ``repro``'s, with dtypes as
 ``torch.dtype``.  ``param_shapes(cfg)`` is the single source of truth for
 every parameter's shape and dtype: ``param_count`` sums it without
 allocating, ``init_params`` materializes it on a device from a
-``torch.Generator``.  Sharding (``repro``'s PartitionSpecs) waits for
-ROADMAP A13; only the SSM family's shapes are ported (A15 holds the
-others).
+``torch.Generator``.  Sharding (``repro``'s PartitionSpecs, through
+``models/parallel.py``) comes with the other model families in ROADMAP
+A15; only the SSM family's shapes are ported.
 """
 
 from __future__ import annotations

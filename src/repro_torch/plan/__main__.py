@@ -33,7 +33,7 @@ def main(argv=None) -> int:
     ap.add_argument("--accuracy", type=float, default=DEFAULT_ACCURACY,
                     help="relative accuracy target")
     ap.add_argument("--backend", default="auto",
-                    choices=("auto", "torch", "flash"))
+                    choices=("auto", "torch", "flash", "ring"))
     ap.add_argument("--stream", action="store_true",
                     help="plan for a streaming estimator")
     ap.add_argument("--rff", action="store_true",

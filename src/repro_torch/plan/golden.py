@@ -4,8 +4,10 @@
 TPU model for the TPU's benchmark cells, and stays as it is.  The port
 pins its planner's decisions over a fixed list of the port's shapes
 (:data:`GOLDEN_SHAPES`: the main path, the clustered check, paper scale,
-Fig. 3's 1-D set, the streaming scale and one train set under
-``FLASH_MIN_COLS``) at the accuracies :data:`GOLDEN_ACCURACIES`, priced
+Fig. 3's 1-D set, the streaming scale, one train set under
+``FLASH_MIN_COLS``, and the main path on an explicit ``"ring"``, the only
+way the planner plans the ring) at the accuracies
+:data:`GOLDEN_ACCURACIES`, priced
 with one explicit :class:`~repro_torch.plan.planner.BenchModel` of stated
 cells (:data:`GOLDEN_CELLS`) so that the epsilon and RFF branches are
 pinned too.  Those cells are fixture inputs, not measurements.
@@ -22,14 +24,15 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.plan.planner import BenchModel, ExecutionPlan, PlanRequest, plan
 
-#: (label, n, d, q, stream): the regimes the fixture pins.
-GOLDEN_SHAPES: Tuple[Tuple[str, int, int, int, bool], ...] = (
-    ("main", 32768, 16, 16384, False),
-    ("clustered", 32768, 16, 4096, False),
-    ("paper", 1048576, 16, 131072, False),
-    ("fig3_1d", 8192, 1, 1024, False),
-    ("stream", 262144, 16, 4096, True),
-    ("small", 1024, 4, 4096, False),
+#: (label, n, d, q, stream, backend): the regimes the fixture pins.
+GOLDEN_SHAPES: Tuple[Tuple[str, int, int, int, bool, str], ...] = (
+    ("main", 32768, 16, 16384, False, "auto"),
+    ("clustered", 32768, 16, 4096, False, "auto"),
+    ("paper", 1048576, 16, 131072, False, "auto"),
+    ("fig3_1d", 8192, 1, 1024, False, "auto"),
+    ("stream", 262144, 16, 4096, True, "auto"),
+    ("small", 1024, 4, 4096, False, "auto"),
+    ("main_ring", 32768, 16, 16384, False, "ring"),
 )
 GOLDEN_ACCURACIES = (1e-5, 5e-4, 5e-2)
 
@@ -64,9 +67,9 @@ def golden_bench() -> BenchModel:
 def golden_requests() -> List[Tuple[str, PlanRequest]]:
     """(label, request) for every pinned regime and accuracy; every
     request is cascade-eligible (sdkde with the RFF tier enabled)."""
-    return [(label, PlanRequest(n=n, d=d, q=q, accuracy=acc, stream=stream,
-                                rff=True))
-            for label, n, d, q, stream in GOLDEN_SHAPES
+    return [(label, PlanRequest(n=n, d=d, q=q, accuracy=acc,
+                                backend=backend, stream=stream, rff=True))
+            for label, n, d, q, stream, backend in GOLDEN_SHAPES
             for acc in GOLDEN_ACCURACIES]
 
 

@@ -33,12 +33,15 @@ Decision rules (``repro``'s, with the port's backends):
   blocks    — best modeled tile at the chosen tier and occupancy,
               launchable at every tier (per-request pins reuse it).
   backend   — "flash" (the kernels) from ``FLASH_MIN_COLS`` train
-              points, "torch" (the plain streaming math) below.
+              points, "torch" (the plain streaming math) below; "ring"
+              only ever by explicit request (sharding over ranks is a
+              deployment decision, not a per-query one), and a ring
+              plan is f32, dense and without tiles.
   staleness — streaming only: 0 at f32-grade targets, 1 at bf16x2-grade,
               2 looser; background builds when the budget is nonzero.
-  rff       — only for cascade-eligible requests with a measured hit
-              fraction, when the modeled RFF pass is cheaper than the
-              hit fraction times the exact pass.
+  rff       — only for cascade-eligible requests off the ring with a
+              measured hit fraction, when the modeled RFF pass is
+              cheaper than the hit fraction times the exact pass.
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ FLASH_MIN_COLS = 2048
 #: traffic shape (the serve default max_batch).
 DEFAULT_Q = 4096
 
-_BACKENDS = ("torch", "flash")
+_BACKENDS = ("torch", "flash", "ring")
 
 
 def _bucket(x: int) -> int:
@@ -220,7 +223,7 @@ class PlanRequest:
     d: int                          # dimension
     q: int = DEFAULT_Q              # query rows per dispatch (bucket top)
     accuracy: float = DEFAULT_ACCURACY   # target max relative error
-    backend: str = "auto"           # "auto" | "torch" | "flash"
+    backend: str = "auto"           # "auto" | "torch" | "flash" | "ring"
     stream: bool = False
     # Whether the workload is *eligible* for the RFF fast tier + accuracy
     # cascade (serve/cascade.py): the estimator method supports it and the
@@ -513,7 +516,7 @@ def plan(req: PlanRequest, bench: Optional[BenchModel] = None
         # escalated rows additionally pay the exact pass — beats the
         # all-exact pass.  That reduces to rff_cost < hit_frac · exact.
         rff_on, rff_hit, rff_cost = False, 0.0, 0.0
-        if req.rff:
+        if req.rff and backend != "ring":
             hit = bench.measured_rff_hit(req.n, req.d, req.accuracy)
             if hit is not None and hit > 0.0:
                 from repro_torch.kernels import flash_rff
@@ -611,7 +614,7 @@ def resolve_config(cfg, n: int, d: int,
             updates[name] = value
 
     take("backend", p.backend)
-    take("prune", p.prune)      # "off" on the torch backend
+    take("prune", p.prune)      # "off" on the torch and ring backends
     if p.backend == "flash":
         take("precision", p.precision)
         if p.block_m is not None:

@@ -4,7 +4,8 @@ The counterpart of ``repro.serve.config``, with the knobs this port
 implements.  Ragged query traffic is coalesced into a geometric ladder of
 padded batch shapes (``bucket_sizes``); on the ``flash`` backend every
 bucket is a multiple of the kernels' row tile ``block_m`` (the tile the
-fit resolved, when the config says ``"auto"``).  ``plan="auto"`` fills
+fit resolved, when the config says ``"auto"``), on the ``ring`` backend a
+multiple of the ring size.  ``plan="auto"`` fills
 every knob left at its default from the planner (``repro_torch.plan``);
 the ``rff*`` knobs configure the random-feature fast tier behind the
 accuracy cascade.
@@ -19,7 +20,7 @@ from repro_torch.core.estimator import check_backend
 from repro_torch.kernels import ops
 from repro_torch.kernels.precision import validate as _validate_precision
 
-Backend = Literal["flash", "torch"]
+Backend = Literal["flash", "torch", "ring"]
 Method = Literal["kde", "sdkde", "laplace"]
 METHODS = ("kde", "sdkde", "laplace")
 # a serving tier is an exact GEMM tier or the RFF fast tier
@@ -141,6 +142,11 @@ class ServeConfig:
             raise ValueError("staleness_budget must be >= 0")
         if self.stream_slack < 0:
             raise ValueError("stream_slack must be >= 0")
+        if self.stream and self.backend == "ring":
+            raise ValueError(
+                "streaming estimators support the flash/torch backends "
+                "(the ring shards at fit time; re-sharding per append is "
+                "a full refit by construction)")
 
     @property
     def exact_precision(self) -> str:
@@ -149,19 +155,24 @@ class ServeConfig:
         when the default tier is ``"rff"``."""
         return "f32" if self.precision == "rff" else self.precision
 
-    def row_multiple(self, block_m: Optional[int] = None) -> int:
+    def row_multiple(self, block_m: Optional[int] = None, *,
+                     ring_size: int = 1) -> int:
         """Row-count multiple every dispatched batch honors: the kernels'
         row tile on ``flash`` (``block_m``, the fit's resolved tile, when
-        the config says ``"auto"``; 128 before a fit resolves it); 1 on
-        the shape-agnostic ``torch`` path."""
+        the config says ``"auto"``; 128 before a fit resolves it); the
+        ring size on ``ring``, which shards each batch's rows over its
+        ranks; 1 on the shape-agnostic ``torch`` path."""
+        if self.backend == "ring":
+            return max(1, ring_size)
         if self.backend != "flash":
             return 1
         bm = block_m if block_m is not None else self.block_m
         return bm if isinstance(bm, int) else 128
 
-    def bucket_sizes(self, block_m: Optional[int] = None) -> Tuple[int, ...]:
+    def bucket_sizes(self, block_m: Optional[int] = None, *,
+                     ring_size: int = 1) -> Tuple[int, ...]:
         """The geometric ladder of padded batch shapes this config serves."""
-        mult = self.row_multiple(block_m)
+        mult = self.row_multiple(block_m, ring_size=ring_size)
         sizes, b = [], self.min_batch
         while True:
             sizes.append(_round_up(min(b, self.max_batch), mult))
@@ -170,11 +181,12 @@ class ServeConfig:
             b *= 2
         return tuple(dict.fromkeys(sizes))
 
-    def bucket_for(self, m: int, block_m: Optional[int] = None) -> int:
+    def bucket_for(self, m: int, block_m: Optional[int] = None, *,
+                   ring_size: int = 1) -> int:
         """Smallest shape bucket that fits an ``m``-row query batch."""
         if m <= 0:
             raise ValueError(f"empty query batch (m={m})")
-        sizes = self.bucket_sizes(block_m)
+        sizes = self.bucket_sizes(block_m, ring_size=ring_size)
         for b in sizes:
             if m <= b:
                 return b

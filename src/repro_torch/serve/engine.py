@@ -28,7 +28,14 @@ kept in a small LRU:
                 (clustered for B4), queries arrive padded to a
                 ``block_m`` multiple;
   * ``torch`` — the streaming plain math of ``core/kde.py``
-                (``laplace_kde_eval`` for ``method="laplace"``).
+                (``laplace_kde_eval`` for ``method="laplace"``);
+  * ``ring``  — the ring over ``torch.distributed``
+                (``repro_torch.distributed.ring``): each bucket, a
+                multiple of the ring size, is sharded over the ranks, the
+                train shards rotate (B2, or B5 for Laplace, a step) and
+                the densities are gathered back.  Every rank of the world
+                serves the same requests in the same order (the ring is
+                collective); a process outside a world is a ring of one.
 
 A streaming estimator's callables read the train tensors of the snapshot
 each dispatch is pinned to, and re-resolve pruning per call (appends and
@@ -60,6 +67,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch import fault_injection, obs
 from repro_torch.core import kde as ref
+from repro_torch.distributed import ring
 from repro_torch.kernels import ops
 from repro_torch.serve import cascade
 from repro_torch.serve.api import RFF_TIER, Answer, QueryRequest, resolve_tier
@@ -117,7 +125,8 @@ class ServeEngine:
         loaded and the bucket built.  Not recorded as served latency."""
         prep = self.registry.get(key)
         cfg = prep.config
-        bucket = cfg.bucket_sizes(prep.block_m)[-1]
+        bucket = cfg.bucket_sizes(prep.block_m,
+                                  ring_size=prep.ring_size)[-1]
         with obs.span("plan.prewarm", key=key, buckets=1,
                       plan=getattr(prep.plan, "plan_id", "")):
             y = torch.zeros((bucket, prep.d), dtype=torch.float32,
@@ -364,7 +373,8 @@ class ServeEngine:
                               per_decade=8).observe(lag)
                 sp.set(staleness=lag, stream_gen=snap.gen,
                        layout_epoch=snap.layout_epoch)
-            top = cfg.bucket_sizes(prep.block_m)[-1]
+            top = cfg.bucket_sizes(prep.block_m,
+                                   ring_size=prep.ring_size)[-1]
             m = y.shape[0]
             if m <= top:
                 return self._run_bucket(prep, y, tier, snap)
@@ -377,7 +387,8 @@ class ServeEngine:
     def _run_bucket(self, prep: PreparedEstimator, y: torch.Tensor,
                     tier: str, snap=None) -> torch.Tensor:
         m = y.shape[0]
-        bucket = prep.config.bucket_for(m, prep.block_m)
+        bucket = prep.config.bucket_for(m, prep.block_m,
+                                        ring_size=prep.ring_size)
         if prep.stream is not None:
             # streaming callables read the pinned snapshot per call, so
             # value-only generations reuse them; only a rebuild changes
@@ -463,6 +474,17 @@ class ServeEngine:
                 yp, cols.xt, cols.nrm_x, prep.h, cols.xt_lo, precision=tier,
                 block_m=prep.block_m, block_n=prep.block_n, laplace=laplace,
                 prune=prune, columns=cols, n_real=n_real) / prep.norm
+        if cfg.backend == "ring":
+            ring_fn = ring.ring_laplace_kde if laplace else ring.ring_kde
+            axes = ("data",)
+
+            def ring_eval(yp, n_real):
+                dens = ring_fn(prep.x_sharded,
+                               ring.shard_points(yp, prep.mesh, axes),
+                               prep.h, n_true=prep.n_true, mesh=prep.mesh)
+                return ring.gather_rows(dens, prep.mesh, axes)
+
+            return ring_eval
         eval_fn = ref.laplace_kde_eval if laplace else ref.kde_eval
         return lambda yp, n_real: eval_fn(prep.points, yp, prep.h,
                                           block=cfg.block)

@@ -9,7 +9,9 @@ normalization constant.  ``kde`` and ``laplace`` serve the raw points
 with the Silverman bandwidth (no debias), as ``repro`` does.  When the
 config's ``prune`` engages for the train set (``ops.resolve_prune``),
 every tier's columns are clustered, and all tiers share ONE spatial
-index, clustered once.
+index, clustered once.  On the ``ring`` backend the prepared state is the
+mesh and this rank's shard of the (sentinel-padded) points: the debias
+fit and every query batch run the ring (``repro_torch.distributed.ring``).
 
 With ``ServeConfig(stream=True)`` a registered dataset is a
 ``repro_torch.stream.StreamingSDKDE``: ``append`` / ``evict_ids`` /
@@ -38,6 +40,8 @@ from repro_torch import device as device_mod
 from repro_torch import fault_injection, obs
 from repro_torch.core import bandwidth as bw
 from repro_torch.core.bandwidth import gaussian_norm_const
+from repro_torch.core.kde import pad_rows
+from repro_torch.distributed import ring
 from repro_torch.kernels import autotune, flash_rff, ops, spatial
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.errors import UnknownKey
@@ -59,6 +63,10 @@ class PreparedEstimator:
     norm: float              # n_true · (2π)^{d/2} · h^d
     block_m: Optional[int] = None   # flash: kernel tiles, resolved at fit
     block_n: Optional[int] = None
+    # ring: the mesh and this rank's row shard of the sentinel-padded
+    # points (every rank holds one)
+    mesh: object = None
+    x_sharded: Optional[torch.Tensor] = None
     # the spatial index every tier's clustered columns share (pruning)
     index: Optional[spatial.SpatialIndex] = None
     # streaming (config.stream): the incrementally maintained live state;
@@ -72,6 +80,12 @@ class PreparedEstimator:
     # unsupported for the method
     rff: object = None
     _columns: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def ring_size(self) -> int:
+        """Ranks the ring shards over (1 off the ring backend)."""
+        return (ring.ring_size(self.mesh, ("data",))
+                if self.mesh is not None else 1)
 
     def columns_for(self, precision: str) -> ops.TrainColumns:
         """Prepared train tensors for one tier (built once, then cached).
@@ -286,6 +300,9 @@ class EstimatorRegistry:
             prep.block_m, prep.block_n = self._resolve_fit_blocks(
                 cfg, n, d, x.device)
             prep.columns_for(cfg.exact_precision)
+        elif cfg.backend == "ring":
+            prep.mesh = ring.default_mesh()
+            prep.x_sharded = ring.shard_points(points, prep.mesh, ("data",))
         return prep
 
     @staticmethod
@@ -347,16 +364,21 @@ class EstimatorRegistry:
         """The O(n²·d) score pass — once per registered key, through the
         core estimator (one backend dispatch for the whole port).  Like
         ``fit_precision``, the amortized fit never spends an epsilon
-        budget: exact (underflow-only) pruning at most."""
+        budget: exact (underflow-only) pruning at most.  On the ring the
+        set is padded with sentinels to the ring size first, since a
+        registered dataset's size need not divide it."""
         from repro_torch.core.estimator import SDKDE, EstimatorConfig
 
+        n = x.shape[0]
+        if cfg.backend == "ring":
+            x = pad_rows(x, ring.ring_size(ring.default_mesh(), ("data",)))
         est_cfg = EstimatorConfig(
             backend=cfg.backend, block=cfg.block, block_m=cfg.block_m,
             block_n=cfg.block_n, score_h=cfg.score_h,
             precision=cfg.fit_precision,
             prune="auto" if cfg.prune != "off" else "off", device=cfg.device,
         )
-        return SDKDE(h, est_cfg).fit(x).x_sd
+        return SDKDE(h, est_cfg).fit(x).x_sd[:n]
 
 
 __all__ = ["PreparedEstimator", "EstimatorRegistry"]

@@ -238,10 +238,11 @@ class ResilientEngine:
         sleep: Callable[[float], None] = time.sleep,
     ):
         config = config or ServeConfig()
-        if config.stream:
+        if config.backend == "ring" or config.stream:
             raise ValueError(
-                "ResilientEngine replicates static engines; a streaming "
-                "estimator is its own distribution story")
+                "ResilientEngine replicates static flash/torch engines; "
+                "ring sharding and streaming estimators are their own "
+                "distribution stories")
         self.config = config
         self.device = device_mod.resolve(config.device)
         self.rcfg = resilience or ResilienceConfig()

@@ -3,8 +3,8 @@
 
 Mirrors the supervisor, restart-loop, fencing, ``plan_mesh`` and
 ``rebatch`` tests of ``tests/test_fault_tolerance.py``; the straggler
-dispatcher, gradient compression and ``reshard_specs`` wait for ROADMAP
-A13 with the rest of ``distributed/``.  Everything here is host Python on
+dispatcher, gradient compression and ``reshard_specs`` are held in
+``tests/test_torch_distributed.py``.  Everything here is host Python on
 injected clocks; parity with ``repro`` is exact (the same decisions, the
 same integers).
 """

@@ -52,6 +52,43 @@ def test_a12_modules_are_scanned_and_import(module):
     importlib.import_module(module)
 
 
+# the ring backend slice (ROADMAP A13)
+A13_MODULES = ("repro_torch.distributed.ring",
+               "repro_torch.distributed.ring2d",
+               "repro_torch.distributed.world",
+               "repro_torch.distributed.straggler",
+               "repro_torch.distributed.compression",
+               "repro_torch.launch.mesh")
+
+
+@pytest.mark.parametrize("module", A13_MODULES)
+def test_a13_modules_are_scanned_and_import(module):
+    """Each module of the ring slice is among the files the AST scan
+    holds to "no jax, nothing of repro", and imports without a world or
+    a card."""
+    rel = pathlib.Path("src", *module.split("."))
+    path = ROOT / rel.with_suffix(".py")
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+    importlib.import_module(module)
+
+
+def test_distributed_exports_match_repro_but_compat():
+    """``repro_torch.distributed`` exports ``repro.distributed``'s names
+    (``compat``, a JAX-version shim, has no counterpart) and the port's
+    ``HostState``."""
+    import repro.distributed as jdist
+    import repro_torch.distributed as tdist
+
+    jnames = {n for n in dir(jdist) if not n.startswith("_")} - {
+        "compat", "annotations"}
+    jnames -= {n for n in jnames
+               if type(getattr(jdist, n)).__name__ == "module"
+               and n != "ring"}
+    assert jnames <= set(tdist.__all__), jnames - set(tdist.__all__)
+    assert all(hasattr(tdist, name) for name in tdist.__all__)
+
+
 def test_serve_exports_match_repro_but_the_legacy_aliases():
     """``repro_torch.serve`` exports ``repro.serve``'s names, less the
     two aliases ``repro`` keeps for its deprecated answer types."""
@@ -171,8 +208,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 
 
 # ROADMAP items whose knobs have landed: A6, the launch tuner ("auto"
-# tiles)
-LANDED = {"A6"}
+# tiles), and A13, the ring backend
+LANDED = {"A6", "A13"}
 
 
 @pytest.mark.parametrize("kwargs, roadmap", [
@@ -211,11 +248,18 @@ def test_prune_defaults_to_auto_as_in_repro():
 
 
 def test_laplace_method_builds_and_ring_still_raises():
+    """method="laplace" builds on every backend, the ring's buckets are
+    multiples of its size, and the ring still raises where ``repro``'s
+    does: with a streaming estimator."""
     cfg = ServeConfig(method="laplace")
     assert cfg.method == "laplace" and cfg.device == "cuda"
     assert ServeConfig(method="laplace", backend="torch",
                        device="cpu").row_multiple() == 1
-    with pytest.raises(NotImplementedError, match="A13"):
-        ServeConfig(method="laplace", backend="ring")
+    ring_cfg = ServeConfig(method="laplace", backend="ring", device="cpu")
+    assert ring_cfg.row_multiple(ring_size=4) == 4
+    assert all(b % 4 == 0 for b in ring_cfg.bucket_sizes(ring_size=4))
+    with pytest.raises(ValueError, match="stream"):
+        ServeConfig(method="laplace", backend="ring", stream=True,
+                    device="cpu")
     with pytest.raises(ValueError, match="method"):
         ServeConfig(method="bogus", device="cpu")

@@ -320,13 +320,22 @@ def test_score_plan_covers_every_slot_once_in_order(n, block_n, d, visits):
 
 
 def test_score_plan_depends_only_on_its_inputs():
-    """plan_score_splits takes (n, block_n, d, visits) and nothing else
-    (the fit has no request batch), and the same inputs give the same
-    plan; d changes only the width and, through the scratch cap, the
-    splits."""
+    """plan_score_splits takes (n, block_n, d, visits, rows) and nothing
+    else (the fit has no request batch; rows defaults to n, the square
+    pass), and the same inputs give the same plan; d changes only the
+    width and, through the scratch cap, the splits.  The row blocks come
+    from the rows and the slots from the columns: 8192 rows against
+    32768 columns get more splits than 32768 rows against 8192."""
     params = list(inspect.signature(
         flash_score.plan_score_splits).parameters)
-    assert params == ["n", "block_n", "d", "visits"]
+    assert params == ["n", "block_n", "d", "visits", "rows"]
+    assert flash_score.plan_score_splits(32768, 128, 16) == \
+        flash_score.plan_score_splits(32768, 128, 16, rows=32768)
+    tall = flash_score.plan_score_splits(8192, 128, 16, rows=32768)
+    wide = flash_score.plan_score_splits(32768, 128, 16, rows=8192)
+    assert tall.slots == 64 and wide.slots == 256
+    assert wide.splits > tall.splits
+    assert wide.scratch_shape(8192) == (wide.splits, 8192, 17)
     for case in SCORE_PLAN_CASES:
         plans = {flash_score.plan_score_splits(*case) for _ in range(3)}
         assert len(plans) == 1

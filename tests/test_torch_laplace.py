@@ -461,8 +461,22 @@ def test_laplace_estimator_routes_fused_and_nonfused(monkeypatch):
 
 
 def test_laplace_estimator_ring_still_raises():
-    with pytest.raises(NotImplementedError, match="A13"):
-        LaplaceKDE(0.5, EstimatorConfig(backend="ring", device="cpu"))
+    """The ring Laplace estimator (a ring of one here) raises before a
+    fit, as every estimator does, and after one agrees with the flash
+    path's fused densities (B5's plain version on both sides) at the f32
+    bar."""
+    est = LaplaceKDE(0.5, EstimatorConfig(backend="ring", device="cpu"))
+    y = torch.zeros((4, 3))
+    with pytest.raises(RuntimeError, match="fit"):
+        est.evaluate(y)
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((200, 3)).astype(np.float32))
+    y = torch.as_tensor(rng.standard_normal((50, 3)).astype(np.float32))
+    got = est.fit(x).evaluate(y)
+    want = LaplaceKDE(0.5, EstimatorConfig(device="cpu", prune="off")
+                      ).fit(x).evaluate(y)
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * peak)
 
 
 def test_convert_laplace_from_state(est_data):

@@ -151,7 +151,7 @@ def test_golden_fixture_is_current():
 
 def test_golden_fixture_pins_every_branch():
     plans = [e["plan"] for e in plan_mod.load_golden()["plans"].values()]
-    assert {p["backend"] for p in plans} == {"flash", "torch"}
+    assert {p["backend"] for p in plans} == {"flash", "torch", "ring"}
     assert {p["precision"] for p in plans} == {"f32", "bf16x2", "bf16"}
     assert any(isinstance(p["prune"], float) and p["prune"] > 0
                for p in plans)

@@ -706,8 +706,8 @@ def test_stream_rejects_bad_usage(data):
     for bad in (dict(staleness_budget=-1), dict(stream_slack=-0.5)):
         with pytest.raises(ValueError):
             _cfg(**bad)
-    with pytest.raises(NotImplementedError):
-        _cfg(backend="ring")
+    with pytest.raises(ValueError, match="ring"):
+        _cfg(backend="ring")               # the ring shards at fit time
     for bad in (dict(staleness_budget=-1), dict(slack=-0.5)):
         with pytest.raises(ValueError):
             StreamConfig(**bad)
