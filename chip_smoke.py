@@ -113,7 +113,9 @@ Run from the repository root.  Phases, each printing its lines:
                   decode tok/s and peak memory are printed, and the
                   profiled prefill's kernels by class (GEMM, B7, other)
                   with the other class by name; no softplus and at most
-                  one silu a layer (the conv's) may run there.  The
+                  one silu a layer (the conv's) may run there; one
+                  more warm prefill is counted by FlopCounterMode (its
+                  aten products' FLOPs, for phase 13d).  The
                   monitor's B1
                   and B2 launches are held against their plain versions
                   on the same operands (d 8, fewer than 128 fit rows) at
@@ -231,7 +233,28 @@ Run from the repository root.  Phases, each printing its lines:
                   "ring") at world 1, register (one B1) and requests of 1,
                   128 and 4096 rows (one B2 each) against the flash
                   engine, then ``python -m repro_torch.launch.serve_kde
-                  --backend ring --n 32768 --verify`` must exit 0.
+                  --backend ring --n 32768 --verify`` must exit 0;
+ 13. measurement  ROADMAP C's watch item first: B4 on the clustered set
+                  at phase 10a's tuner winner against 128 x 128, every
+                  tier (CUDA-graph device time); (a) the measured-cell
+                  writer (``repro_torch.plan.cells``) run again to a
+                  temporary file, each cell held to the committed
+                  ``plan/h100_cells.json``: occupancy within 0.01,
+                  pruning error within 10x (or both under their epsilon-0
+                  run's reorder noise), RFF hit fraction within 0.02;
+                  (b) ServeConfig(plan="auto") with the default cells
+                  at repro's 262144 x 16 clustered regime and the main
+                  set, accuracy 1e-5 and 5e-4: the plan, one request's
+                  launches (B4 when it prunes, B2 when not) and its
+                  answer against float64 within the tier's bar plus the
+                  cell's measured pruning error; (c) Fig. 5: SDKDE
+                  prune="off" fit + evaluate at k = 4096 ... 32768 (k/8
+                  queries, d 16, f32; and 1M with --paper-scale), the
+                  paper's FLOP count over time x the FP32 peak, beside
+                  B1 + B2's bound; (d) roofline rows
+                  (``repro_torch.analysis``): B1 and B2 at the main shape
+                  and the SSM prefill (model FLOPs over phase 8's warm
+                  prefill, FlopCounterMode's aten FLOPs beside them).
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -242,6 +265,7 @@ CUDA device or a directory without the repository's ``src/``.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import re
@@ -254,6 +278,23 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+
+
+def _load_profile():
+    """``repro_torch.analysis.profile`` (the profiler accounting and the
+    CUDA-event / CUDA-graph timers), loaded by path: it imports torch
+    alone, and ``--prefill-profile`` imports another checkout's
+    ``repro_torch`` into this process."""
+    path = ROOT / "src" / "repro_torch" / "analysis" / "profile.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_profile", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+profile = _load_profile()
+cuda_ms, graph_ms = profile.cuda_ms, profile.graph_ms
 N_TRAIN, N_QUERY, D = 32768, 16384, 16
 SMALL = (1000, 300, 16)                 # ragged (n, m, d)
 TIERS = ("f32", "bf16x2", "bf16")
@@ -444,52 +485,6 @@ def laplace_mass(kdemod, x, y, h: float, block: int = 2048):
         s = kdemod.sqdist(y64, x[j0:j0 + block].double()) / (2 * h * h)
         out += (torch.exp(-s) * (2 + d / 2 + s)).sum(1)
     return out / (n * (2 * math.pi) ** (d / 2) * h**d)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs, after one
-    warm-up run."""
-    fn()
-    sync()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        sync()
-        times.append(e0.elapsed_time(e1))
-    times.sort()
-    return times[len(times) // 2]
-
-
-def graph_ms(fn, calls: int = 10, reps: int = 5) -> float:
-    """Device time of one call of ``fn``: ``calls`` calls captured in one
-    CUDA graph, the graph replayed ``reps`` times between two events each;
-    the median over the replays, per call.  Unlike ``cuda_ms`` no host
-    work (the wrapper's checks and allocations) sits between launches,
-    which matters for a kernel shorter than its wrapper's host time."""
-    fn()
-    sync()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    sync()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        graph.replay()
-        e1.record()
-        sync()
-        times.append(e0.elapsed_time(e1) / calls)
-    del graph
-    times.sort()
-    return times[len(times) // 2]
 
 
 def host_ms(fn) -> tuple:
@@ -1599,7 +1594,7 @@ def timed_entry(name, c, precision, h, errors) -> dict:
         f"plain {plain:.3f} ms, bound {bms:.4f} ms ({by}), "
         f"{bms / ms * 100:.1f}% of bound{occ}")
     entry = {"ms": ms, "call_ms": call, "plain_ms": plain, "bound_ms": bms,
-             "bound_by": by, "pairs": c["pairs"]}
+             "bound_by": by, "pairs": c["pairs"], "moved": c["moved"]}
     if "occupancy" in c:
         entry.update(occupancy=c["occupancy"], max_visits=c["max_visits"])
     if errors is not None:
@@ -1918,85 +1913,15 @@ def compare_model(got, want, what: str) -> dict:
     return compare(got, want, MODEL_RTOL, what, atol_frac=MODEL_ATOL)
 
 
-GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "gemv")
-# elementwise work of the Mamba block's eager glue, counted by name in a
-# profile: with the fused scan no softplus runs, and silu once a layer
-# (the conv's; the gate's runs inside B7)
-GLUE_WORDS = ("softplus", "silu")
-_DEMANGLED_SCAN = re.compile(
-    r"selective_scan_kernel<(float|__nv_bfloat16), (\d+), (true|false)>")
-_FUNCTOR = re.compile(r"\w+Functor\w*|\w+_kernel\w*")
-_WRAPPERS = ("BinaryFunctor", "AUnaryFunctor", "BUnaryFunctor",
-             "gpu_kernel_impl", "gpu_kernel_impl_nocast")
-TOP_OTHER = 12
-
-
-def short_kernel_name(name: str) -> str:
-    """A profiled kernel's name, short: B7's mode and instantiation,
-    PyTorch's elementwise kernels as "kernel functor", any other name cut
-    to 80 characters."""
-    m = _DEMANGLED_SCAN.search(name)
-    if m:
-        mode = "mamba_scan" if m.group(3) == "true" else "selective_scan"
-        return (f"B7 {mode}<{'f32' if m.group(1) == 'float' else 'bf16'},"
-                f"{m.group(2)}>")
-    outer = re.match(r"(?:void )?(?:\w+::)*(\w+)<", name)
-    if outer is None or "at::native" not in name:
-        return name[:80]
-    inner = [f for f in _FUNCTOR.findall(name, outer.end())
-             if f not in _WRAPPERS]
-    return f"{outer.group(1)} {inner[0] if inner else '?'}"
-
-
 def device_breakdown(fn, label: str) -> dict:
-    """One warm call of ``fn`` under torch.profiler: the device kernels'
-    time summed by class (GEMMs, B7, everything else), the "other" class
-    by kernel name with launch counts (the top ``TOP_OTHER``), launches
-    whose name holds a ``GLUE_WORDS`` word, and the device's busy time
-    (the union of the kernels' intervals), beside the call's host-clock
-    time; the idle share is 1 − busy / wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA], acc_events=True) as prof:
-        _, wall_ms = host_ms(fn)
-    classes = {"gemm": 0.0, "B7": 0.0, "other": 0.0}
-    glue = dict.fromkeys(GLUE_WORDS, 0)
-    by_name, other, spans = {}, {}, []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t0, t1 = e.time_range.start, e.time_range.end
-        spans.append((t0, t1))
-        name = e.name.lower()
-        kind = ("B7" if "selective_scan" in name else
-                "gemm" if any(k in name for k in GEMM_KERNELS) else "other")
-        classes[kind] += (t1 - t0) / 1e3
-        for word in GLUE_WORDS:
-            glue[word] += word in name
-        short = short_kernel_name(e.name)
-        for table in (by_name, other) if kind == "other" else (by_name,):
-            ms, count = table.get(short, (0.0, 0))
-            table[short] = (ms + (t1 - t0) / 1e3, count + 1)
-    busy, end = 0.0, float("-inf")
-    for t0, t1 in sorted(spans):
-        busy += max(0.0, t1 - max(t0, end))
-        end = max(end, t1)
-    busy /= 1e3
-
-    def ranked(table, k):
-        return [{"ms": t, "count": c, "kernel": n} for t, c, n in
-                sorted(((ms, c, n) for n, (ms, c) in table.items()),
-                       reverse=True)[:k]]
-
-    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
-           "idle_share": 1 - busy / wall_ms if busy else None,
-           "by_class_ms": classes, "glue_launches": glue,
-           "top": ranked(by_name, 6), "other_by_kernel": ranked(other,
-                                                                TOP_OTHER)}
+    """One warm call of ``fn`` under torch.profiler, accounted by
+    ``repro_torch.analysis.profile`` (device time by class: GEMMs, B7,
+    everything else; the "other" class by kernel name; launches naming a
+    ``GLUE_WORDS`` word; the device's busy time and idle share beside the
+    call's host clock), and logged."""
+    out = profile.device_breakdown(fn)
+    busy, wall_ms, classes = (out["device_busy_ms"], out["wall_ms"],
+                              out["by_class_ms"])
     if not busy:
         log(f"  {label}: the profiler recorded no device time (not "
             f"measured); host clock {wall_ms:.1f} ms")
@@ -2007,11 +1932,11 @@ def device_breakdown(fn, label: str) -> dict:
         + "; top kernels: "
         + "; ".join(f"{r['kernel']} {r['ms']:.2f} ms x{r['count']}"
                     for r in out["top"][:4]))
-    log(f"    other by kernel (top {TOP_OTHER}): "
+    log(f"    other by kernel (top {profile.TOP_OTHER}): "
         + "; ".join(f"{r['kernel']} {r['ms']:.2f} ms x{r['count']}"
                     for r in out["other_by_kernel"])
-        + "; launches naming " + ", ".join(f"{k} {v}"
-                                           for k, v in glue.items()))
+        + "; launches naming " + ", ".join(
+            f"{k} {v}" for k, v in out["glue_launches"].items()))
     return out
 
 
@@ -2104,6 +2029,9 @@ def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
         prof_prefill = device_breakdown(
             lambda: transformer.prefill(params, ids, cfg),
             f"prefill {SERVE_BATCH} x {SERVE_PROMPT}, profiled")
+        # the aten products' FLOPs of one prefill (phase 13d's roofline)
+        aten_flops = profile.flop_count(transformer.prefill, params, ids,
+                                        cfg)
         _, cache = transformer.prefill(params, ids, cfg)
         tok = ids[:, -1:]
         prof_decode = device_breakdown(
@@ -2119,7 +2047,8 @@ def phase_ssm_serve(ops, fs, fk, fp, fl) -> dict:
     out = {"layers": n_l, "params": n_params, "init_ms": init_ms,
            "prefill_ms": r["prefill_ms"], "prefill_warm_ms": warm_ms,
            "decode_s": r["decode_s"], "decode_tok_s": r["decode_tok_s"],
-           "generate_ms": gen_ms,
+           "generate_ms": gen_ms, "prefill_aten_flops": aten_flops,
+           "param_bytes": gb * 1e9,
            "peak_memory_gib": r["peak_memory_bytes"] / 2**30,
            "peak_memory_gib_by_stage": {
                k: v / 2**30 for k, v in r["peak_memory_by_stage"].items()},
@@ -3824,6 +3753,287 @@ def phase_ring(data, est_mod, serve, kdemod, fs, fk, fp, fl, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the measurement layer
+# ---------------------------------------------------------------------------
+
+# 13a: a measured cell against the committed one (plan/h100_cells.json):
+# occupancy within CELL_OCC_TOL absolute (the k-means start is seeded; a
+# card's reductions may still move a label), pruning error within a
+# factor CELL_ERR_FACTOR (or both under their epsilon-0 run's reorder
+# noise), hit fraction within CELL_HIT_TOL absolute
+CELL_OCC_TOL, CELL_ERR_FACTOR, CELL_HIT_TOL = 0.01, 10.0, 0.02
+# 13b: plan="auto" at two accuracy targets (f32-grade, bf16x2-grade)
+PLAN_TARGETS = (1e-5, 5e-4)
+# 13c: Fig. 5's sizes (k train, k/8 queries, d 16, f32)
+FIG5_KS = (4096, 8192, 16384, 32768)
+FIG5_REPS = 5
+
+
+def watch_b4_tiles(ops, sp, clustered, winner, card) -> dict:
+    """ROADMAP C's watch item: B4 on the clustered set at the launch
+    tuner's winner (phase 10a, whose probe times B2 dense) against
+    128 x 128, every tier, CUDA-graph device time."""
+    cx, cy = clustered["x"], clustered["y"]
+    index = sp.build_index(cx, seed=SEED)
+    out = {}
+    for bm, bn in (tuple(winner), (128, 128)):
+        row = {}
+        for tier in TIERS:
+            c = pruned_operands(ops, sp, cx, cy, tier, bm, bn, CLU_H,
+                                index)["flash_kde_pruned"]
+            bms, by = bound_ms("kde", tier, c["pairs"], D, c["moved"])
+            row[tier] = {"ms": graph_ms(c["kernel"]), "bound_ms": bms,
+                         "bound_by": by, "occupancy": c["occupancy"],
+                         "pairs": c["pairs"]}
+            del c
+        out[f"{bm}x{bn}"] = row
+    win, base = out[f"{winner[0]}x{winner[1]}"], out["128x128"]
+    for tier in TIERS:
+        log(f"  B4 clustered {tier}: tuner winner {winner[0]}x{winner[1]} "
+            f"{win[tier]['ms']:.4f} ms (occupancy "
+            f"{win[tier]['occupancy']:.4f}, bound {win[tier]['bound_ms']:.4f}"
+            f"), 128x128 {base[tier]['ms']:.4f} ms (occupancy "
+            f"{base[tier]['occupancy']:.4f}, bound "
+            f"{base[tier]['bound_ms']:.4f}); winner / 128x128 "
+            f"{win[tier]['ms'] / base[tier]['ms']:.3f} [{card}]")
+    return {"winner": list(winner), "tiles": out}
+
+
+def _cell_label(key) -> str:
+    kind, nb, d, x = key
+    return (f"{kind} n<={nb} d {d} "
+            + (f"eps {x:g}" if kind == "pruning" else f"target {x:g}"))
+
+
+def measure_cells(card) -> dict:
+    """13a: the writer run again, to a temporary file, every cell held
+    to the committed one."""
+    import tempfile
+
+    from repro_torch.plan import cells, planner
+
+    committed = json.loads(planner.CELLS_PATH.read_text())
+    t0 = time.perf_counter()
+    doc = cells.measure()
+    with tempfile.TemporaryDirectory() as tmp:
+        cells.write(doc, Path(tmp) / "cells.json")
+        doc = json.loads((Path(tmp) / "cells.json").read_text())
+    writer_s = time.perf_counter() - t0
+    log(f"  writer: {len(doc['cells'])} cells in {writer_s:.1f} s, on "
+        f"{doc['meta']['card']}, {doc['meta']['power_limit']}; committed: "
+        f"{committed['meta']['card']}, {committed['meta']['power_limit']} "
+        f"({committed['meta']['date']})")
+    want = {cells.cell_key(c): c for c in committed["cells"]}
+    got = {cells.cell_key(c): c for c in doc["cells"]}
+    if set(want) != set(got):
+        raise AssertionError(f"measured cell keys {sorted(got)} differ "
+                             f"from the committed {sorted(want)}")
+    gaps = {"occupancy": 0.0, "prune_rel_err_ratio": 1.0,
+            "rff_hit_frac": 0.0}
+    for key, c in want.items():
+        m = got[key]
+        if key[0] == "pruning":
+            occ = abs(m["occupancy"] - c["occupancy"])
+            e_m, e_c = m["prune_rel_err"], c["prune_rel_err"]
+            quiet = e_m <= m["reorder_noise"] and e_c <= c["reorder_noise"]
+            ratio = (max(e_m, e_c) / min(e_m, e_c) if min(e_m, e_c) > 0
+                     else (1.0 if e_m == e_c else math.inf))
+            ok = occ <= CELL_OCC_TOL and (ratio <= CELL_ERR_FACTOR or quiet)
+            log(f"  {_cell_label(key)}: occupancy {m['occupancy']:.4f} vs "
+                f"{c['occupancy']:.4f}, prune_rel_err {e_m:.3e} vs "
+                f"{e_c:.3e} (reorder noise {m['reorder_noise']:.2e} / "
+                f"{c['reorder_noise']:.2e}), B4 {m['pruned_kernel_ms']:.4f}"
+                f" ms, B2 {m['dense_kernel_ms']:.4f} ms [{card}]")
+            gaps["occupancy"] = max(gaps["occupancy"], occ)
+            if not quiet:
+                gaps["prune_rel_err_ratio"] = max(
+                    gaps["prune_rel_err_ratio"], ratio)
+        else:
+            hit = abs(m["rff_hit_frac"] - c["rff_hit_frac"])
+            ok = hit <= CELL_HIT_TOL
+            log(f"  {_cell_label(key)}: rff_hit_frac "
+                f"{m['rff_hit_frac']:.4f} vs {c['rff_hit_frac']:.4f} "
+                f"({m['rff_hits']}/{m['rows']} rows), worst realized - "
+                f"bound {m['worst_cert_slack']:.2e} [{card}]")
+            gaps["rff_hit_frac"] = max(gaps["rff_hit_frac"], hit)
+        if not ok:
+            raise AssertionError(f"{_cell_label(key)}: the card measured "
+                                 f"{m}, the committed cell says {c}")
+    log(f"  largest gaps: occupancy {gaps['occupancy']:.2e} (tolerance "
+        f"{CELL_OCC_TOL}), prune_rel_err ratio "
+        f"{gaps['prune_rel_err_ratio']:.3f} (tolerance {CELL_ERR_FACTOR:g}"
+        f"), rff_hit_frac {gaps['rff_hit_frac']:.2e} (tolerance "
+        f"{CELL_HIT_TOL})")
+    return {"writer_s": writer_s, "gaps": gaps, "cells": doc["cells"],
+            "meta": doc["meta"]}
+
+
+def serve_planned(data, serve, kdemod, fs, fk, fp, fl, card) -> dict:
+    """13b: ServeConfig(plan="auto") with the default measured cells at
+    repro's 262144 x 16 clustered regime and the main set, at each of
+    PLAN_TARGETS: the plan, the launches of one request (B4 when it
+    prunes, B2 when not) and its answer against float64 within the
+    tier's bar plus the cell's measured pruning error."""
+    from repro_torch.plan import cells, planner
+
+    bench = planner.BenchModel.load()
+    acc = cells.PRUNE_REGIMES[0]
+    ax, ay = acc.draw(acc.n, N_F64, data["x"].device)
+    regimes = {"repro acceptance": (ax, ay, acc.h, kdemod.sdkde_eval(
+                   ax.double(), ay.double(), acc.h)),
+               "main": (data["x"], data["y"][:N_F64], data["h"],
+                        data["f64"])}
+    out = {}
+    for name, (x, y, h, f64) in regimes.items():
+        n, d = x.shape
+        for target in PLAN_TARGETS:
+            eng = serve.ServeEngine(serve.ServeConfig(
+                plan="auto", accuracy_target=target))
+            prep, reg_ms = host_ms(lambda: eng.register("p", x, h=h))
+            p = prep.plan
+            req = serve.QueryRequest(key="p", points=y)
+            eng.query(req)
+            reset_counts(fs, fk, fp, fl)
+            ans, q_ms = host_ms(lambda: eng.query(req))
+            counts = read_counts(fs, fk, fp, fl)
+            kernel = "flash_kde" if p.prune == "off" else "flash_kde_pruned"
+            check_launches(counts, (kernel,),
+                           f'plan="auto" {name} target {target:g}')
+            err = (bench.measured_rel_err(n, d, p.prune) or 0.0
+                   if p.prune != "off" else 0.0)
+            bar = tier_bar(p.precision, torch.cat([x, y]), h) + err
+            what = (f'plan="auto" {name} ({n} x {d}) target {target:g}: '
+                    f"{p.plan_id}, rff {p.rff}, occupancy priced "
+                    f"{p.occupancy:.4f}; answer vs float64")
+            res = compare(ans.value, f64, bar, what)
+            log(f"    register {reg_ms:.1f} ms, one {y.shape[0]}-row request "
+                f"{q_ms:.3f} ms, launches {kernel} {counts[kernel]}, bar "
+                f"{bar:.3e} (tier + measured prune_rel_err {err:.2e}) "
+                f"[{card}]")
+            out[f"{name} {target:g}"] = {
+                "plan": p.as_dict(), "plan_id": p.plan_id,
+                "register_ms": reg_ms, "request_ms": q_ms,
+                "launches": counts[kernel], "bar": bar, "vs_f64": res}
+            del eng
+    return out
+
+
+def fig5_utilization(mixture, gen, est_mod, paper, card) -> dict:
+    """13c: Fig. 5 on the card.  SDKDE prune="off" fit + evaluate at k
+    train and k/8 queries, d 16, f32 (CUDA-event medians); utilization is
+    the paper's §4.1 count (an exp at 8 FLOPs) over time × the FP32
+    peak; beside it B1 + B2's bound (``tuning.pair_bound``)."""
+    from repro_torch.analysis import flops as fl_mod
+    from repro_torch.kernels import tuning
+
+    rows = {}
+
+    def row(k, m, ms, how):
+        work = fl_mod.sdkde_flops(k, D, n_test=m)
+        util = work / (ms / 1e3 * tuning.FP32_FLOPS)
+        b1 = tuning.pair_bound("score", "f32", k * k, D,
+                               4 * k * (4 * D + 3))[0]
+        b2 = tuning.pair_bound("kde", "f32", k * m, D,
+                               4 * (m * (D + 2) + k * (D + 1)))[0]
+        bound = (b1 + b2) * 1e3
+        rows[k] = {"queries": m, "ms": ms, "paper_flops": work,
+                   "utilization": util, "bound_ms": bound,
+                   "bound_share": bound / ms, "timed": how}
+        log(f"  k {k}, {m} queries: fit + evaluate {ms:.3f} ms ({how}); "
+            f"{work:.4e} FLOPs (paper's model), {work / ms / 1e9:.3f} "
+            f"TFLOP/s, utilization {util * 100:.2f}% of FP32 "
+            f"{tuning.FP32_FLOPS / 1e12:g} TFLOP/s; B1 + B2 bound "
+            f"{bound:.3f} ms ({bound / ms * 100:.1f}% of the time) [{card}]")
+
+    for k in FIG5_KS:
+        m = k // 8
+        x = mixture.sample(k, gen)
+        y = mixture.sample(m, gen)
+        est = est_mod.SDKDE(config=est_mod.EstimatorConfig(prune="off"))
+        row(k, m, cuda_ms(lambda: est.fit(x).evaluate(y), FIG5_REPS),
+            f"CUDA-event median of {FIG5_REPS}")
+        del est, x, y
+    if paper is not None:
+        off = paper["off"]
+        row(1_048_576, 131_072, off["total_s"] * 1e3,
+            "phase 6, host clock, one run")
+    return rows
+
+
+def roofline_rows(timings, ssm, card) -> dict:
+    """13d: roofline rows (``analysis.roofline.format_table``): B1 and B2
+    at the main shape from their per-pair FP32 operations and bytes
+    (``tuning.pair_operations``; their model FLOPs are that count, so
+    the MFU at the measured time is the FP32 peak's share the kernel
+    reached) beside their measured time, and the SSM prefill: 2·N·D
+    model FLOPs over phase 8's warm prefill (its MFU at the bf16 peak)
+    and the aten products' FLOPs FlopCounterMode counted there."""
+    from repro_torch.analysis import flops as fl_mod
+    from repro_torch.analysis import roofline
+    from repro_torch.kernels import tuning
+    from repro_torch.launch import serve as serve_mod
+
+    terms, measured = [], {}
+    for name, kind, key in (("B1 flash_score", "score", "flash_score"),
+                            ("B2 flash_kde", "kde", "flash_kde")):
+        e = timings["entries"][key]["f32"]
+        gemm, elem = tuning.pair_operations(kind, "f32", D)
+        work = e["pairs"] * (gemm + elem)
+        t = roofline.roofline_from_counts(
+            arch=name, shape=f"{N_TRAIN}x{N_TRAIN}x{D} f32", flops=work,
+            bytes=e["moved"], model_flops=work, hw=roofline.HW_FP32)
+        terms.append(t)
+        measured[name] = e["ms"]
+    cfg = serve_mod.build_config(SERVE_ARCH, layers=SERVE_LAYERS)
+    tokens = SERVE_BATCH * SERVE_PROMPT
+    t = roofline.roofline_from_counts(
+        arch=f"{SERVE_ARCH} prefill", shape=f"{SERVE_BATCH}x{SERVE_PROMPT} "
+        "bf16", flops=ssm["prefill_aten_flops"], bytes=ssm["param_bytes"],
+        model_flops=fl_mod.model_flops(cfg, tokens, training=False),
+        bytes_per_device=ssm["peak_memory_gib_by_stage"]["prefill"] * 2**30)
+    terms.append(t)
+    measured[t.arch] = ssm["prefill_warm_ms"]
+    for line in roofline.format_table(terms).splitlines():
+        log("  " + line)
+    out = {}
+    for t in terms:
+        ms = measured[t.arch]
+        out[t.arch] = {**t.row(), "peak_flops": t.hw.peak_flops,
+                       "measured_ms": ms,
+                       "roofline_share": t.step_time * 1e3 / ms,
+                       "mfu_measured": t.mfu_at(ms / 1e3)}
+        log(f"  {t.arch}: measured {ms:.4f} ms against the roofline's "
+            f"{t.step_time * 1e3:.4f} ms ({t.bound}), "
+            f"{t.step_time * 1e3 / ms * 100:.1f}% of it; model FLOPs / "
+            f"counted {t.useful_flops_ratio:.4f}; MFU at the measured time "
+            f"{t.mfu_at(ms / 1e3) * 100:.2f}% of "
+            f"{t.hw.peak_flops / 1e12:g} TFLOP/s [{card}]")
+    return out
+
+
+def phase_measurement(data, clustered, mixture, gen, serve, est_mod, ops,
+                      sp, kdemod, fs, fk, fp, fl, decisions, timings, ssm,
+                      paper, card) -> dict:
+    log(f"== phase 13: measurement (measured cells, plan=\"auto\" from "
+        f"them, Fig. 5, roofline) [{card}]")
+    t0 = time.perf_counter()
+    out = {"watch_b4": watch_b4_tiles(
+        ops, sp, clustered, decisions["tuner"]["B4 clustered"]["winner"],
+        card)}
+    log("  13a: measured cells against the committed ones")
+    out["cells"] = measure_cells(card)
+    log("  13b: plan=\"auto\" from the default cells")
+    out["plans"] = serve_planned(data, serve, kdemod, fs, fk, fp, fl, card)
+    log("  13c: Fig. 5, SDKDE utilization")
+    out["fig5"] = fig5_utilization(mixture, gen, est_mod, paper, card)
+    log("  13d: roofline rows")
+    out["roofline"] = roofline_rows(timings, ssm, card)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 13 took {out['phase_s']:.1f} s")
+    return out
+
+
 def prefill_profile(checkout: Path) -> int:
     """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
     weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
@@ -3938,6 +4148,10 @@ def main(argv=None) -> int:
     res_launches = resilient["launches"]
     ring_out = phase_ring(data, est_mod, serve, kdemod, fs, fk, fp, fl,
                           card)
+    measurement = phase_measurement(data, clustered, mixture, gen, serve,
+                                    est_mod, ops, spatial, kdemod, fs, fk,
+                                    fp, fl, decisions, timings, ssm_serve,
+                                    paper, card)
 
     # launches: each kernel's count from the path that runs it, with its
     # counts set to 0 just before and read just after (phases 4 and 4c)
@@ -4045,6 +4259,7 @@ def main(argv=None) -> int:
     summary["decisions"] = decisions
     summary["resilient"] = resilient
     summary["ring"] = ring_out
+    summary["measurement"] = measurement
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

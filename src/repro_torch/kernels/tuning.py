@@ -80,25 +80,31 @@ def _round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
+def pair_operations(kind: str, precision: str, d: int) -> Tuple[int, int]:
+    """(Gram flops, elementwise FP32 flops) of one (row, column) pair:
+    the Gram's 2d (and the score pass's φ·[X|1], 2(d+1)), four products
+    at bf16x2, and the elementwise work (score 3, kde 4, laplace 6,
+    sq_moment 5); one exp a pair comes on top, on the SFU."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown pass kind {kind!r} (choose from {KINDS})")
+    prec.validate(precision)
+    gemm = 2 * d + (2 * (d + 1) if kind == "score" else 0)
+    elementwise = {"score": 3, "kde": 4, "laplace": 6, "sq_moment": 5}[kind]
+    return gemm * prec.gram_products(precision), elementwise
+
+
 def pair_bound(kind: str, precision: str, pairs: float, d: int,
                moved: float) -> Tuple[float, str]:
     """(seconds, "bytes" | "operations"): the least time the card could
     take for a pass over ``pairs`` (row, column) pairs that must move
     ``moved`` bytes (each input read once, each output written once).
 
-    Operations: the Gram's 2d (and the score pass's φ·[X|1], 2(d+1)) as
-    FP32 flops at f32 or as tensor-core flops at the bf16 tiers (four
-    products at bf16x2), the elementwise work a pair (score 3, kde 4,
-    laplace 6, sq_moment 5) as FP32 flops, and one exp a pair on the
-    SFU; the larger of the operations and the bytes over their peak
-    rates.  ``chip_smoke.py``'s bounds and the tuner's floor are this
+    Operations (:func:`pair_operations`): the Gram's as FP32 flops at
+    f32 or as tensor-core flops at the bf16 tiers, the elementwise work
+    as FP32 flops, and one exp a pair on the SFU; the larger of the
+    operations and the bytes over their peak rates.  ``chip_smoke.py``'s bounds and the tuner's floor are this
     function."""
-    if kind not in KINDS:
-        raise ValueError(f"unknown pass kind {kind!r} (choose from {KINDS})")
-    prec.validate(precision)
-    gemm = 2 * d + (2 * (d + 1) if kind == "score" else 0)
-    gemm *= prec.gram_products(precision)
-    elementwise = {"score": 3, "kde": 4, "laplace": 6, "sq_moment": 5}[kind]
+    gemm, elementwise = pair_operations(kind, precision, d)
     if precision == "f32":
         ops_s = pairs * (gemm + elementwise) / FP32_FLOPS
     else:
@@ -399,7 +405,7 @@ def rff_eval_cost(rows: int, d: int, *, n_features: int, n_pilot: int = 0,
 __all__ = [
     "HBM_BW", "FP32_FLOPS", "BF16_FLOPS", "SMS", "CLOCK_HZ", "EXP_RATE",
     "ISSUE_RATE", "SMEM_BLOCK", "ROWS", "EPILOGUE_INSTR", "KINDS",
-    "KernelCost", "pair_bound", "kde_pass_smem", "score_pass_smem",
+    "KernelCost", "pair_operations", "pair_bound", "kde_pass_smem", "score_pass_smem",
     "score_groups", "infeasible", "pair_pass_cost", "sdkde_device_cost",
     "selective_scan_bytes", "sweep_blocks", "best_blocks", "rff_eval_cost",
 ]

@@ -198,6 +198,20 @@ def param_count(cfg: ModelConfig) -> int:
     return sum(math.prod(s) for s, _ in param_shapes(cfg).values())
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Activated parameters per token (MoE: top_k of n_experts); every
+    other family activates all of ``param_count``."""
+    if cfg.family != "moe" or not cfg.n_experts:
+        return param_count(cfg)
+    total = 0
+    for name, (shape, _) in param_shapes(cfg).items():
+        n = math.prod(shape)
+        if "experts_" in name:
+            n = n * cfg.top_k // cfg.n_experts
+        total += n
+    return total
+
+
 def _init_one(gen: torch.Generator, name: str, shape, dtype,
               device: torch.device) -> torch.Tensor:
     """``repro``'s rules: ones for norms, conv_b, dt_bias and D; A_log =
@@ -247,5 +261,6 @@ def layer_params(params: Dict[str, torch.Tensor], i: int,
 
 __all__ = ["Family", "PORTED_FAMILIES", "UNPORTED_FIELDS", "ModelConfig",
            "ShapeSpec",
-           "check_family", "param_shapes", "param_count", "init_params",
+           "check_family", "param_shapes", "param_count", "active_param_count",
+           "init_params",
            "layer_tree", "layer_params"]

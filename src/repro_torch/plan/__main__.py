@@ -4,7 +4,7 @@
   golden-decision fixture (``src/repro_torch/plan/golden_plans.json``).
 * ``python -m repro_torch.plan --n 262144 --d 16 [--q --accuracy
   --backend --stream --rff]`` prints the plan one request resolves to, as
-  JSON (default measured cells: none, so no epsilon > 0 and no RFF tier).
+  JSON (measured cells: the committed ``plan/h100_cells.json``).
 """
 
 from __future__ import annotations

@@ -12,13 +12,14 @@ Decision inputs (the planner never times the card):
   * the modeled pass costs of ``kernels/tuning.py`` /
     ``kernels/autotune.py`` — the H100's model, padding-aware, with the
     kernels' launch geometry;
-  * *measured* benchmark cells wrapped by :class:`BenchModel`: measured
-    prune occupancies and pruning error license an epsilon > 0 for a
-    shape regime, a measured RFF hit fraction licenses the fast tier.
-    The port has no committed H100 cells yet, so the default model is
-    empty: by ``repro``'s own rule for unmeasured regimes no epsilon > 0
-    and no RFF tier is planned by default (``repro``'s
-    ``BENCH_flash.json`` cells are TPU measurements and are not read);
+  * *measured* cells wrapped by :class:`BenchModel`: measured prune
+    occupancies and pruning error license an epsilon > 0 for a shape
+    regime, a measured RFF hit fraction licenses the fast tier.  By
+    default it reads the committed H100 cells, ``plan/h100_cells.json``
+    (written on the card by ``python -m repro_torch.plan.cells``); by
+    ``repro``'s own rule an unmeasured regime plans no epsilon > 0 and no
+    RFF tier (``repro``'s ``BENCH_flash.json`` cells are TPU
+    measurements and are not read);
   * the tiers' documented accuracy bars (:data:`TIER_RTOL`).
 
 Decision rules (``repro``'s, with the port's backends):
@@ -120,7 +121,7 @@ class BenchModel:
     def load(cls, paths: Optional[Sequence[Union[str, Path]]] = None
              ) -> "BenchModel":
         """Load from measured-cell documents (missing files are skipped);
-        the default is :func:`default_bench_paths`, empty today."""
+        the default is :func:`default_bench_paths`."""
         if paths is None:
             paths = default_bench_paths()
         docs = []
@@ -202,11 +203,13 @@ class BenchModel:
         return best
 
 
+#: The committed H100 measured cells (``plan/cells.py`` writes them).
+CELLS_PATH = Path(__file__).with_name("h100_cells.json")
+
+
 def default_bench_paths() -> List[Path]:
-    """The committed H100 measured-cell documents the planner reads by
-    default: none yet (ROADMAP: the planner's measured-cell file waits for
-    committed H100 measurements), so an unmeasured regime plans exact."""
-    return []
+    """The measured-cell documents the planner reads by default."""
+    return [CELLS_PATH]
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +640,7 @@ def resolve_config(cfg, n: int, d: int,
 __all__ = [
     "TIER_RTOL", "TIER_ORDER", "EPS_SAFETY", "DEFAULT_ACCURACY",
     "FLASH_MIN_COLS", "DEFAULT_Q",
-    "BenchModel", "default_bench_paths",
+    "BenchModel", "CELLS_PATH", "default_bench_paths",
     "PlanRequest", "ExecutionPlan",
     "plan", "plan_for", "resolve_config",
 ]

@@ -73,6 +73,42 @@ def test_a13_modules_are_scanned_and_import(module):
     importlib.import_module(module)
 
 
+# the measurement slice (ROADMAP A11's measured cells, A14's analysis/)
+MEASUREMENT_MODULES = ("repro_torch.analysis", "repro_torch.analysis.flops",
+                       "repro_torch.analysis.roofline",
+                       "repro_torch.analysis.profile",
+                       "repro_torch.plan.cells")
+
+
+@pytest.mark.parametrize("module", MEASUREMENT_MODULES)
+def test_measurement_modules_are_scanned_and_import(module):
+    """Each module of the measurement slice is among the files the AST
+    scan holds to "no jax, nothing of repro", imports nothing of
+    ``benchmarks`` either, and imports without a card."""
+    rel = pathlib.Path("src", *module.split("."))
+    path = ROOT / (rel / "__init__.py" if (ROOT / rel).is_dir()
+                   else rel.with_suffix(".py"))
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro",
+                                              "benchmarks"}
+    importlib.import_module(module)
+
+
+def test_analysis_exports_match_repro_but_the_hlo_parsers():
+    """``repro_torch.analysis`` exports ``repro.analysis``'s names less
+    the HLO parsers' (``hlo.py``; ``roofline_from_compiled`` reads a
+    compiled HLO), which the profiler accounting and
+    ``roofline_from_counts`` replace."""
+    import repro.analysis as janalysis
+    import repro_torch.analysis as tanalysis
+
+    hlo = {"collective_bytes", "hlo_collectives", "roofline_from_compiled"}
+    assert set(janalysis.__all__) - hlo <= set(tanalysis.__all__)
+    assert {"roofline_from_counts", "format_table", "Hardware",
+            "device_breakdown", "flop_count"} <= set(tanalysis.__all__)
+    assert all(hasattr(tanalysis, name) for name in tanalysis.__all__)
+
+
 def test_distributed_exports_match_repro_but_compat():
     """``repro_torch.distributed`` exports ``repro.distributed``'s names
     (``compat``, a JAX-version shim, has no counterpart) and the port's

@@ -12,6 +12,8 @@ precedence and ``ServeConfig(plan="auto")`` end to end come after.
 
 import dataclasses
 import json
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -25,7 +27,7 @@ from repro_torch import obs
 from repro_torch import plan as plan_mod
 from repro_torch.kernels import autotune, flash_rff
 from repro_torch.plan import __main__ as plan_cli
-from repro_torch.plan import planner
+from repro_torch.plan import cells, planner
 from repro_torch.serve import QueryRequest, ServeConfig, ServeEngine
 
 BACKENDS = {"pallas": "flash", "jnp": "torch"}
@@ -117,13 +119,201 @@ def test_explicit_backends_and_validation():
 
 
 def test_default_model_plans_no_epsilon_and_no_rff():
-    """No committed H100 cells: unmeasured regimes plan exact, and the
-    fast tier is never planned by default (repro's rule)."""
-    assert planner.default_bench_paths() == []
-    assert planner.BenchModel.load()._prune_cells == []
+    """Unmeasured regimes plan exact, and the fast tier is never planned
+    without a measured hit fraction (repro's rule), on a model with no
+    cells."""
+    empty = planner.BenchModel([])
+    assert empty._prune_cells == [] and empty._rff_cells == []
     for _, req in plan_mod.golden_requests():
-        p = planner.plan(req)
+        p = planner.plan(req, bench=empty)
         assert p.prune in ("off", 0.0) and not p.rff
+
+
+# ---------------------------------------------------------------------------
+# The committed H100 cells (plan/h100_cells.json, plan/cells.py).
+# ---------------------------------------------------------------------------
+
+
+def _committed() -> dict:
+    return json.loads(planner.CELLS_PATH.read_text())
+
+
+def test_default_bench_paths_name_the_committed_cells():
+    assert planner.default_bench_paths() == [planner.CELLS_PATH]
+    assert planner.CELLS_PATH.name == "h100_cells.json"
+    assert planner.CELLS_PATH.parent == pathlib.Path(planner.__file__).parent
+    doc = _committed()
+    bench = planner.BenchModel.load()
+    assert len(bench._prune_cells) == sum(
+        c["cell"] == "pruning" for c in doc["cells"]) > 0
+    assert len(bench._rff_cells) == sum(
+        c["cell"] == "rff_cascade" for c in doc["cells"]) > 0
+
+
+def test_committed_cells_schema():
+    """``meta`` names an NVIDIA card and its power limit, every cell has
+    the fields BenchModel reads, and a key holds at most one cell."""
+    doc = _committed()
+    meta = doc["meta"]
+    assert "NVIDIA" in meta["card"]
+    assert re.fullmatch(r"\d+(\.\d+)? W", meta["power_limit"])
+    assert meta["writer"] == "python -m repro_torch.plan.cells"
+    for key in ("torch", "cuda", "commit", "date"):
+        assert meta[key]
+    keys = [cells.cell_key(c) for c in doc["cells"]]
+    assert len(keys) == len(set(keys))
+    for c in doc["cells"]:
+        fields = (cells.PRUNE_FIELDS if c["cell"] == "pruning"
+                  else cells.RFF_FIELDS)
+        assert all(f in c for f in fields), (c, fields)
+        assert c["sources"]
+        if c["cell"] == "pruning":
+            assert 0.0 < c["occupancy"] <= 1.0 and c["prune_rel_err"] >= 0
+            if c["epsilon"] == 0.0:
+                assert c["prune_rel_err"] == 0.0
+        else:
+            assert 0.0 <= c["rff_hit_frac"] <= 1.0
+    # every regime of the writer is in the document, merged or not
+    regimes = {s["regime"] for c in doc["cells"] for s in c["sources"]}
+    assert regimes >= {r.name for r in cells.PRUNE_REGIMES} | {
+        r.name for r in cells.RFF_REGIMES}
+
+
+def _prune_cell(n, eps, occ, err, regime, noise=1e-7):
+    return {"cell": "pruning", "regime": regime, "n": n, "m": 1024,
+            "d": 16, "h": 0.5, "epsilon": eps, "block_m": 128,
+            "block_n": 128, "occupancy": occ, "prune_rel_err": err,
+            "reorder_noise": noise}
+
+
+def _rff_cell(n, target, hit, regime):
+    return {"cell": "rff_cascade", "regime": regime, "n": n, "d": 2,
+            "accuracy_target": target, "rff_hit_frac": hit}
+
+
+def test_merge_keeps_the_worst_of_a_key():
+    merged = cells.merge_cells([
+        _prune_cell(32768, 1e-9, 0.03, 2e-6, "clustered", noise=3e-7),
+        _prune_cell(30000, 1e-9, 0.55, 1e-8, "main"),
+        _prune_cell(32768, 0.0, 0.6, 0.0, "main"),
+        _prune_cell(262144, 1e-9, 0.02, 1e-9, "acceptance"),
+        _rff_cell(65536, 1e-2, 0.9, "a"),
+        _rff_cell(40000, 1e-2, 0.7, "b"),
+        _rff_cell(65536, 1e-1, 0.95, "a"),
+    ])
+    assert len(merged) == 5
+    by_key = {cells.cell_key(c): c for c in merged}
+    worst = by_key[("pruning", 32768, 16, 1e-9)]
+    assert worst["occupancy"] == 0.55 and worst["prune_rel_err"] == 2e-6
+    assert worst["reorder_noise"] == 3e-7
+    assert [s["regime"] for s in worst["sources"]] == ["clustered", "main"]
+    assert "regime" not in worst
+    assert by_key[("pruning", 262144, 16, 1e-9)]["occupancy"] == 0.02
+    low = by_key[("rff_cascade", 65536, 2, 1e-2)]
+    assert low["rff_hit_frac"] == 0.7
+    assert {s["regime"] for s in low["sources"]} == {"a", "b"}
+    # merging merged cells again changes nothing
+    assert cells.merge_cells(merged) == merged
+    bench = planner.BenchModel([{"cells": merged}])
+    assert bench.occupancy_record(32768, 16, 1e-9) == (128, 0.55)
+    assert bench.measured_rel_err(32768, 16, 1e-9) == 2e-6
+    assert bench.measured_rff_hit(65536, 2, 1e-2) == 0.7
+    with pytest.raises(ValueError, match="block_n"):
+        cells.merge_cells([_prune_cell(32768, 0.0, 0.5, 0.0, "a"),
+                           dict(_prune_cell(32768, 0.0, 0.5, 0.0, "b"),
+                                block_n=512)])
+
+
+def test_repro_and_the_port_read_the_committed_cells_alike():
+    doc = _committed()
+    jb, tb = jplanner.BenchModel([doc]), planner.BenchModel([doc])
+    for c in doc["cells"]:
+        n, d = c["n"], c["d"]
+        assert tb.measured_epsilons(n, d) == jb.measured_epsilons(n, d)
+        if c["cell"] == "pruning":
+            eps = c["epsilon"]
+            assert tb.occupancy_record(n, d, eps) == \
+                jb.occupancy_record(n, d, eps)
+            assert tb.measured_rel_err(n, d, eps) == \
+                jb.measured_rel_err(n, d, eps)
+        else:
+            for acc in (c["accuracy_target"], 1.0, 1e-6):
+                assert tb.measured_rff_hit(n, d, acc) == \
+                    jb.measured_rff_hit(n, d, acc)
+
+
+def test_default_plans_spend_only_measured_epsilons():
+    """At every committed pruning regime and a ladder of targets, the
+    default model's plan is valid, and an epsilon > 0 is one the cells
+    measured with an error inside the target."""
+    bench = planner.BenchModel.load()
+    for c in _committed()["cells"]:
+        if c["cell"] != "pruning":
+            continue
+        for acc in (1e-5, 5e-4, 5e-2):
+            p = planner.plan_for(c["n"], c["d"], accuracy=acc)
+            assert p.validate() == []
+            if not isinstance(p.prune, str) and p.prune > 0:
+                assert p.prune in bench.measured_epsilons(c["n"], c["d"])
+                assert bench.measured_rel_err(c["n"], c["d"],
+                                              p.prune) <= acc
+
+
+def test_the_writer_refuses_the_cpu(monkeypatch, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cells.measure("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cells.main(["--out", str(tmp_path / "cells.json")])
+    assert not (tmp_path / "cells.json").exists()
+
+
+def test_the_writers_clustered_mixture_is_repros():
+    from benchmarks.pruning_sweep import clustered_mixture as jclustered
+
+    mine, theirs = cells.clustered_mixture(), jclustered()
+    np.testing.assert_array_equal(mine.means, np.asarray(theirs.means))
+    np.testing.assert_array_equal(mine.stds, np.asarray(theirs.stds))
+    np.testing.assert_array_equal(mine.weights, np.asarray(theirs.weights))
+
+
+@pytest.mark.parametrize("kind,index", [("prune", 0), ("prune", 1),
+                                        ("prune", 2), ("rff", 0),
+                                        ("rff", 1), ("rff", 2)])
+def test_the_writers_cells_on_the_cpu_at_a_tiny_size(monkeypatch, kind,
+                                                     index):
+    """Each regime's measurement at a tiny size through the plain
+    versions (the kernel times stubbed: they are the card's): the fields
+    BenchModel reads, occupancy in (0, 1], no pruning error at epsilon 0,
+    and one cell a target."""
+    monkeypatch.setattr(cells.profile, "graph_ms",
+                        lambda fn, calls=10, reps=5: 0.0)
+    dev = torch.device("cpu")
+    if kind == "prune":
+        reg = dataclasses.replace(cells.PRUNE_REGIMES[index], n=2048,
+                                  m=600)
+        got = cells.prune_cells(reg, dev)
+        assert [c["epsilon"] for c in got] == list(cells.PRUNE_EPSILONS)
+        for c in got:
+            assert all(f in c for f in cells.PRUNE_FIELDS)
+            assert 0.0 < c["occupancy"] <= 1.0
+        assert got[0]["prune_rel_err"] == 0.0
+        assert got[0]["reorder_noise"] < 1e-5
+        occ = [c["occupancy"] for c in got]
+        assert occ == sorted(occ, reverse=True)
+    else:
+        reg = dataclasses.replace(cells.RFF_REGIMES[index], n=2048,
+                                  rows=1100, batch=512, features=512,
+                                  pilot=16)
+        got = cells.rff_cells(reg, dev)
+        assert [c["accuracy_target"] for c in got] == (
+            [reg.targets[0]] if reg.shares else list(reg.targets))
+        for c in got:
+            assert all(f in c for f in cells.RFF_FIELDS)
+            assert c["rff_hits"] + c["escalated"] == c["rows"]
+        if reg.shares:
+            assert got[0]["rows"] == reg.spans()[0][2]
+            assert got[0]["mixed_rows"] == reg.rows
 
 
 def test_the_planner_never_times_the_card(monkeypatch):

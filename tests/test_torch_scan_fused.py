@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro.kernels.selective_scan import selective_scan_pallas
 from repro_torch import convert
+from repro_torch.analysis import profile
 from repro_torch.configs import get_arch
 from repro_torch.kernels import selective_scan as tss
 from repro_torch.launch import serve
@@ -420,4 +421,6 @@ def test_chip_smoke_fused_scan_bound_adds_the_glue():
      "1x2_h_bz_coopA_NNT"),
 ])
 def test_chip_smoke_names_profiled_kernels_short(name, short):
-    assert chip_smoke.short_kernel_name(name) == short
+    """Phase 8's profile names kernels through the package's accounting
+    (``repro_torch.analysis.profile``, which chip_smoke loads)."""
+    assert profile.short_kernel_name(name) == short
