@@ -254,7 +254,30 @@ Run from the repository root.  Phases, each printing its lines:
                   B1 + B2's bound; (d) roofline rows
                   (``repro_torch.analysis``): B1 and B2 at the main shape
                   and the SSM prefill (model FLOPs over phase 8's warm
-                  prefill, FlopCounterMode's aten FLOPs beside them).
+                  prefill, FlopCounterMode's aten FLOPs beside them);
+ 14. attention    the dense and hybrid families at full width and depth,
+                  bf16, weights drawn on the card from the seed, through
+                  launch.serve.generate at batch 4, prompt 1024: (a)
+                  Gemma-2-2B, 32 greedy tokens, the SD-KDE monitor on:
+                  B1 must launch once (the fit) and B2 twice (threshold,
+                  scores), no other kernel, and the monitor's launches
+                  are held against their plain versions; a warm prefill
+                  and one decode step profiled; (b) Minitron-8B,
+                  Phi-3-mini, ChatGLM3-6B and Hymba-1.5B, 8 tokens each,
+                  each freed before the next: no kernel but Hymba's
+                  fused B7, exactly once a layer in its prefill, no
+                  other scan path; then the fused B7 at Hymba's layer
+                  shape against its plain version; (c) Gemma-2 on one
+                  8192-token prompt: chunked_attention in every layer
+                  (no run of (a) or (b) may reach it), logits finite;
+                  (d) f32 at 2 layers of full width: prefill(p[:S]) plus
+                  one decode step against prefill(p[:S+1]), logits and
+                  every cache entry, for Gemma-2, ChatGLM3 and Hymba
+                  (phase 8's bars), and chunked_attention against
+                  full_attention at Gemma-2's head shapes, S 8192,
+                  softcap 50, window 4096 and none.  Prefill ms, decode
+                  tok/s, KV cache bytes and peak memory by stage are
+                  printed beside the card's name and power limit.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -393,6 +416,25 @@ B1_SQUARE_BEFORE_MS = {"f32": 2.726, "bf16x2": 1.876, "bf16": 1.029}
 RING_RANKS = 4
 RING_SIZES = (1, 128, 4096)
 RING_TIMEOUT_S = 300
+
+
+# phase 14: the attention families at full width and depth, weights drawn
+# on the card, through launch.serve.generate.  Gemma-2-2B serves like
+# phase 8 (monitor on); the other four decode ATTN_GEN tokens; Gemma-2
+# then prefills one LONG_PROMPT-token prompt (the only run that reaches
+# chunked_attention, and where the 4096 window masks anything); the f32
+# checks run at CHECK_LAYERS of full width (phase 8's bars), and
+# chunked_attention against full_attention at Gemma-2's head shapes
+ATTN_MAIN = "gemma2_2b"
+ATTN_OTHERS = ("minitron_8b", "phi3_mini_3p8b", "chatglm3_6b", "hymba_1p5b")
+ATTN_GEN = 8
+LONG_PROMPT = 8192
+ATTN_CHECKS = ("gemma2_2b", "chatglm3_6b", "hymba_1p5b")
+CHUNK_WINDOWS = (4096, None)
+# the published sizes (tests/test_torch_dense.py holds param_count to them)
+ATTN_PARAMS = {"gemma2_2b": 2_614_341_888, "minitron_8b": 7_734_562_816,
+               "phi3_mini_3p8b": 3_822_259_200,
+               "chatglm3_6b": 6_243_454_976, "hymba_1p5b": 1_663_131_200}
 
 
 def log(msg: str) -> None:
@@ -4034,6 +4076,343 @@ def phase_measurement(data, clustered, mixture, gen, serve, est_mod, ops,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the attention families
+# ---------------------------------------------------------------------------
+
+
+class ChunkedCalls:
+    """Counts ``models.attention.chunked_attention`` calls (the dispatch in
+    ``attention`` looks the function up at each call) while installed."""
+
+    def __init__(self, attn_mod):
+        self.mod, self.fn, self.calls = attn_mod, attn_mod.chunked_attention, 0
+
+    def __enter__(self):
+        def counted(*a, **k):
+            self.calls += 1
+            return self.fn(*a, **k)
+
+        self.mod.chunked_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.chunked_attention = self.fn
+
+
+def init_on_card(common, cfg, gen) -> tuple:
+    """The config's parameters drawn on the card; (params, ms, GB)."""
+    params, ms = host_ms(lambda: common.init_params(cfg, gen, "cuda"))
+    gb = sum(nbytes(t) for t in params.values()) / 1e9
+    return params, ms, gb
+
+
+def serve_attention(arch, params, gen_tokens, monitor, counts_fns,
+                    serve_mod, chunked, card) -> tuple:
+    """One model served through ``generate`` at batch SERVE_BATCH, prompt
+    SERVE_PROMPT: the kernels' launches with every count set to 0 just
+    before and read just after, no chunked attention (S < 8192); returns
+    (report, launches, summary)."""
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer
+
+    reset_counts(*counts_fns)
+    ss.plain_calls = ss.fused_plain_calls = ssm_mod.assoc_scans = 0
+    chunked.calls = 0
+    r, gen_ms = host_ms(lambda: serve_mod.generate(
+        arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=gen_tokens,
+        seed=SEED, monitor=monitor, monitor_len=MONITOR_LEN, params=params))
+    counts = read_counts(*counts_fns)
+    if chunked.calls:
+        raise AssertionError(f"{arch}: chunked_attention ran at S "
+                             f"{SERVE_PROMPT} (threshold 8192)")
+    cfg = r["cfg"]
+    ids = lm_batch(cfg, SEED, 0, SERVE_BATCH, SERVE_PROMPT, "cuda")["tokens"]
+    with torch.inference_mode():
+        _, warm_ms = host_ms(lambda: transformer.prefill(params, ids, cfg))
+    toks = r["tokens"]
+    if tuple(toks.shape) != (SERVE_BATCH, gen_tokens + 1) or \
+            int(toks.min()) < 0 or int(toks.max()) >= cfg.padded_vocab:
+        raise AssertionError(f"{arch}: generated ids {tuple(toks.shape)} "
+                             "out of range")
+    kv = cfg.n_layers * SERVE_BATCH * (SERVE_PROMPT + gen_tokens) * \
+        cfg.n_kv_heads * cfg.hd * 2 * torch.finfo(cfg.dtype).bits // 8
+    if r["kv_cache_bytes"] != kv:
+        raise AssertionError(f"{arch}: KV cache {r['kv_cache_bytes']} bytes,"
+                             f" expected {kv}")
+    out = {"params": r["params"], "layers": cfg.n_layers,
+           "prefill_ms": r["prefill_ms"], "prefill_warm_ms": warm_ms,
+           "decode_s": r["decode_s"],
+           "decode_tok_s": r["decode_tok_s"], "generate_ms": gen_ms,
+           "kv_cache_bytes": r["kv_cache_bytes"],
+           "cache_bytes": r["cache_bytes"],
+           "peak_memory_gib": r["peak_memory_bytes"] / 2**30,
+           "peak_memory_gib_by_stage": {
+               k: v / 2**30 for k, v in r["peak_memory_by_stage"].items()},
+           "launches": counts, "kernel_counts": r["kernel_counts"],
+           "scan_counts": r["scan_counts"], "card": card}
+    log(f"  {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.hd}, "
+        f"{r['params']} parameters): prefill {SERVE_BATCH} x "
+        f"{SERVE_PROMPT} {r['prefill_ms']:.1f} ms (first call), "
+        f"{warm_ms:.1f} ms (warm); decode "
+        f"{gen_tokens} x {SERVE_BATCH} in {r['decode_s']:.3f} s, "
+        f"{r['decode_tok_s']:.1f} tok/s; KV cache "
+        f"{r['kv_cache_bytes'] / 2**20:.1f} MiB (all entries "
+        f"{r['cache_bytes'] / 2**20:.1f} MiB); peak memory "
+        f"{out['peak_memory_gib']:.2f} GiB ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in
+                    out["peak_memory_gib_by_stage"].items())
+        + f"); logits finite; launches {json.dumps(counts)} [{card}]")
+    return r, counts, out
+
+
+def extend_cache(transformer, cfg, pcache, max_len, batch) -> dict:
+    """A prefill cache copied into ``max_len`` positions, as
+    ``launch.serve.generate`` does (K / V left-aligned)."""
+    cache = transformer.init_cache(cfg, batch, max_len, "cuda")
+    s = pcache["pos"]
+    for k, v in pcache.items():
+        if k == "pos":
+            cache[k] = v
+        elif k in ("k", "v"):
+            cache[k][:, :, :s].copy_(v)
+        else:
+            cache[k].copy_(v)
+    return cache
+
+
+def attention_checks(serve_mod, common, transformer, attn_mod, gen) -> dict:
+    """(d): f32 at CHECK_LAYERS of full width, prefill(p[:S]) + one decode
+    step against prefill(p[:S+1]), for Gemma-2 (softcaps, sandwich
+    norms, a local and a global layer), ChatGLM3 (half RoPE, 16 query
+    heads a KV head) and Hymba (attention beside the fused B7): the
+    logits; the K / V the decode step carried over (positions < S, every
+    layer) equal to the short prefill's bit for bit; and the new
+    position's K / V in layer 0, whose input (the embedding) is the same
+    on both paths.  A later layer's K / V carries the two paths'
+    differences through a layer unaveraged (products of another length
+    summed in another order, and in Hymba the Mamba block's state), so
+    the logits hold the path end to end; then chunked_attention
+    against full_attention at Gemma-2's head shapes, S LONG_PROMPT,
+    softcap 50, with its window and without one."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import lm_batch
+
+    out = {}
+    for arch in ATTN_CHECKS:
+        c32 = dataclasses.replace(
+            serve_mod.build_config(arch, layers=CHECK_LAYERS),
+            dtype=torch.float32, param_dtype=torch.float32)
+        p32 = common.init_params(c32, gen, "cuda")
+        ids = lm_batch(c32, SEED, 1, CHECK_BATCH, CHECK_PROMPT + 1,
+                       "cuda")["tokens"]
+        with torch.inference_mode():
+            _, pcache = transformer.prefill(p32, ids[:, :-1], c32)
+            cache = extend_cache(transformer, c32, pcache, CHECK_PROMPT + 1,
+                                 CHECK_BATCH)
+            step, cache = transformer.decode_step(p32, cache, ids[:, -1:],
+                                                  c32)
+            s_ = CHECK_PROMPT
+            for k in ("k", "v"):
+                if not torch.equal(cache[k][:, :, :s_], pcache[k]):
+                    raise AssertionError(f"{arch}: the decode step changed "
+                                         f"{k} at positions < S")
+            del pcache
+            longer, lcache = transformer.prefill(p32, ids, c32)
+            sync()
+            res = {"logits": compare_model(
+                step, longer, f"{arch}, {CHECK_LAYERS} layers f32: "
+                f"prefill(p[:S]) + one decode step vs prefill(p[:S+1]), "
+                "logits"), "carried_bitwise": True}
+            for k in ("k", "v"):
+                res[f"{k} new layer 0"] = compare_model(
+                    cache[k][0, :, s_], lcache[k][0, :, s_],
+                    f"{arch}: the same, {k} at position S, layer 0")
+        out[arch] = res
+        del p32, cache, lcache
+        torch.cuda.empty_cache()
+    cfg = serve_mod.build_config(ATTN_MAIN)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    # logits q·k/sqrt(hd) of standard deviation 9: the softcap of 50 bends
+    # the largest of them
+    q = torch.randn((1, LONG_PROMPT, cfg.n_heads, cfg.hd), generator=g,
+                    device="cuda") * 3
+    k = torch.randn((1, LONG_PROMPT, cfg.n_kv_heads, cfg.hd), generator=g,
+                    device="cuda") * 3
+    v = torch.randn((1, LONG_PROMPT, cfg.n_kv_heads, cfg.hd), generator=g,
+                    device="cuda")
+    for window in CHUNK_WINDOWS:
+        with torch.inference_mode():
+            full = attn_mod.full_attention(q, k, v, window=window,
+                                           cap=cfg.attn_softcap)
+            chunk, ms = host_ms(lambda: attn_mod.chunked_attention(
+                q, k, v, window=window, cap=cfg.attn_softcap))
+        out[f"chunked_vs_full window {window}"] = dict(
+            compare_model(chunk, full, f"chunked_attention vs "
+                          f"full_attention, S {LONG_PROMPT}, Hq "
+                          f"{cfg.n_heads} / Hkv {cfg.n_kv_heads}, hd "
+                          f"{cfg.hd}, window {window}, softcap "
+                          f"{cfg.attn_softcap}, f32"), chunked_ms=ms)
+        del full, chunk
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_attention(ops, fs, fk, fp, fl, card) -> dict:
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import common, transformer
+
+    log(f"== phase 14: attention families at full width and depth, batch "
+        f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, bf16, weights drawn on the "
+        f"card [{card}]")
+    t_phase = time.perf_counter()
+    counts_fns = (fs, fk, fp, fl)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"models": {}}
+    torch.cuda.empty_cache()
+    with ChunkedCalls(attn_mod) as chunked:
+        # (a) Gemma-2-2B with the monitor: B1 once (the fit), B2 twice
+        # (threshold, scores), nothing else
+        cfg = serve_mod.build_config(ATTN_MAIN)
+        params, init_ms, gb = init_on_card(common, cfg, gen)
+        log(f"  (a) {ATTN_MAIN}: {common.param_count(cfg)} parameters "
+            f"({gb:.2f} GB) initialised on the card in {init_ms:.0f} ms")
+        if common.param_count(cfg) != ATTN_PARAMS[ATTN_MAIN]:
+            raise AssertionError(f"{ATTN_MAIN}: parameter count")
+        r, counts, summ = serve_attention(
+            ATTN_MAIN, params, SERVE_GEN, True, counts_fns, serve_mod,
+            chunked, card)
+        want = dict({k: 0 for k in counts}, flash_score=1, flash_kde=2)
+        if counts != want:
+            raise AssertionError(f"{ATTN_MAIN}: launches {counts}, expected "
+                                 f"{want}")
+        if r["kernel_counts"]["monitor"] != {
+                "flash_score": 1, "flash_kde": 2, "selective_scan": 0,
+                "mamba_scan": 0} or any(
+                v for st in ("prefill", "decode")
+                for v in r["kernel_counts"][st].values()):
+            raise AssertionError(f"{ATTN_MAIN}: launches by stage "
+                                 f"{r['kernel_counts']}")
+        mon = r["monitor"]
+        summ.update(init_ms=init_ms, param_bytes=gb * 1e9,
+                    monitor_ms=mon["ms"],
+                    monitor_flags=int(mon["flags"].sum()),
+                    monitor_checks=check_monitor(ops, mon))
+        log(f"    monitor ({mon['ref_rows']} reference sequences of "
+            f"{mon['monitor_len']} tokens) {mon['ms']:.0f} ms, "
+            f"{summ['monitor_flags']}/{SERVE_BATCH} flagged")
+        del r, mon
+        ids = lm_batch(cfg, SEED, 0, SERVE_BATCH, SERVE_PROMPT,
+                       "cuda")["tokens"]
+        with torch.inference_mode():
+            summ["profile"] = {"prefill": device_breakdown(
+                lambda: transformer.prefill(params, ids, cfg),
+                f"{ATTN_MAIN} prefill {SERVE_BATCH} x {SERVE_PROMPT}, "
+                "profiled")}
+            _, pcache = transformer.prefill(params, ids, cfg)
+            # two positions: device_breakdown steps once warm, once traced
+            cache = extend_cache(transformer, cfg, pcache, SERVE_PROMPT + 2,
+                                 SERVE_BATCH)
+            del pcache
+            summ["profile"]["decode_step"] = device_breakdown(
+                lambda: transformer.decode_step(params, cache, ids[:, -1:],
+                                                cfg),
+                f"{ATTN_MAIN} one decode step, batch {SERVE_BATCH}, "
+                "profiled")
+            del cache
+        out["models"][ATTN_MAIN] = summ
+
+        # (c) one LONG_PROMPT-token prompt: chunked attention in every
+        # layer, the local layers' window masking
+        long_ids = lm_batch(cfg, SEED, 2, 1, LONG_PROMPT, "cuda")["tokens"]
+        chunked.calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            (logits, lcache), long_ms = host_ms(
+                lambda: transformer.prefill(params, long_ids, cfg))
+        if chunked.calls != cfg.n_layers:
+            raise AssertionError(f"the {LONG_PROMPT}-token prefill ran "
+                                 f"chunked_attention {chunked.calls} times, "
+                                 f"expected {cfg.n_layers}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits in the long prefill")
+        out["long_prefill"] = {
+            "prompt": LONG_PROMPT, "ms": long_ms,
+            "chunked_calls": chunked.calls,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "kv_bytes": nbytes(lcache["k"], lcache["v"])}
+        log(f"  (c) {ATTN_MAIN} prefill of 1 x {LONG_PROMPT} tokens: "
+            f"{long_ms:.1f} ms, chunked_attention in all {chunked.calls} "
+            f"layers (window {cfg.sliding_window} on the even ones), logits "
+            f"finite, KV {out['long_prefill']['kv_bytes'] / 2**20:.1f} MiB, "
+            f"peak memory {out['long_prefill']['peak_memory_gib']:.2f} GiB "
+            f"[{card}]")
+        del params, logits, lcache
+        torch.cuda.empty_cache()
+
+        # (b) the other four at full width and depth, ATTN_GEN tokens
+        for arch in ATTN_OTHERS:
+            cfg = serve_mod.build_config(arch)
+            params, init_ms, gb = init_on_card(common, cfg, gen)
+            if common.param_count(cfg) != ATTN_PARAMS[arch]:
+                raise AssertionError(f"{arch}: parameter count")
+            log(f"  (b) {arch}: {gb:.2f} GB initialised on the card in "
+                f"{init_ms:.0f} ms")
+            r, counts, summ = serve_attention(
+                arch, params, ATTN_GEN, False, counts_fns, serve_mod,
+                chunked, card)
+            fused = cfg.n_layers if cfg.family == "hybrid" else 0
+            want = dict({k: 0 for k in counts}, mamba_scan=fused)
+            scans = {"prefill": {"selective_scan": 0,
+                                 "selective_scan_plain": 0,
+                                 "mamba_scan": fused, "mamba_scan_plain": 0,
+                                 "assoc_scan": 0}}
+            scans["decode"] = dict(scans["prefill"], mamba_scan=0)
+            if counts != want or r["scan_counts"] != scans:
+                raise AssertionError(
+                    f"{arch}: launches {counts}, scan paths "
+                    f"{r['scan_counts']}; expected {want}, {scans}")
+            summ.update(init_ms=init_ms, param_bytes=gb * 1e9)
+            out["models"][arch] = summ
+            del r, params
+            torch.cuda.empty_cache()
+
+        # B7 at Hymba's layer shape, fused mode, against its plain version
+        hcfg = serve_mod.build_config("hymba_1p5b")
+        shape = (SERVE_BATCH, SERVE_PROMPT, hcfg.d_inner, hcfg.ssm_state)
+        args = fused_scan_inputs(shape, torch.bfloat16, gen)
+        check = check_fused_scan(ss, args, f"bf16 (B, S, D, N)={shape}, "
+                                 "Hymba's layer")
+        ms = graph_ms(lambda: ss.mamba_scan_cuda(*args))
+        plain = cuda_ms(lambda: ss.mamba_scan_plain(*args), 3)
+        bms, by = scan_bound_ms(shape, torch.bfloat16, fused=True)
+        log(f"  mamba_scan bf16 {shape} (Hymba): kernel {ms:.4f} ms, plain "
+            f"{plain:.3f} ms, bound {bms:.4f} ms ({by}), "
+            f"{bms / ms * 100:.1f}% of bound")
+        out["hymba_scan"] = {"shape": shape, "ms": ms, "plain_ms": plain,
+                             "bound_ms": bms, "bound_by": by,
+                             "max_abs_err": check["max_abs_err"]}
+        del args
+
+        # (d) the f32 checks
+        log(f"  (d) f32 checks at full width, {CHECK_LAYERS} layers, batch "
+            f"{CHECK_BATCH}, prompt {CHECK_PROMPT}:")
+        chunked.calls = 0
+        out["checks"] = attention_checks(serve_mod, common, transformer,
+                                         attn_mod, gen)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14 took {out['phase_s']:.1f} s")
+    return out
+
+
 def prefill_profile(checkout: Path) -> int:
     """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
     weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
@@ -4152,6 +4531,9 @@ def main(argv=None) -> int:
                                     est_mod, ops, spatial, kdemod, fs, fk,
                                     fp, fl, decisions, timings, ssm_serve,
                                     paper, card)
+    attention = phase_attention(ops, fs, fk, fp, fl, card)
+    attn_launches = {arch: m["launches"]
+                     for arch, m in attention["models"].items()}
 
     # launches: each kernel's count from the path that runs it, with its
     # counts set to 0 just before and read just after (phases 4 and 4c)
@@ -4185,6 +4567,12 @@ def main(argv=None) -> int:
                 "unfused": {
                     "launches": ssm_serve["launches"]["selective_scan"],
                     "dtypes": timings["entries"]["selective_scan"]},
+                # phase 14, counts zeroed before each model's run: Hymba's
+                # fused launches, one a layer in its prefill
+                "launches_attention": {
+                    arch: c["mamba_scan"] + c["selective_scan"]
+                    for arch, c in attn_launches.items()},
+                "hymba": attention["hymba_scan"],
                 "ptxas": scan_regs})
             continue
         tiers = timings["entries"][kname]
@@ -4236,6 +4624,11 @@ def main(argv=None) -> int:
                     name: r["launches_by_rank"][0][kname]
                     for name, r in ring_out["world4"].items()
                     if isinstance(r, dict)}}
+        if kname in ("flash_score", "flash_kde"):
+            # phase 14, counts zeroed before each model's run: Gemma-2's
+            # monitor (B1 its fit, B2 its threshold and scores)
+            entry["launches_attention"] = {
+                arch: c[kname] for arch, c in attn_launches.items()}
         if kname == "flash_score":
             entry["rect"] = timings["entries"]["flash_score rect"]
         if kname == "flash_kde_pruned":
@@ -4260,6 +4653,7 @@ def main(argv=None) -> int:
     summary["resilient"] = resilient
     summary["ring"] = ring_out
     summary["measurement"] = measurement
+    summary["attention"] = attention
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

@@ -1,18 +1,19 @@
 """Architecture / workload registry (``repro.configs``).
 
 Every architecture ``repro`` knows keeps its id here; the port builds the
-ones whose family it has (``PORTED``), each a module exporting ``ARCH``
-(an ``ArchSpec`` with the published numbers).  ``get_arch`` of any other
-known id raises "not ported yet".  The assigned input shapes and the
-paper's SD-KDE workloads are registered alongside with ``repro``'s
-values; no ported entry point reads them yet.
+ones whose family it has (``PORTED``: the SSM, dense and hybrid
+families), each a module exporting ``ARCH`` (an ``ArchSpec`` with the
+published numbers).  ``get_arch`` of any other known id raises "not
+ported yet".  The assigned input shapes, each architecture's skipped
+cells and the paper's SD-KDE workloads are registered alongside with
+``repro``'s values; no ported entry point reads them yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.models.common import ModelConfig
 
@@ -52,13 +53,26 @@ SHAPES: Dict[str, ShapeCfg] = {s.name: s for s in LM_SHAPES}
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
-    """An architecture's published model configuration.  ``repro``'s
-    training fields (optimizer, accumulator type, microbatches) and its
-    per-shape skips wait for the port's training path (ROADMAP A15)."""
+    """An architecture's published model configuration and the assigned
+    cells it skips (shape name -> reason, e.g. long_500k on a pure
+    full-attention model).  ``repro``'s training fields (optimizer,
+    accumulator type, microbatches) wait for the port's training path
+    (ROADMAP A15)."""
 
     arch_id: str
     model: ModelConfig
+    skips: Dict[str, str] = dataclasses.field(default_factory=dict)
     source: str = ""
+
+    def shape_applicable(self, shape: ShapeCfg) -> Optional[str]:
+        """None if the (arch, shape) cell runs; else the skip reason."""
+        return self.skips.get(shape.name)
+
+
+FULL_ATTN_LONG_SKIP = (
+    "long_500k requires sub-quadratic attention; this arch is pure "
+    "full-attention (see DESIGN.md §Arch-applicability)"
+)
 
 
 # ---------------------------------------------------------------------------
@@ -99,8 +113,10 @@ ARCH_IDS = (
     "whisper_large_v3",
     "falcon_mamba_7b",
 )
-#: the architectures the port can build (the SSM family)
-PORTED = ("falcon_mamba_7b",)
+#: the architectures the port can build (the SSM, dense and hybrid
+#: families)
+PORTED = ("minitron_8b", "phi3_mini_3p8b", "gemma2_2b", "chatglm3_6b",
+          "hymba_1p5b", "falcon_mamba_7b")
 
 _ALIASES = {
     "minitron-8b": "minitron_8b",
@@ -134,5 +150,6 @@ def list_archs() -> Tuple[str, ...]:
 
 
 __all__ = ["ShapeCfg", "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
-           "LM_SHAPES", "SHAPES", "ArchSpec", "KdeWorkload", "KDE_WORKLOADS",
+           "LM_SHAPES", "SHAPES", "ArchSpec", "FULL_ATTN_LONG_SKIP",
+           "KdeWorkload", "KDE_WORKLOADS",
            "ARCH_IDS", "PORTED", "get_arch", "list_archs"]

@@ -32,5 +32,6 @@ MODEL = ModelConfig(
 ARCH = ArchSpec(
     arch_id="falcon_mamba_7b",
     model=MODEL,
+    skips={},
     source="arXiv:2410.05355; unverified",
 )

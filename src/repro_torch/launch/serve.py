@@ -1,25 +1,30 @@
 """Serving driver: batched prefill, then greedy decode, for an LM.
 
-    python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+    python -m repro_torch.launch.serve --arch gemma2_2b \\
         --batch 4 --prompt-len 1024 --gen 32          # full width, the card
-    python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+    python -m repro_torch.launch.serve --arch gemma2_2b \\
         --device cpu --reduced --monitor              # the CPU, small
 
-``generate`` prefills a batch of prompts (building the SSM cache), copies
-the prefill cache into a fresh ``init_cache``, greedy-decodes ``gen``
+``generate`` prefills a batch of prompts (building the KV and SSM
+caches), copies the prefill cache into a fresh ``init_cache`` of
+prompt + ``gen`` positions (K / V left-aligned), greedy-decodes ``gen``
 tokens per sequence with ``decode_step``, and checks that every logit is
 finite.  It reports prefill ms (host clock, synchronized), decode tokens
-per second, the launches of each scan path per stage and, on the card,
-peak memory per stage.  The model runs at the architecture's full width unless
-``reduced`` asks for ``repro``'s small CPU configuration; ``layers`` cuts
-depth only.  ``ssm_kernel`` (on by default) runs the Mamba blocks
-through kernel B7's fused mode (``mamba_scan``; its plain version also
-counts one ``selective_scan_plain`` call); off, through the
-associative-scan branch.  With
-``monitor`` it fits the SD-KDE activation monitor (kernels B1/B2 on the
-card) on 8 × 16 reference sequences of ``monitor_len`` tokens and flags
-the batch's requests.  Runs on the card unless ``device="cpu"``; asking
-for the card where there is none raises.
+per second, the KV cache's bytes, the launches of each scan path and of
+kernels B1, B2 and B7 per stage and, on the card, peak memory per stage.
+The model runs at the architecture's full width unless ``reduced`` asks
+for ``repro``'s small CPU configuration; ``layers`` cuts depth only.
+``ssm_kernel`` (on by default) runs the Mamba blocks (Falcon-Mamba's,
+Hymba's SSM half) through kernel B7's fused mode (``mamba_scan``; its
+plain version also counts one ``selective_scan_plain`` call); off,
+through the associative-scan branch.  With ``monitor`` it fits the
+SD-KDE activation monitor (kernels B1/B2 on the card) on 8 × 16
+reference sequences of ``monitor_len`` tokens and flags the batch's
+requests.  Runs on the card unless ``device="cpu"``; asking for the card
+where there is none raises.  An int8 KV cache (``kv_quant``) after a
+prefill raises: ``repro``'s launcher casts the prefill's bf16 K / V to
+int8 and leaves their scales at zero (ROADMAP C), and the port does not
+copy that.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from repro_torch import device as device_mod
 from repro_torch.configs import get_arch
 from repro_torch.core.estimator import EstimatorConfig
 from repro_torch.data.synthetic import lm_batch
+from repro_torch.kernels import flash_kde, flash_score
 from repro_torch.kernels import selective_scan as scan_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig, init_params, param_count
@@ -46,7 +52,10 @@ from repro_torch.models.transformer import (decode_step, forward_hidden,
 MONITOR_BATCHES, MONITOR_ROWS = 8, 16     # repro's reference corpus
 
 
-def build_config(arch: str = "falcon_mamba_7b", *, reduced: bool = False,
+DEFAULT_ARCH = "gemma2_2b"                 # repro's launcher's default
+
+
+def build_config(arch: str = DEFAULT_ARCH, *, reduced: bool = False,
                  layers: Optional[int] = None,
                  ssm_kernel: bool = True) -> ModelConfig:
     """The architecture's model config, at full width unless ``reduced``
@@ -63,15 +72,29 @@ def build_config(arch: str = "falcon_mamba_7b", *, reduced: bool = False,
 
 
 def _counts() -> dict:
-    return {"selective_scan": scan_mod.launches,
-            "selective_scan_plain": scan_mod.plain_calls,
-            "mamba_scan": scan_mod.fused_launches,
-            "mamba_scan_plain": scan_mod.fused_plain_calls,
-            "assoc_scan": ssm_mod.assoc_scans}
+    """Calls of each scan path (``scan_counts``), and launches of B1, B2
+    and B7 (``kernel_counts``: 0 on the CPU, where the wrappers run the
+    plain versions)."""
+    return {"scan_counts": {"selective_scan": scan_mod.launches,
+                            "selective_scan_plain": scan_mod.plain_calls,
+                            "mamba_scan": scan_mod.fused_launches,
+                            "mamba_scan_plain": scan_mod.fused_plain_calls,
+                            "assoc_scan": ssm_mod.assoc_scans},
+            "kernel_counts": {"flash_score": flash_score.launches,
+                              "flash_kde": flash_kde.launches,
+                              "selective_scan": scan_mod.launches,
+                              "mamba_scan": scan_mod.fused_launches}}
 
 
-def _delta(before: dict) -> dict:
-    return {k: v - before[k] for k, v in _counts().items()}
+def _stage(report: dict, stage: str, before: dict) -> None:
+    """Record each count's increase since ``before`` under ``stage``."""
+    for kind, now in _counts().items():
+        report[kind][stage] = {k: v - before[kind][k] for k, v in now.items()}
+
+
+def _kv_bytes(cache: dict) -> int:
+    return sum(cache[k].numel() * cache[k].element_size()
+               for k in ("k", "v", "k_scale", "v_scale") if k in cache)
 
 
 def _peak(dev: torch.device, report: dict, stage: str) -> None:
@@ -82,12 +105,13 @@ def _peak(dev: torch.device, report: dict, stage: str) -> None:
         torch.cuda.reset_peak_memory_stats(dev)
 
 
-def generate(arch: str = "falcon_mamba_7b", *, batch: int = 4,
+def generate(arch: str = DEFAULT_ARCH, *, batch: int = 4,
              prompt_len: int = 32, gen: int = 32, seed: int = 0,
              device: str = "cuda", reduced: bool = False,
              layers: Optional[int] = None, ssm_kernel: bool = True,
              monitor: bool = False, monitor_len: Optional[int] = None,
-             params: Optional[dict] = None, tokens=None) -> dict:
+             params: Optional[dict] = None, tokens=None,
+             kv_quant: bool = False) -> dict:
     """Prefill + greedy decode (module docstring); returns the report.
 
     ``params`` (the port's parameter dict, e.g. from
@@ -95,10 +119,19 @@ def generate(arch: str = "falcon_mamba_7b", *, batch: int = 4,
     ids) replace the seeded ones; ``tokens`` then sets batch and
     prompt_len.  The report holds ``cfg``, ``tokens`` (B, gen + 1) the
     greedy ids, ``logits`` the prefill logits and each step's, timings,
-    ``scan_counts`` per stage, and with ``monitor`` the ``monitor``
+    ``scan_counts`` and ``kernel_counts`` per stage, ``cache`` the decode
+    cache after the last step, ``kv_cache_bytes`` its K / V (and
+    scales), ``cache_bytes`` all of it, and with ``monitor`` the ``monitor``
     scores and flags, beside the fitted ``ActivationMonitor`` and the
     pooled activations it was fitted on and scored (``ref_acts``,
     ``acts``)."""
+    if kv_quant:
+        raise NotImplementedError(
+            "kv_quant after a prefill: repro's launcher casts the prefill's "
+            "K/V to int8 and leaves k_scale/v_scale at zero "
+            "(src/repro/launch/serve.py:63-71; ROADMAP C, reference "
+            "faults); the int8 cache is ported for decode from init_cache "
+            "only")
     dev = device_mod.resolve(device)
     cfg = build_config(arch, reduced=reduced, layers=layers,
                        ssm_kernel=ssm_kernel)
@@ -114,7 +147,7 @@ def generate(arch: str = "falcon_mamba_7b", *, batch: int = 4,
         torch.cuda.reset_peak_memory_stats(dev)
     report = {"cfg": cfg, "params": param_count(cfg), "batch": batch,
               "prompt_len": prompt_len, "gen": gen, "scan_counts": {},
-              "peak_memory_by_stage": {}}
+              "kernel_counts": {}, "peak_memory_by_stage": {}}
 
     with torch.inference_mode():
         before = _counts()
@@ -123,12 +156,16 @@ def generate(arch: str = "falcon_mamba_7b", *, batch: int = 4,
         logits, pcache = prefill(params, tokens, cfg)
         device_mod.synchronize(dev)
         report["prefill_ms"] = (time.perf_counter() - t0) * 1e3
-        report["scan_counts"]["prefill"] = _delta(before)
+        _stage(report, "prefill", before)
         _peak(dev, report, "prefill")
 
         cache = init_cache(cfg, batch, prompt_len + gen, dev)
         for k in ("conv", "ssm"):
-            cache[k].copy_(pcache[k])
+            if k in cache:
+                cache[k].copy_(pcache[k])
+        for k in ("k", "v"):       # (L, B, S, Hkv, hd), left-aligned
+            if k in cache:
+                cache[k][:, :, :prompt_len].copy_(pcache[k])
         cache["pos"] = pcache["pos"]
         del pcache
 
@@ -144,18 +181,21 @@ def generate(arch: str = "falcon_mamba_7b", *, batch: int = 4,
             out_tokens.append(tok)
         device_mod.synchronize(dev)
         decode_s = time.perf_counter() - t0
-        report["scan_counts"]["decode"] = _delta(before)
+        _stage(report, "decode", before)
         _peak(dev, report, "decode")
         report.update(decode_s=decode_s,
                       decode_tok_s=gen * batch / decode_s if gen else 0.0,
                       tokens=torch.cat(out_tokens, dim=1), logits=all_logits,
-                      cache=cache)
+                      cache=cache, kv_cache_bytes=_kv_bytes(cache),
+                      cache_bytes=sum(
+                          t.numel() * t.element_size()
+                          for k, t in cache.items() if k != "pos"))
 
         if monitor:
+            before = _counts()
             report["monitor"] = _monitor(params, cfg, tokens, seed,
                                          monitor_len or prompt_len, dev)
-            report["scan_counts"]["monitor"] = report["monitor"].pop(
-                "scan_counts")
+            _stage(report, "monitor", before)
             _peak(dev, report, "monitor")
 
     if dev.type == "cuda":
@@ -176,7 +216,6 @@ def _monitor(params, cfg, tokens, seed, monitor_len, dev) -> dict:
     def acts(toks):
         return pool_activations(forward_hidden(params, toks, cfg))
 
-    before = _counts()
     t0 = time.perf_counter()
     ref = torch.cat([
         acts(lm_batch(cfg, seed, s, MONITOR_ROWS, monitor_len,
@@ -193,13 +232,12 @@ def _monitor(params, cfg, tokens, seed, monitor_len, dev) -> dict:
             "scores": scores, "flags": flags,
             "threshold": mon._threshold,
             "ms": (time.perf_counter() - t0) * 1e3,
-            "scan_counts": _delta(before),
             "fitted": mon, "ref_acts": ref, "acts": req}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="falcon_mamba_7b")
+    ap.add_argument("--arch", default=DEFAULT_ARCH)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
@@ -231,7 +269,10 @@ def main(argv=None) -> int:
           f"{r['prefill_ms']:.1f} ms")
     print(f"decode: {r['gen']} steps x batch {r['batch']} in "
           f"{r['decode_s']:.2f} s ({r['decode_tok_s']:.1f} tok/s)")
+    print(f"KV cache: {r['kv_cache_bytes'] / 2**20:.2f} MiB "
+          f"(all cache entries {r['cache_bytes'] / 2**20:.2f} MiB)")
     print(f"scan calls per stage: {r['scan_counts']}")
+    print(f"kernel launches per stage: {r['kernel_counts']}")
     if "monitor" in r:
         m = r["monitor"]
         print(f"monitor: {int(m['flags'].sum())}/{r['batch']} requests "

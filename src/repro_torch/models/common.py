@@ -4,9 +4,10 @@ One ``ModelConfig`` carries every field of ``repro``'s, with dtypes as
 ``torch.dtype``.  ``param_shapes(cfg)`` is the single source of truth for
 every parameter's shape and dtype: ``param_count`` sums it without
 allocating, ``init_params`` materializes it on a device from a
-``torch.Generator``.  Sharding (``repro``'s PartitionSpecs, through
-``models/parallel.py``) comes with the other model families in ROADMAP
-A15; only the SSM family's shapes are ported.
+``torch.Generator``.  The SSM, dense and hybrid families' shapes are
+ported; MoE, VLM and audio raise naming ROADMAP A15.  Sharding
+(``repro``'s PartitionSpecs, through ``models/parallel.py``) comes with
+A15's dry-run step.
 """
 
 from __future__ import annotations
@@ -18,26 +19,32 @@ from typing import Any, Dict, Literal, Optional, Tuple
 import torch
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
-PORTED_FAMILIES = ("ssm",)
+PORTED_FAMILIES = ("ssm", "dense", "hybrid")
 
 
-#: Fields that only the families the port lacks read (and training, for
-#: ``seq_shard_attn``).  The SSM path takes each at its default only, so
-#: a value set there raises rather than changing nothing.  The widths
-#: n_heads, n_kv_heads, head_dim and d_ff stay free: ``repro``'s
-#: Falcon-Mamba carries them unused and ``reduced()`` shrinks them; so do
-#: remat and loss_chunk, which shape only a train step.
+#: Fields that only the families the port lacks read (MoE, the encoder,
+#: VLM patches) and training (``seq_shard_attn``).  The ported paths take
+#: each at its default only, so a value set there raises rather than
+#: changing nothing.  The widths n_heads, n_kv_heads, head_dim and d_ff
+#: stay free: ``repro``'s Falcon-Mamba carries them unused and
+#: ``reduced()`` shrinks them; so do remat and loss_chunk, which shape
+#: only a train step.
 UNPORTED_FIELDS = (
+    "n_experts", "top_k", "moe_dff", "n_shared_experts", "capacity_factor",
+    "expert_2d_sharding", "n_enc_layers", "enc_frames", "n_patches",
+    "seq_shard_attn")
+
+#: Fields only the attention and MLP layers read: an attention-free (SSM)
+#: config takes each at its default, so a value set there raises too.
+ATTENTION_FIELDS = (
     "act", "post_norms", "rope_variant", "rope_theta", "attn_softcap",
-    "sliding_window", "local_global_alt", "n_experts", "top_k", "moe_dff",
-    "n_shared_experts", "capacity_factor", "expert_2d_sharding",
-    "n_enc_layers", "enc_frames", "n_patches", "seq_shard_attn",
-    "kv_quant")
+    "sliding_window", "local_global_alt", "kv_quant")
 
 
 def check_family(cfg: "ModelConfig") -> None:
     """Raise unless the port has ``cfg``'s family and ``cfg`` sets none
-    of ``UNPORTED_FIELDS`` away from its default."""
+    of ``UNPORTED_FIELDS`` (nor, attention-free, ``ATTENTION_FIELDS``)
+    away from its default."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
@@ -48,6 +55,16 @@ def check_family(cfg: "ModelConfig") -> None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(odd)} select features of families "
             "the port does not have yet (ROADMAP A15)")
+    if cfg.attn_free != (cfg.family == "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: attn_free={cfg.attn_free} with the "
+            f"{cfg.family!r} family (the port's attention-free family is "
+            "the SSM family; ROADMAP A15)")
+    odd = [f for f in ATTENTION_FIELDS if getattr(cfg, f) != _DEFAULTS[f]]
+    if cfg.attn_free and odd:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(odd)} select attention features the "
+            "attention-free SSM family does not read (ROADMAP A15)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +178,29 @@ _DEFAULTS = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
 ShapeSpec = Tuple[Tuple[int, ...], Any]  # (shape, dtype)
 
 
+def _attn_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+    d, pd = cfg.d_model, cfg.param_dtype
+    return {
+        "attn_norm": ((d,), pd),
+        "wq": ((d, cfg.q_dim), pd),
+        "wk": ((d, cfg.kv_dim), pd),
+        "wv": ((d, cfg.kv_dim), pd),
+        "wo": ((cfg.q_dim, d), pd),
+    }
+
+
+def _mlp_shapes(cfg: ModelConfig, d_ff: int) -> Dict[str, ShapeSpec]:
+    d, pd = cfg.d_model, cfg.param_dtype
+    out: Dict[str, ShapeSpec] = {
+        "mlp_norm": ((d,), pd),
+        "w_up": ((d, d_ff), pd),
+        "w_down": ((d_ff, d), pd),
+    }
+    if cfg.gated:
+        out["w_gate"] = ((d, d_ff), pd)
+    return out
+
+
 def _ssm_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     d, pd = cfg.d_model, cfg.param_dtype
     di, n, dtr, dc = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
@@ -178,6 +218,27 @@ def _ssm_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     }
 
 
+def _layer_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+    """One layer's parameters: the Mamba block (SSM); attention, the
+    Mamba block, the two fuse scales and the MLP (hybrid); attention and
+    the MLP, with the sandwich norms under ``post_norms`` (dense)."""
+    d, pd = cfg.d_model, cfg.param_dtype
+    if cfg.family == "ssm":
+        return _ssm_shapes(cfg)
+    shapes: Dict[str, ShapeSpec] = dict(_attn_shapes(cfg))
+    if cfg.family == "hybrid":
+        shapes.update(_ssm_shapes(cfg))
+        shapes["fuse_attn_scale"] = ((d,), pd)
+        shapes["fuse_ssm_scale"] = ((d,), pd)
+        shapes.update(_mlp_shapes(cfg, cfg.d_ff))
+        return shapes
+    shapes.update(_mlp_shapes(cfg, cfg.d_ff))
+    if cfg.post_norms:
+        shapes["post_attn_norm"] = ((d,), pd)
+        shapes["post_mlp_norm"] = ((d,), pd)
+    return shapes
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     """Flat dict path -> (shape, dtype); per-layer parameters are stacked
     on a leading layer axis under ``layers/``, as in ``repro``."""
@@ -189,7 +250,7 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     }
     if not cfg.tie_embeddings:
         shapes["lm_head"] = ((d, v), pd)
-    for k, (shape, dt) in _ssm_shapes(cfg).items():
+    for k, (shape, dt) in _layer_shapes(cfg).items():
         shapes[f"layers/{k}"] = ((cfg.n_layers, *shape), dt)
     return shapes
 
@@ -215,7 +276,9 @@ def active_param_count(cfg: ModelConfig) -> int:
 def _init_one(gen: torch.Generator, name: str, shape, dtype,
               device: torch.device) -> torch.Tensor:
     """``repro``'s rules: ones for norms, conv_b, dt_bias and D; A_log =
-    log(1..N) on every channel; normal/√fan_in elsewhere (drawn in f32, one leading slice at a time, then cast)."""
+    log(1..N) on every channel; 0.5 for the hybrid's fuse scales;
+    normal/√fan_in elsewhere (drawn in f32, one leading slice at a time,
+    then cast)."""
     if not shape or shape[-1] == 0:
         return torch.zeros(shape, dtype=dtype, device=device)
     last = name.split("/")[-1]
@@ -225,6 +288,8 @@ def _init_one(gen: torch.Generator, name: str, shape, dtype,
         n = shape[-1]
         a = torch.arange(1, n + 1, dtype=torch.float32, device=device)
         return torch.log(a).expand(shape).to(dtype).contiguous()
+    if last in ("fuse_attn_scale", "fuse_ssm_scale"):
+        return torch.full(shape, 0.5, dtype=dtype, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(shape, dtype=dtype, device=device)
@@ -259,7 +324,8 @@ def layer_params(params: Dict[str, torch.Tensor], i: int,
     return {k: v[i] for k, v in layer_tree(params, prefix).items()}
 
 
-__all__ = ["Family", "PORTED_FAMILIES", "UNPORTED_FIELDS", "ModelConfig",
+__all__ = ["Family", "PORTED_FAMILIES", "UNPORTED_FIELDS", "ATTENTION_FIELDS",
+           "ModelConfig",
            "ShapeSpec",
            "check_family", "param_shapes", "param_count", "active_param_count",
            "init_params",

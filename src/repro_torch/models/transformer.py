@@ -1,41 +1,113 @@
 """Decoder-only LM: forward, prefill and decode with a cache
-(``repro.models.transformer``), for the SSM family.
+(``repro.models.transformer``), for the SSM, dense and hybrid families.
 
 ``repro`` scans one layer body over the stacked ``layers/*`` parameters
 with ``lax.scan``; here a Python loop indexes layer i of each stacked
-tensor.  The cache is ``repro``'s: ``conv`` (L, B, dc-1, d_inner) in the
-activation type, ``ssm`` (L, B, d_inner, N) f32 and the position
-``pos``.  Layers take no positions or attention windows (the SSM
-family has no attention).  ``decode_step`` writes the new states into
+tensor, and each layer's attention window is a Python int
+(``layer_windows``: Gemma-2's even layers local, odd ones global, a
+global window being ``GLOBAL_WINDOW``).  The families:
+
+* ssm (Falcon-Mamba): x + Mamba(norm(x));
+* dense (Gemma-2, Minitron, Phi-3, ChatGLM3): x + attention(norm(x)),
+  then x + MLP(norm(x)), each sublayer's output normed again under
+  ``post_norms`` (Gemma-2's sandwich norms);
+* hybrid (Hymba): attention and the Mamba block read the same normed
+  input, and x + fuse_attn_scale·attention + fuse_ssm_scale·norm(Mamba),
+  then the MLP.
+
+The cache is ``repro``'s: ``k`` / ``v`` (L, B, max_len, Hkv, hd) in the
+activation type (int8 with ``k_scale`` / ``v_scale`` (L, B, max_len,
+Hkv) f32 under ``kv_quant``) unless the model is attention-free;
+``conv`` (L, B, dc-1, d_inner) and ``ssm`` (L, B, d_inner, N) f32 for
+the SSM and hybrid families; and the position ``pos``.  ``decode_step``
+writes the new position's K / V (and scales) and the new SSM states into
 the cache it is given, in place (``repro``'s serving loop donates the
-cache for the same reason: one copy of the state, not two) and returns
-it.  Every other family raises ``NotImplementedError`` naming ROADMAP
-A15.
+cache for the same reason: one copy, not two), and returns it.
+``models/parallel.py``'s sharding hints (``repro``'s ``_seq_shard_qkv``
+and ``hint``, no-ops without a registered mesh) come with A15's dry-run
+step.  The MoE, VLM and audio families raise ``NotImplementedError``
+naming ROADMAP A15 (``check_family``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.models import attention as attn
 from repro_torch.models.common import (ModelConfig, check_family,
                                        init_params, layer_params)
-from repro_torch.models.layers import embed_tokens, logits_head, rmsnorm
+from repro_torch.models.layers import embed_tokens, logits_head, mlp, rmsnorm
 from repro_torch.models.ssm import mamba_block, mamba_decode_step
+
+GLOBAL_WINDOW = 2**30     # a window no key reaches past: global attention
+
+
+def layer_windows(cfg: ModelConfig,
+                  n_layers: Optional[int] = None) -> List[int]:
+    """Each layer's attention window: Gemma-2's even layers local
+    (``sliding_window``), odd ones global; every layer the window when
+    only ``sliding_window`` is set; else global."""
+    n = n_layers or cfg.n_layers
+    if cfg.local_global_alt and cfg.sliding_window:
+        return [cfg.sliding_window if i % 2 == 0 else GLOBAL_WINDOW
+                for i in range(n)]
+    return [cfg.sliding_window or GLOBAL_WINDOW] * n
 
 
 def _norm(x, lp, key, cfg):
     return rmsnorm(x, lp[key], one_plus=cfg.rms_one_plus)
 
 
+def _attend(h, lp, cfg, positions, window):
+    """Self-attention over the normed input ``h``, projected through wo;
+    returns (output, k, v), k and v being the cache's entries."""
+    q, k, v = attn.qkv_project(h, lp, cfg, positions)
+    o = attn.attention(q, k, v, causal=True, window=window,
+                       cap=cfg.attn_softcap)
+    return o.reshape(*h.shape[:-1], cfg.q_dim) @ lp["wo"].to(h.dtype), k, v
+
+
+def _attn_sublayer(x, lp, cfg, positions, window):
+    o, k, v = _attend(_norm(x, lp, "attn_norm", cfg), lp, cfg, positions,
+                      window)
+    if cfg.post_norms:
+        o = _norm(o, lp, "post_attn_norm", cfg)
+    return o, k, v
+
+
+def _ffn_sublayer(x, lp, cfg):
+    out = mlp(_norm(x, lp, "mlp_norm", cfg), lp, cfg)
+    if cfg.post_norms:
+        out = _norm(out, lp, "post_mlp_norm", cfg)
+    return out
+
+
+def _fuse(x, lp, a, s, cfg):
+    """The hybrid's residual: x + fuse_attn_scale·a + fuse_ssm_scale·s',
+    s' the Mamba output normed with the layer's ``ssm_norm``."""
+    s = rmsnorm(s, lp["ssm_norm"], one_plus=cfg.rms_one_plus)
+    return x + (lp["fuse_attn_scale"].to(x.dtype) * a
+                + lp["fuse_ssm_scale"].to(x.dtype) * s)
+
+
 def decoder_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, positions: torch.Tensor,
+                  window: int) -> torch.Tensor:
     """One layer.  ``repro``'s also returns an auxiliary loss, which only
-    MoE layers make; the SSM family has none."""
-    check_family(cfg)
-    return x + mamba_block(_norm(x, lp, "ssm_norm", cfg), lp, cfg)
+    MoE layers make."""
+    if cfg.family == "ssm":
+        return x + mamba_block(_norm(x, lp, "ssm_norm", cfg), lp, cfg)
+    if cfg.family == "hybrid":
+        h = _norm(x, lp, "attn_norm", cfg)
+        a, _, _ = _attend(h, lp, cfg, positions, window)
+        x = _fuse(x, lp, a, mamba_block(h, lp, cfg), cfg)
+        return x + _ffn_sublayer(x, lp, cfg)
+    o, _, _ = _attn_sublayer(x, lp, cfg, positions, window)
+    x = x + o
+    return x + _ffn_sublayer(x, lp, cfg)
 
 
 def forward_hidden(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
@@ -43,46 +115,74 @@ def forward_hidden(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     """Token ids -> final hidden states (after the final norm)."""
     check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        x = decoder_layer(x, layer_params(params, i), cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i, window in enumerate(layer_windows(cfg)):
+        x = decoder_layer(x, layer_params(params, i), cfg, positions, window)
     return rmsnorm(x, params["final_norm"], one_plus=cfg.rms_one_plus)
 
 
 def prefill_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
-                  cfg: ModelConfig):
-    """One layer of prompt processing; returns (x', cache entries)."""
-    check_family(cfg)
-    out, conv, ssm = mamba_block(_norm(x, lp, "ssm_norm", cfg), lp, cfg,
-                                 return_state=True)
-    return x + out, {"conv": conv.to(cfg.dtype), "ssm": ssm}
+                  cfg: ModelConfig, positions: torch.Tensor, window: int):
+    """One layer of prompt processing; returns (x', cache entries): the
+    layer's K / V after RoPE, and the SSM family's and the hybrid's conv
+    window and state at the end of the prompt."""
+    if cfg.family == "ssm":
+        out, conv, ssm = mamba_block(_norm(x, lp, "ssm_norm", cfg), lp, cfg,
+                                     return_state=True)
+        return x + out, {"conv": conv.to(cfg.dtype), "ssm": ssm}
+    if cfg.family == "hybrid":
+        h = _norm(x, lp, "attn_norm", cfg)
+        a, k, v = _attend(h, lp, cfg, positions, window)
+        s, conv, ssm = mamba_block(h, lp, cfg, return_state=True)
+        x = _fuse(x, lp, a, s, cfg)
+        return x + _ffn_sublayer(x, lp, cfg), {
+            "k": k, "v": v, "conv": conv.to(cfg.dtype), "ssm": ssm}
+    o, k, v = _attn_sublayer(x, lp, cfg, positions, window)
+    x = x + o
+    return x + _ffn_sublayer(x, lp, cfg), {"k": k, "v": v}
 
 
 def prefill(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
             cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """Prompt pass: (last-position logits (B, V) f32, decode cache)."""
+    """Prompt pass: (last-position logits (B, V) f32, decode cache).  The
+    cache's max_len is the prompt's length; ``launch.serve.generate``
+    copies it into a longer one to decode."""
     check_family(cfg)
     x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
     caches = []
-    for i in range(cfg.n_layers):
-        x, ce = prefill_layer(x, layer_params(params, i), cfg)
+    for i, window in enumerate(layer_windows(cfg)):
+        x, ce = prefill_layer(x, layer_params(params, i), cfg, positions,
+                              window)
         caches.append(ce)
     x = rmsnorm(x, params["final_norm"], one_plus=cfg.rms_one_plus)
     logits = logits_head(params, x[:, -1:], cfg)
-    cache = {k: torch.stack([ce[k] for ce in caches]) for k in caches[0]}
+    cache = {}
+    for k in list(caches[0]):
+        cache[k] = torch.stack([ce.pop(k) for ce in caches])
     cache["pos"] = tokens.shape[1]
     return logits[:, 0], cache
 
 
 def cache_spec(cfg: ModelConfig, batch: int,
                max_len: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """Shapes and dtypes of the decode cache.  The SSM family's does not
-    grow with ``max_len``: the conv window and the state are O(1)."""
+    """Shapes and dtypes of the decode cache.  The SSM states do not grow
+    with ``max_len``; the KV cache does."""
     check_family(cfg)
-    l = cfg.n_layers
-    return {
-        "conv": ((l, batch, cfg.ssm_conv - 1, cfg.d_inner), cfg.dtype),
-        "ssm": ((l, batch, cfg.d_inner, cfg.ssm_state), torch.float32),
-    }
+    l, hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    spec: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if not cfg.attn_free:
+        kv_dt = torch.int8 if cfg.kv_quant else cfg.dtype
+        spec["k"] = ((l, batch, max_len, hkv, hd), kv_dt)
+        spec["v"] = ((l, batch, max_len, hkv, hd), kv_dt)
+        if cfg.kv_quant:
+            spec["k_scale"] = ((l, batch, max_len, hkv), torch.float32)
+            spec["v_scale"] = ((l, batch, max_len, hkv), torch.float32)
+    if cfg.family in ("ssm", "hybrid"):
+        spec["conv"] = ((l, batch, cfg.ssm_conv - 1, cfg.d_inner), cfg.dtype)
+        spec["ssm"] = ((l, batch, cfg.d_inner, cfg.ssm_state),
+                       torch.float32)
+    return spec
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -94,39 +194,95 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def _quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (position, head): the scale max|x| / 127 (at
+    least 1e-12), values rounded half to even and clipped to ±127."""
+    xf = x.to(torch.float32)
+    s = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-12)
+    q8 = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q8.to(torch.int8), s
+
+
+def _decode_attend(h, lp, cache_l, cfg, positions, pos, window):
+    """The new token's attention: its K / V (quantized under
+    ``kv_quant``) written at ``pos`` of the layer's cache, in place, then
+    its query against the cache, projected through wo."""
+    q, k, v = attn.qkv_project(h, lp, cfg, positions)
+    if cfg.kv_quant:
+        for name, t in (("k", k), ("v", v)):
+            t8, ts = _quant(t)
+            cache_l[name][:, pos] = t8[:, 0]
+            cache_l[name + "_scale"][:, pos] = ts[:, 0]
+        k_full, v_full = (
+            cache_l[n].to(h.dtype) * cache_l[n + "_scale"][..., None].to(
+                h.dtype) for n in ("k", "v"))
+    else:
+        cache_l["k"][:, pos] = k[:, 0].to(cache_l["k"].dtype)
+        cache_l["v"][:, pos] = v[:, 0].to(cache_l["v"].dtype)
+        k_full, v_full = cache_l["k"], cache_l["v"]
+    o = attn.decode_attention(q, k_full, v_full, pos, window=window,
+                              cap=cfg.attn_softcap)
+    return o.reshape(h.shape[0], 1, cfg.q_dim) @ lp["wo"].to(h.dtype)
+
+
+def _decode_ssm(h, lp, cache_l, cfg):
+    """The Mamba block's step: the new conv window and state copied into
+    the layer's cache, in place."""
+    out, conv, ssm = mamba_decode_step(h, cache_l["conv"], cache_l["ssm"],
+                                       lp, cfg)
+    cache_l["conv"].copy_(conv)
+    cache_l["ssm"].copy_(ssm)
+    return out
+
+
 def decode_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
-                 cache_l: Dict[str, torch.Tensor], cfg: ModelConfig
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Single-token decode through one layer; returns (x', new states)."""
-    check_family(cfg)
-    out, conv, ssm = mamba_decode_step(_norm(x, lp, "ssm_norm", cfg),
-                                       cache_l["conv"], cache_l["ssm"], lp,
-                                       cfg)
-    return x + out, {"conv": conv, "ssm": ssm}
+                 cache_l: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 positions: torch.Tensor, pos: int,
+                 window: int) -> torch.Tensor:
+    """Single-token decode through one layer; ``cache_l`` holds the
+    layer's views of the cache, which it updates in place.  ``positions``
+    is ``pos`` as a one-element tensor on the activations' device."""
+    if cfg.family == "ssm":
+        return x + _decode_ssm(_norm(x, lp, "ssm_norm", cfg), lp, cache_l,
+                               cfg)
+    h = _norm(x, lp, "attn_norm", cfg)
+    a = _decode_attend(h, lp, cache_l, cfg, positions, pos, window)
+    if cfg.family == "hybrid":
+        x = _fuse(x, lp, a, _decode_ssm(h, lp, cache_l, cfg), cfg)
+        return x + _ffn_sublayer(x, lp, cfg)
+    if cfg.post_norms:
+        a = _norm(a, lp, "post_attn_norm", cfg)
+    x = x + a
+    return x + _ffn_sublayer(x, lp, cfg)
 
 
 def decode_step(params: Dict[str, torch.Tensor], cache: Dict,
                 tokens: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, Dict]:
     """One serving step: logits (B, V) f32 for the next token, and the
-    cache with its states updated in place and ``pos`` advanced."""
+    cache with the new position written in place and ``pos`` advanced."""
     check_family(cfg)
+    pos = cache["pos"]
+    if "k" in cache and pos >= cache["k"].shape[2]:
+        raise ValueError(f"the cache holds {cache['k'].shape[2]} positions;"
+                         f" position {pos} does not fit")
     x = embed_tokens(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        cache_l = {k: cache[k][i] for k in ("conv", "ssm")}
-        x, new = decode_layer(x, layer_params(params, i), cache_l, cfg)
-        for k, v in new.items():
-            cache[k][i].copy_(v)
+    positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    names = [k for k in cache if k != "pos"]
+    for i, window in enumerate(layer_windows(cfg)):
+        x = decode_layer(x, layer_params(params, i),
+                         {k: cache[k][i] for k in names}, cfg, positions, pos,
+                         window)
     x = rmsnorm(x, params["final_norm"], one_plus=cfg.rms_one_plus)
     logits = logits_head(params, x, cfg)
-    cache["pos"] = cache["pos"] + 1
+    cache["pos"] = pos + 1
     return logits[:, 0], cache
 
 
 class LM(nn.Module):
     """The decoder as a module: holds the flat parameter dict (names as
-    in ``repro``, e.g. ``layers/in_proj``) and calls the functions
-    above.  Inference only: the parameters do not require gradients."""
+    in ``repro``, e.g. ``layers/wq``) and calls the functions above.
+    Inference only: the parameters do not require gradients."""
 
     def __init__(self, cfg: ModelConfig,
                  params: Optional[Dict[str, torch.Tensor]] = None, *,
@@ -160,5 +316,6 @@ class LM(nn.Module):
         return decode_step(self.params, cache, tokens, self.cfg)
 
 
-__all__ = ["decoder_layer", "forward_hidden", "prefill_layer", "prefill",
-           "cache_spec", "init_cache", "decode_layer", "decode_step", "LM"]
+__all__ = ["GLOBAL_WINDOW", "layer_windows", "decoder_layer",
+           "forward_hidden", "prefill_layer", "prefill", "cache_spec",
+           "init_cache", "decode_layer", "decode_step", "LM"]

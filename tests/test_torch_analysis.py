@@ -257,7 +257,8 @@ def test_flop_count_of_a_reduced_prefill(ssm_kernel, batch, seq):
     counter cannot see), and the lm_head at the last position only.  The
     conv (``_conv1d``'s shifted products) and the elementwise glue add
     nothing."""
-    cfg = serve_mod.build_config(reduced=True, ssm_kernel=ssm_kernel)
+    cfg = serve_mod.build_config("falcon_mamba_7b", reduced=True,
+                                 ssm_kernel=ssm_kernel)
     params = common.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     ids = torch.randint(0, cfg.vocab_size, (batch, seq),
                         generator=torch.Generator().manual_seed(1))

@@ -94,6 +94,38 @@ def test_measurement_modules_are_scanned_and_import(module):
     importlib.import_module(module)
 
 
+# the attention families' slice (ROADMAP A15: dense and hybrid serving)
+A15_MODULES = ("repro_torch.models.rope", "repro_torch.models.attention",
+               "repro_torch.models.transformer",
+               "repro_torch.configs.gemma2_2b",
+               "repro_torch.configs.minitron_8b",
+               "repro_torch.configs.phi3_mini_3p8b",
+               "repro_torch.configs.chatglm3_6b",
+               "repro_torch.configs.hymba_1p5b")
+
+
+@pytest.mark.parametrize("module", A15_MODULES)
+def test_a15_modules_are_scanned_and_import(module):
+    """Each module of the attention families' slice is among the files
+    the AST scan holds to "no jax, nothing of repro", and imports
+    without a card."""
+    path = ROOT / pathlib.Path("src", *module.split(".")).with_suffix(".py")
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+    importlib.import_module(module)
+
+
+def test_lm_launcher_defaults_to_the_card(no_card):
+    """``launch.serve.generate`` of a dense model raises without a card
+    unless asked for the CPU."""
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.generate("gemma2_2b", reduced=True, gen=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--reduced", "--gen", "1"])
+
+
 def test_analysis_exports_match_repro_but_the_hlo_parsers():
     """``repro_torch.analysis`` exports ``repro.analysis``'s names less
     the HLO parsers' (``hlo.py``; ``roofline_from_compiled`` reads a

@@ -303,8 +303,8 @@ def test_mamba_block_kernel_branch_equals_the_unfused_block(dtype):
 def test_generate_counts_the_fused_scan_per_stage(monitor):
     cfg = falcon_reduced()
     p = tcommon.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    r = serve.generate(device="cpu", reduced=True, gen=2, batch=2,
-                       prompt_len=9, params=p, monitor=monitor,
+    r = serve.generate("falcon_mamba_7b", device="cpu", reduced=True, gen=2,
+                       batch=2, prompt_len=9, params=p, monitor=monitor,
                        monitor_len=4)
     n_layers = cfg.n_layers
     want = {"selective_scan": 0, "selective_scan_plain": n_layers,
@@ -314,7 +314,8 @@ def test_generate_counts_the_fused_scan_per_stage(monitor):
     if monitor:
         assert r["scan_counts"]["monitor"] == {
             k: 9 * v for k, v in want.items()}
-    off = serve.generate(device="cpu", reduced=True, gen=1, batch=2,
+    off = serve.generate("falcon_mamba_7b", device="cpu", reduced=True,
+                         gen=1, batch=2,
                          prompt_len=9, params=p, ssm_kernel=False)
     assert off["scan_counts"]["prefill"] == dict(
         {k: 0 for k in want}, assoc_scan=n_layers)

@@ -274,21 +274,40 @@ def test_other_architectures_are_not_ported_yet(arch):
 
 
 def test_other_families_raise_naming_the_roadmap():
+    """MoE (and an attention-free dense model) is not ported."""
     _, tcfg = falcon_pair()
-    dense = dataclasses.replace(tcfg, family="dense")
-    for fn in (tcommon.param_shapes,
-               lambda c: ttr.cache_spec(c, 1, 4),
-               lambda c: lm_batch(c, 0, 0, 1, 4, "cpu")):
-        with pytest.raises(NotImplementedError, match="A15"):
-            fn(dense)
+    for cfg in (dataclasses.replace(tcfg, family="moe"),
+                dataclasses.replace(tcfg, family="dense")):
+        for fn in (tcommon.param_shapes,
+                   lambda c: ttr.cache_spec(c, 1, 4),
+                   lambda c: lm_batch(c, 0, 0, 1, 4, "cpu")):
+            with pytest.raises(NotImplementedError, match="A15"):
+                fn(cfg)
 
 
 @pytest.mark.parametrize("field,value", [
-    ("kv_quant", True), ("sliding_window", 8), ("n_experts", 4),
-    ("act", "gelu"), ("n_enc_layers", 2)])
-def test_fields_of_unported_families_raise_naming_the_roadmap(field, value):
-    """A field the SSM path never reads raises when set, rather than
-    changing nothing."""
+    ("top_k", 2), ("n_shared_experts", 1), ("n_experts", 4),
+    ("n_patches", 8), ("n_enc_layers", 2)])
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "gemma2_2b"])
+def test_fields_of_unported_families_raise_naming_the_roadmap(field, value,
+                                                              arch):
+    """A field only MoE, VLM or the encoder reads raises when set on a
+    ported family, rather than changing nothing."""
+    tcfg = get_arch(arch).model.reduced(dtype=torch.float32)
+    cfg = dataclasses.replace(tcfg, **{field: value})
+    for fn in (tcommon.param_shapes,
+               lambda c: ttr.cache_spec(c, 1, 4),
+               lambda c: lm_batch(c, 0, 0, 1, 4, "cpu")):
+        with pytest.raises(NotImplementedError, match=f"{field}.*A15"):
+            fn(cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("kv_quant", True), ("sliding_window", 8), ("act", "gelu"),
+    ("post_norms", True), ("attn_softcap", 50.0), ("rope_variant", "half")])
+def test_attention_fields_on_the_ssm_family_raise(field, value):
+    """Falcon-Mamba is attention-free: an attention field set on it raises
+    rather than being ignored."""
     _, tcfg = falcon_pair()
     cfg = dataclasses.replace(tcfg, **{field: value})
     for fn in (tcommon.param_shapes,
@@ -518,9 +537,9 @@ def test_generate_matches_repro_on_the_same_ids(weights, ssm_kernel,
     jp, tp = weights
     jcfg, _ = falcon_pair(ssm_kernel)
     ids = prompt_ids(4, 32, seed=13)
-    r = serve.generate(device="cpu", reduced=True, gen=5, params=tp,
-                       tokens=ids, ssm_kernel=ssm_kernel, monitor=monitor,
-                       monitor_len=8)
+    r = serve.generate("falcon_mamba_7b", device="cpu", reduced=True, gen=5,
+                       params=tp, tokens=ids, ssm_kernel=ssm_kernel,
+                       monitor=monitor, monitor_len=8)
     jlogits, jtokens = repro_generate(jp, jcfg, ids, 5)
     assert len(r["logits"]) == len(jlogits) == 6
     for got, want in zip(r["logits"], jlogits):
@@ -571,7 +590,8 @@ def test_activation_monitor_matches_repro(weights):
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
-    assert serve.main(["--device", "cpu", "--reduced", "--gen", "3",
+    assert serve.main(["--arch", "falcon_mamba_7b", "--device", "cpu",
+                       "--reduced", "--gen", "3",
                        "--prompt-len", "8", "--batch", "2", "--monitor",
                        "--monitor-len", "4", "--ssm-kernel", "off"]) == 0
     out = capsys.readouterr().out
@@ -588,11 +608,11 @@ def test_generate_defaults_to_the_card_and_raises_without_one(monkeypatch):
 
 
 def test_build_config_cuts_depth_only():
-    full = serve.build_config()
+    full = serve.build_config("falcon_mamba_7b")
     assert full.ssm_kernel and full.n_layers == 64
-    cut = serve.build_config(layers=2, ssm_kernel=False)
+    cut = serve.build_config("falcon_mamba_7b", layers=2, ssm_kernel=False)
     assert (cut.n_layers, cut.d_model, cut.d_inner, cut.vocab_size,
             cut.dtype, cut.ssm_kernel) == (2, 4096, 8192, 65024,
                                            torch.bfloat16, False)
     with pytest.raises(ValueError, match="layers"):
-        serve.build_config(layers=65)
+        serve.build_config("falcon_mamba_7b", layers=65)
