@@ -277,7 +277,39 @@ Run from the repository root.  Phases, each printing its lines:
                   full_attention at Gemma-2's head shapes, S 8192,
                   softcap 50, window 4096 and none.  Prefill ms, decode
                   tok/s, KV cache bytes and peak memory by stage are
-                  printed beside the card's name and power limit.
+                  printed beside the card's name and power limit;
+ 15. families     the MoE, VLM and audio families, bf16, weights drawn
+                  on the card from the seed, one model resident at a
+                  time, through launch.serve.generate at batch 4: (a)
+                  Granite-3.0-MoE-3B-A800M at full width and depth
+                  (3,375,072,768 parameters), prompt 1024, 32 tokens,
+                  the monitor on: B1 once, B2 twice, no other kernel;
+                  the monitor's launches against their plain versions;
+                  the share of (token, choice) pairs dropped in the
+                  prefill and each decode step; a warm prefill and one
+                  decode step profiled; (b) Kimi-K2 at full width (384
+                  experts of 7168 x 2048, the shared expert, vocab
+                  163840), depth 1 of 61, prompt 1024, 8 tokens; its MoE
+                  layer on the prefill's hidden states against an
+                  independent per-expert f32 loop over the same bf16
+                  weights and routing, per element within the bf16 bar
+                  times the terms' absolute mass; (c) LLaVA-NeXT-34B at
+                  full width, depth 16 of 60, 2880 patches + 1024
+                  tokens, 8 tokens; (d) Whisper-large-v3 whole (32
+                  encoder + 32 decoder layers, 1500 frames), prompt
+                  440, 8 tokens; none of (b)-(d) may launch a kernel;
+                  (e) f32 at 2 layers of full width: LLaVA (the cache
+                  position after the patch prefix) and Whisper
+                  prefill(p[:S]) + one decode step against
+                  prefill(p[:S+1]); Granite the same at capacity factor
+                  E/k (nothing drops; a top-k set that flips between
+                  the paths on a near tie, gap <= 2e-4, is reported and
+                  its row left out, a wider flip fails); Granite at its
+                  default capacity factor, each layer's MoE output
+                  against the per-expert f32 loop (phase 8's bars).
+                  Prefill ms (first, warm), decode tok/s, KV bytes and
+                  peak memory by stage are printed beside the card's
+                  name and power limit.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -435,6 +467,34 @@ CHUNK_WINDOWS = (4096, None)
 ATTN_PARAMS = {"gemma2_2b": 2_614_341_888, "minitron_8b": 7_734_562_816,
                "phi3_mini_3p8b": 3_822_259_200,
                "chatglm3_6b": 6_243_454_976, "hymba_1p5b": 1_663_131_200}
+
+
+# phase 15: the MoE, VLM and audio families, weights drawn on the card,
+# one model resident at a time.  Granite-MoE serves like phase 14's
+# Gemma-2 (full width and depth, monitor on); Kimi-K2 at full width and a
+# depth of KIMI_LAYERS of 61 (two layers, 73 GB, do not fit beside the
+# activations); LLaVA-NeXT at full width and VLM_LAYERS of 60 (each layer
+# materialises 13.7 GB of f32 scores over 2880 patches + 1024 tokens);
+# Whisper full, its prompt AUDIO_PROMPT tokens (the decoder's 448-token
+# context less FAM_GEN).  The f32 checks run at CHECK_LAYERS of full
+# width (Whisper: CHECK_LAYERS encoder and decoder layers)
+FAM_MOE = "granite_moe_3b_a800m"
+FAM_KIMI, KIMI_LAYERS = "kimi_k2_1t_a32b", 1
+FAM_VLM, VLM_LAYERS = "llava_next_34b", 16
+FAM_AUDIO, AUDIO_PROMPT = "whisper_large_v3", 440
+FAM_GEN = 8
+# LLaVA's prefill + decode against the longer prefill, f32: rtol 1e-5
+# with atol 1e-5 of the largest logit (the CPU test's bar,
+# tests/test_torch_families.py); with the cache position left at S, as
+# repro's prefill leaves it, the step misses by far more than the logits'
+# own scale
+VLM_RTOL = 1e-5
+# the published sizes (tests/test_torch_families.py holds param_count to
+# them)
+FAM_PARAMS = {"granite_moe_3b_a800m": 3_375_072_768,
+              "kimi_k2_1t_a32b": 1_043_853_440_000,
+              "llava_next_34b": 34_440_297_472,
+              "whisper_large_v3": 1_536_652_800}
 
 
 def log(msg: str) -> None:
@@ -4107,12 +4167,14 @@ def init_on_card(common, cfg, gen) -> tuple:
     return params, ms, gb
 
 
-def serve_attention(arch, params, gen_tokens, monitor, counts_fns,
-                    serve_mod, chunked, card) -> tuple:
-    """One model served through ``generate`` at batch SERVE_BATCH, prompt
-    SERVE_PROMPT: the kernels' launches with every count set to 0 just
-    before and read just after, no chunked attention (S < 8192); returns
-    (report, launches, summary)."""
+def serve_model(arch, params, layers, prompt, gen_tokens, monitor,
+                counts_fns, serve_mod, card, chunked=None) -> tuple:
+    """One model served through ``generate`` at batch SERVE_BATCH: the
+    kernels' launches with every count set to 0 just before and read
+    just after, one more (warm) prefill on the same inputs, the greedy
+    ids in range and the KV bytes (the patch prefix included); with
+    ``chunked`` (a ``ChunkedCalls``), no chunked attention (S < 8192).
+    Returns (report, launches, summary)."""
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.models import ssm as ssm_mod
@@ -4120,52 +4182,65 @@ def serve_attention(arch, params, gen_tokens, monitor, counts_fns,
 
     reset_counts(*counts_fns)
     ss.plain_calls = ss.fused_plain_calls = ssm_mod.assoc_scans = 0
-    chunked.calls = 0
+    if chunked is not None:
+        chunked.calls = 0
     r, gen_ms = host_ms(lambda: serve_mod.generate(
-        arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=gen_tokens,
-        seed=SEED, monitor=monitor, monitor_len=MONITOR_LEN, params=params))
+        arch, batch=SERVE_BATCH, prompt_len=prompt, gen=gen_tokens,
+        seed=SEED, layers=layers, monitor=monitor, monitor_len=MONITOR_LEN,
+        params=params))
     counts = read_counts(*counts_fns)
-    if chunked.calls:
-        raise AssertionError(f"{arch}: chunked_attention ran at S "
-                             f"{SERVE_PROMPT} (threshold 8192)")
+    if chunked is not None and chunked.calls:
+        raise AssertionError(f"{arch}: chunked_attention ran at S {prompt} "
+                             "(threshold 8192)")
     cfg = r["cfg"]
-    ids = lm_batch(cfg, SEED, 0, SERVE_BATCH, SERVE_PROMPT, "cuda")["tokens"]
+    inputs = lm_batch(cfg, SEED, 0, SERVE_BATCH, prompt, "cuda")
+    ids = inputs.pop("tokens")
     with torch.inference_mode():
-        _, warm_ms = host_ms(lambda: transformer.prefill(params, ids, cfg))
+        _, warm_ms = host_ms(lambda: transformer.prefill(params, ids, cfg,
+                                                         **inputs))
+    del inputs
     toks = r["tokens"]
     if tuple(toks.shape) != (SERVE_BATCH, gen_tokens + 1) or \
             int(toks.min()) < 0 or int(toks.max()) >= cfg.padded_vocab:
         raise AssertionError(f"{arch}: generated ids {tuple(toks.shape)} "
                              "out of range")
-    kv = cfg.n_layers * SERVE_BATCH * (SERVE_PROMPT + gen_tokens) * \
+    held = prompt + (cfg.n_patches if cfg.family == "vlm" else 0)
+    kv = cfg.n_layers * SERVE_BATCH * (held + gen_tokens) * \
         cfg.n_kv_heads * cfg.hd * 2 * torch.finfo(cfg.dtype).bits // 8
-    if r["kv_cache_bytes"] != kv:
-        raise AssertionError(f"{arch}: KV cache {r['kv_cache_bytes']} bytes,"
-                             f" expected {kv}")
-    out = {"params": r["params"], "layers": cfg.n_layers,
+    if r["kv_cache_bytes"] != kv or r["cache"]["pos"] != held + gen_tokens:
+        raise AssertionError(f"{arch}: KV cache {r['kv_cache_bytes']} bytes"
+                             f" at pos {r['cache']['pos']}, expected {kv} at "
+                             f"{held + gen_tokens}")
+    out = {"params": r["params"], "layers": cfg.n_layers, "prompt": prompt,
+           "positions_prefilled": held, "gen": gen_tokens,
            "prefill_ms": r["prefill_ms"], "prefill_warm_ms": warm_ms,
-           "decode_s": r["decode_s"],
-           "decode_tok_s": r["decode_tok_s"], "generate_ms": gen_ms,
-           "kv_cache_bytes": r["kv_cache_bytes"],
+           "decode_s": r["decode_s"], "decode_tok_s": r["decode_tok_s"],
+           "generate_ms": gen_ms, "kv_cache_bytes": r["kv_cache_bytes"],
            "cache_bytes": r["cache_bytes"],
            "peak_memory_gib": r["peak_memory_bytes"] / 2**30,
            "peak_memory_gib_by_stage": {
                k: v / 2**30 for k, v in r["peak_memory_by_stage"].items()},
            "launches": counts, "kernel_counts": r["kernel_counts"],
            "scan_counts": r["scan_counts"], "card": card}
+    drop = ""
+    if "moe_dropped" in r:
+        md = r["moe_dropped"]
+        out["moe_dropped"] = md
+        drop = (f"; pairs dropped: prefill {md['prefill']:.4f}, decode "
+                f"steps {min(md['decode']):.4f}-{max(md['decode']):.4f} "
+                f"(mean {sum(md['decode']) / len(md['decode']):.4f})")
     log(f"  {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV of {cfg.hd}, "
-        f"{r['params']} parameters): prefill {SERVE_BATCH} x "
-        f"{SERVE_PROMPT} {r['prefill_ms']:.1f} ms (first call), "
-        f"{warm_ms:.1f} ms (warm); decode "
-        f"{gen_tokens} x {SERVE_BATCH} in {r['decode_s']:.3f} s, "
-        f"{r['decode_tok_s']:.1f} tok/s; KV cache "
+        f"{r['params']} parameters): prefill {SERVE_BATCH} x {held} "
+        f"positions {r['prefill_ms']:.1f} ms (first call), {warm_ms:.1f} ms "
+        f"(warm); decode {gen_tokens} x {SERVE_BATCH} in "
+        f"{r['decode_s']:.3f} s, {r['decode_tok_s']:.1f} tok/s; KV cache "
         f"{r['kv_cache_bytes'] / 2**20:.1f} MiB (all entries "
         f"{r['cache_bytes'] / 2**20:.1f} MiB); peak memory "
         f"{out['peak_memory_gib']:.2f} GiB ("
         + ", ".join(f"{k} {v:.2f}" for k, v in
                     out["peak_memory_gib_by_stage"].items())
-        + f"); logits finite; launches {json.dumps(counts)} [{card}]")
+        + f"){drop}; logits finite; launches {json.dumps(counts)} [{card}]")
     return r, counts, out
 
 
@@ -4287,9 +4362,9 @@ def phase_attention(ops, fs, fk, fp, fl, card) -> dict:
             f"({gb:.2f} GB) initialised on the card in {init_ms:.0f} ms")
         if common.param_count(cfg) != ATTN_PARAMS[ATTN_MAIN]:
             raise AssertionError(f"{ATTN_MAIN}: parameter count")
-        r, counts, summ = serve_attention(
-            ATTN_MAIN, params, SERVE_GEN, True, counts_fns, serve_mod,
-            chunked, card)
+        r, counts, summ = serve_model(
+            ATTN_MAIN, params, None, SERVE_PROMPT, SERVE_GEN, True,
+            counts_fns, serve_mod, card, chunked)
         want = dict({k: 0 for k in counts}, flash_score=1, flash_kde=2)
         if counts != want:
             raise AssertionError(f"{ATTN_MAIN}: launches {counts}, expected "
@@ -4366,9 +4441,9 @@ def phase_attention(ops, fs, fk, fp, fl, card) -> dict:
                 raise AssertionError(f"{arch}: parameter count")
             log(f"  (b) {arch}: {gb:.2f} GB initialised on the card in "
                 f"{init_ms:.0f} ms")
-            r, counts, summ = serve_attention(
-                arch, params, ATTN_GEN, False, counts_fns, serve_mod,
-                chunked, card)
+            r, counts, summ = serve_model(
+                arch, params, None, SERVE_PROMPT, ATTN_GEN, False,
+                counts_fns, serve_mod, card, chunked)
             fused = cfg.n_layers if cfg.family == "hybrid" else 0
             want = dict({k: 0 for k in counts}, mamba_scan=fused)
             scans = {"prefill": {"selective_scan": 0,
@@ -4410,6 +4485,332 @@ def phase_attention(ops, fs, fk, fp, fl, card) -> dict:
                                          attn_mod, gen)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 14 took {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the MoE, VLM and audio families
+# ---------------------------------------------------------------------------
+
+
+class MoECapture:
+    """Records each ``models.moe.moe_ffn`` call's input, layer weights and
+    output (the layer looks the function up in ``models.transformer`` at
+    each call) while installed."""
+
+    def __init__(self, transformer):
+        self.mod, self.fn, self.calls = transformer, transformer.moe_ffn, []
+
+    def __enter__(self):
+        def captured(x, lp, cfg):
+            out = self.fn(x, lp, cfg)
+            self.calls.append((x, lp, out[0]))
+            return out
+
+        self.mod.moe_ffn = captured
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_ffn = self.fn
+
+
+def moe_loop(x, lp, cfg, r, mass: bool = False):
+    """An independent MoE layer: each expert's kept (token, choice)
+    pairs, from the routing ``r`` the layer made (``models.moe.route``:
+    the same choices, weights and drops), through that expert's weights
+    upcast to f32 in turn, weighted and added in f32; then the shared
+    experts in f32.  Returns (T, d) f32 and, with ``mass``, each
+    output's absolute mass: the weighted |h| @ |W_down| of its terms
+    (and |s_h| @ |W_shared_down|), the scale of a rounding error in any
+    of the sums."""
+    from repro_torch.models.layers import _act
+
+    t, d = x.shape
+    xf = x.to(torch.float32)
+    keep = r.keep.view(t, cfg.top_k)
+    out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+    tot = torch.zeros_like(out)
+
+    def ffn(rows, up, gate, down):
+        u = rows @ up.to(torch.float32)
+        h = (_act(rows @ gate.to(torch.float32), cfg.act) * u if cfg.gated
+             else _act(u, cfg.act))
+        dn = down.to(torch.float32)
+        return h @ dn, (h.abs() @ dn.abs() if mass else None)
+
+    for e in range(cfg.n_experts):
+        tok, choice = torch.nonzero((r.expert_idx == e) & keep,
+                                    as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        y, m = ffn(xf[tok], lp["experts_up"][e],
+                   lp["experts_gate"][e] if cfg.gated else None,
+                   lp["experts_down"][e])
+        w = r.weights[tok, choice][:, None]
+        out.index_add_(0, tok, y * w)
+        if mass:
+            tot.index_add_(0, tok, m * w)
+    if cfg.n_shared_experts:
+        y, m = ffn(xf, lp["shared_up"], lp.get("shared_gate"),
+                   lp["shared_down"])
+        out += y
+        if mass:
+            tot += m
+    return (out, tot) if mass else out
+
+
+def routing_flips(pre, step, whole, batch: int, k: int) -> list:
+    """Where two routings of the same tokens choose other experts: ``pre``
+    and ``step`` the records (``models.moe.recording``) of a prefill of S
+    tokens and one decode step, ``whole`` of a prefill of S + 1, one
+    record a layer each.  Each (layer, row, position) whose top-k set
+    differs, with ``gap`` = (p_k − p_{k+1}) / p_k of the whole prefill's
+    probabilities: how near a tie the choice was."""
+    flips = []
+    for layer, (a, b, w) in enumerate(zip(pre, step, whole)):
+        split = torch.cat([a.expert_idx.view(batch, -1, k),
+                           b.expert_idx.view(batch, 1, k)], dim=1)
+        full = w.expert_idx.view(batch, -1, k)
+        diff = (split.sort(-1).values != full.sort(-1).values).any(-1)
+        logits = w.logits.view(batch, full.shape[1], -1)
+        for row, pos in diff.nonzero().tolist():
+            top = torch.softmax(logits[row, pos], -1).sort(
+                descending=True).values
+            flips.append({"layer": layer, "row": row, "position": pos,
+                          "gap": float((top[k - 1] - top[k]) / top[k - 1])})
+    return flips
+
+
+def check_moe_layers(transformer, moe_mod, params, cfg, ids, bf16: bool,
+                     label: str) -> dict:
+    """Each MoE layer's output in one prefill of ``ids``, on the hidden
+    states it was given, against ``moe_loop`` with the routing it made:
+    in bf16 per element within TIER_BAR["bf16"] of the terms' absolute
+    mass; in f32 to MODEL_RTOL / MODEL_ATOL."""
+    out = {}
+    with torch.inference_mode(), MoECapture(transformer) as cap, \
+            moe_mod.recording() as rec:
+        transformer.prefill(params, ids, cfg)
+        for i, ((x, lp, got), r) in enumerate(zip(cap.calls, rec)):
+            what = (f"{label}, layer {i}: moe_ffn vs the per-expert f32 "
+                    f"loop, {x.shape[0]} tokens, {r.cap} rows an expert, "
+                    f"dropped {moe_mod.dropped_share([r]):.4f}")
+            if bf16:
+                want, mass = moe_loop(x, lp, cfg, r, mass=True)
+                res = compare_mass(got, want, mass, TIER_BAR["bf16"], what)
+            else:
+                res = compare_model(got, moe_loop(x, lp, cfg, r), what)
+            out[f"layer {i}"] = dict(res, dropped=moe_mod.dropped_share([r]))
+        cap.calls.clear()
+    return out
+
+
+def family_identity(transformer, moe_mod, p32, c32, arch) -> dict:
+    """(e): f32, prefill(p[:S]) + one decode step against prefill(p[:S +
+    1]) on the same patches / frames: the logits, and the K / V carried
+    over (positions before the step) equal to the short prefill's bit
+    for bit.  For MoE the routing of both paths is compared token by
+    token: a row where a top-k set flips on a near tie (gap at most
+    MODEL_RTOL) is reported and left out of the logits comparison, a
+    flip with a wider gap fails, and so does a check with every row
+    left out.  LLaVA's logits are held to VLM_RTOL (relative and of the
+    largest magnitude), the bar that shows the position after the patch
+    prefix; the others to MODEL_RTOL / MODEL_ATOL."""
+    from repro_torch.data.synthetic import lm_batch
+
+    prompt = AUDIO_PROMPT if c32.family == "audio" else CHECK_PROMPT
+    batch = lm_batch(c32, SEED, 1, CHECK_BATCH, prompt + 1, "cuda")
+    ids = batch.pop("tokens")
+    with torch.inference_mode():
+        with moe_mod.recording() as pre:
+            _, pcache = transformer.prefill(p32, ids[:, :-1], c32, **batch)
+        held = pcache["pos"]
+        cache = extend_cache(transformer, c32, pcache, held + 1, CHECK_BATCH)
+        with moe_mod.recording() as dec:
+            step, cache = transformer.decode_step(p32, cache, ids[:, -1:],
+                                                  c32)
+        for k in ("k", "v"):
+            if not torch.equal(cache[k][:, :, :held], pcache[k]):
+                raise AssertionError(f"{arch}: the decode step changed {k} "
+                                     "at positions it did not write")
+        del pcache, cache
+        with moe_mod.recording() as whole:
+            longer, _ = transformer.prefill(p32, ids, c32, **batch)
+        sync()
+    rows = list(range(CHECK_BATCH))
+    res = {"positions": held + 1, "carried_bitwise": True}
+    if c32.family == "moe":
+        if moe_mod.dropped_share(pre + dec + whole):
+            raise AssertionError(f"{arch}: pairs dropped at capacity_factor "
+                                 f"{c32.capacity_factor}")
+        flips = routing_flips(pre, dec, whole, CHECK_BATCH, c32.top_k)
+        wide = [f for f in flips if f["gap"] > MODEL_RTOL]
+        if wide:
+            raise AssertionError(f"{arch}: top-k choices differ between the "
+                                 f"two paths beyond a near tie: {wide}")
+        rows = sorted(set(rows) - {f["row"] for f in flips})
+        if not rows:
+            raise AssertionError(f"{arch}: every row flipped on a near tie")
+        res["near_tie_flips"] = flips
+        log(f"  {arch}: routing of the two paths: {len(flips)} top-k set(s) "
+            f"flipped on a near tie (gap <= {MODEL_RTOL:.0e}), rows "
+            f"compared {rows}")
+    what = (f"{arch}, {c32.n_layers} layers f32: prefill({held} positions) "
+            f"+ one decode step vs prefill({held + 1}), logits")
+    if c32.family == "vlm":     # the position after the patch prefix
+        res["logits"] = compare(step, longer, VLM_RTOL, what,
+                                atol_frac=VLM_RTOL)
+    else:
+        res["logits"] = compare_model(step[rows], longer[rows], what)
+    return res
+
+
+def family_checks(serve_mod, common, transformer, moe_mod, gen) -> dict:
+    """(e) the f32 checks at CHECK_LAYERS of full width: LLaVA-NeXT and
+    Whisper (CHECK_LAYERS encoder layers too) prefill + decode against a
+    longer prefill (for LLaVA the check of the cache position after the
+    patch prefix); Granite-MoE the same at capacity_factor = E/k, where
+    nothing drops; Granite-MoE at its default capacity factor, each
+    layer's MoE output against the per-expert f32 loop."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import lm_batch
+
+    out = {}
+    for arch in (FAM_VLM, FAM_AUDIO, FAM_MOE):
+        c32 = dataclasses.replace(
+            serve_mod.build_config(arch, layers=CHECK_LAYERS),
+            dtype=torch.float32, param_dtype=torch.float32)
+        if c32.family == "audio":
+            c32 = dataclasses.replace(c32, n_enc_layers=CHECK_LAYERS)
+        p32 = common.init_params(c32, gen, "cuda")
+        if c32.family == "moe":
+            ident = dataclasses.replace(
+                c32, capacity_factor=c32.n_experts / c32.top_k)
+            out[f"{arch} identity"] = family_identity(
+                transformer, moe_mod, p32, ident, arch)
+            ids = lm_batch(c32, SEED, 2, CHECK_BATCH, CHECK_PROMPT,
+                           "cuda")["tokens"]
+            out[f"{arch} layers"] = check_moe_layers(
+                transformer, moe_mod, p32, c32, ids, False,
+                f"{arch} f32, capacity factor {c32.capacity_factor}")
+        else:
+            out[arch] = family_identity(transformer, moe_mod, p32, c32, arch)
+        del p32
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(ops, fs, fk, fp, fl, card) -> dict:
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import common, transformer
+    from repro_torch.models import moe as moe_mod
+
+    log(f"== phase 15: MoE, VLM and audio families, batch {SERVE_BATCH}, "
+        f"bf16, weights drawn on the card, one model at a time [{card}]")
+    t_phase = time.perf_counter()
+    counts_fns = (fs, fk, fp, fl)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {"models": {}}
+    torch.cuda.empty_cache()
+    for arch, want in FAM_PARAMS.items():
+        got = common.param_count(serve_mod.build_config(arch))
+        if got != want:
+            raise AssertionError(f"{arch}: {got} parameters, published "
+                                 f"{want}")
+
+    # (a) Granite-3.0-MoE at full width and depth with the monitor: B1
+    # once (the fit), B2 twice (threshold, scores), nothing else
+    cfg = serve_mod.build_config(FAM_MOE)
+    params, init_ms, gb = init_on_card(common, cfg, gen)
+    log(f"  (a) {FAM_MOE}: {common.param_count(cfg)} parameters ({gb:.2f} "
+        f"GB; {common.active_param_count(cfg)} active a token) initialised "
+        f"on the card in {init_ms:.0f} ms")
+    r, counts, summ = serve_model(FAM_MOE, params, None, SERVE_PROMPT,
+                                   SERVE_GEN, True, counts_fns, serve_mod,
+                                   card)
+    want = dict({k: 0 for k in counts}, flash_score=1, flash_kde=2)
+    if counts != want or r["kernel_counts"]["monitor"] != {
+            "flash_score": 1, "flash_kde": 2, "selective_scan": 0,
+            "mamba_scan": 0}:
+        raise AssertionError(f"{FAM_MOE}: launches {counts}, by stage "
+                             f"{r['kernel_counts']}; expected {want}, all "
+                             "in the monitor")
+    mon = r["monitor"]
+    summ.update(init_ms=init_ms, param_bytes=gb * 1e9, monitor_ms=mon["ms"],
+                monitor_flags=int(mon["flags"].sum()),
+                monitor_checks=check_monitor(ops, mon))
+    log(f"    monitor ({mon['ref_rows']} reference sequences of "
+        f"{mon['monitor_len']} tokens) {mon['ms']:.0f} ms, "
+        f"{summ['monitor_flags']}/{SERVE_BATCH} flagged")
+    del r, mon
+    ids = lm_batch(cfg, SEED, 0, SERVE_BATCH, SERVE_PROMPT, "cuda")["tokens"]
+    with torch.inference_mode():
+        summ["profile"] = {"prefill": device_breakdown(
+            lambda: transformer.prefill(params, ids, cfg),
+            f"{FAM_MOE} prefill {SERVE_BATCH} x {SERVE_PROMPT}, profiled")}
+        _, pcache = transformer.prefill(params, ids, cfg)
+        cache = extend_cache(transformer, cfg, pcache, SERVE_PROMPT + 2,
+                             SERVE_BATCH)
+        del pcache
+        summ["profile"]["decode_step"] = device_breakdown(
+            lambda: transformer.decode_step(params, cache, ids[:, -1:], cfg),
+            f"{FAM_MOE} one decode step, batch {SERVE_BATCH}, profiled")
+        del cache
+    out["models"][FAM_MOE] = summ
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) Kimi-K2 at full width, KIMI_LAYERS of 61; its MoE layer on the
+    # prefill's hidden states against the per-expert f32 loop (bf16 bar)
+    cfg = serve_mod.build_config(FAM_KIMI, layers=KIMI_LAYERS)
+    params, init_ms, gb = init_on_card(common, cfg, gen)
+    log(f"  (b) {FAM_KIMI}: depth cut to {KIMI_LAYERS} of 61, "
+        f"{common.param_count(cfg)} parameters ({gb:.2f} GB) initialised on "
+        f"the card in {init_ms:.0f} ms")
+    r, counts, summ = serve_model(FAM_KIMI, params, KIMI_LAYERS,
+                                   SERVE_PROMPT, FAM_GEN, False, counts_fns,
+                                   serve_mod, card)
+    if any(counts.values()):
+        raise AssertionError(f"{FAM_KIMI}: launches {counts}, expected none")
+    del r
+    ids = lm_batch(cfg, SEED, 0, SERVE_BATCH, SERVE_PROMPT, "cuda")["tokens"]
+    summ.update(init_ms=init_ms, param_bytes=gb * 1e9, cut={
+        "layers": [KIMI_LAYERS, 61]}, moe_check=check_moe_layers(
+            transformer, moe_mod, params, cfg, ids, True,
+            f"{FAM_KIMI} bf16 prefill"))
+    out["models"][FAM_KIMI] = summ
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) LLaVA-NeXT at full width, VLM_LAYERS of 60; (d) Whisper full
+    for arch, layers, prompt in ((FAM_VLM, VLM_LAYERS, SERVE_PROMPT),
+                                 (FAM_AUDIO, None, AUDIO_PROMPT)):
+        cfg = serve_mod.build_config(arch, layers=layers)
+        params, init_ms, gb = init_on_card(common, cfg, gen)
+        cut = "" if layers is None else f"depth cut to {layers} of 60, "
+        log(f"  ({'c' if arch == FAM_VLM else 'd'}) {arch}: {cut}"
+            f"{common.param_count(cfg)} parameters ({gb:.2f} GB) "
+            f"initialised on the card in {init_ms:.0f} ms")
+        r, counts, summ = serve_model(arch, params, layers, prompt,
+                                       FAM_GEN, False, counts_fns, serve_mod,
+                                       card)
+        if any(counts.values()):
+            raise AssertionError(f"{arch}: launches {counts}, expected none")
+        summ.update(init_ms=init_ms, param_bytes=gb * 1e9)
+        if layers is not None:
+            summ["cut"] = {"layers": [layers, 60]}
+        out["models"][arch] = summ
+        del r, params
+        torch.cuda.empty_cache()
+
+    log(f"  (e) f32 checks at full width, {CHECK_LAYERS} layers, batch "
+        f"{CHECK_BATCH}, prompt {CHECK_PROMPT} ({AUDIO_PROMPT} Whisper):")
+    out["checks"] = family_checks(serve_mod, common, transformer, moe_mod,
+                                  gen)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 15 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -4534,6 +4935,9 @@ def main(argv=None) -> int:
     attention = phase_attention(ops, fs, fk, fp, fl, card)
     attn_launches = {arch: m["launches"]
                      for arch, m in attention["models"].items()}
+    families = phase_families(ops, fs, fk, fp, fl, card)
+    fam_launches = {arch: m["launches"]
+                    for arch, m in families["models"].items()}
 
     # launches: each kernel's count from the path that runs it, with its
     # counts set to 0 just before and read just after (phases 4 and 4c)
@@ -4572,6 +4976,9 @@ def main(argv=None) -> int:
                 "launches_attention": {
                     arch: c["mamba_scan"] + c["selective_scan"]
                     for arch, c in attn_launches.items()},
+                "launches_families": {
+                    arch: c["mamba_scan"] + c["selective_scan"]
+                    for arch, c in fam_launches.items()},
                 "hymba": attention["hymba_scan"],
                 "ptxas": scan_regs})
             continue
@@ -4629,6 +5036,9 @@ def main(argv=None) -> int:
             # monitor (B1 its fit, B2 its threshold and scores)
             entry["launches_attention"] = {
                 arch: c[kname] for arch, c in attn_launches.items()}
+            # phase 15, the same: Granite-MoE's monitor
+            entry["launches_families"] = {
+                arch: c[kname] for arch, c in fam_launches.items()}
         if kname == "flash_score":
             entry["rect"] = timings["entries"]["flash_score rect"]
         if kname == "flash_kde_pruned":
@@ -4654,6 +5064,7 @@ def main(argv=None) -> int:
     summary["ring"] = ring_out
     summary["measurement"] = measurement
     summary["attention"] = attention
+    summary["families"] = families
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

@@ -1,12 +1,11 @@
 """Architecture / workload registry (``repro.configs``).
 
-Every architecture ``repro`` knows keeps its id here; the port builds the
-ones whose family it has (``PORTED``: the SSM, dense and hybrid
-families), each a module exporting ``ARCH`` (an ``ArchSpec`` with the
-published numbers).  ``get_arch`` of any other known id raises "not
-ported yet".  The assigned input shapes, each architecture's skipped
-cells and the paper's SD-KDE workloads are registered alongside with
-``repro``'s values; no ported entry point reads them yet.
+Every architecture ``repro`` knows keeps its id here, each a module
+exporting ``ARCH`` (an ``ArchSpec`` with the published numbers); the
+port builds all ten (``PORTED``).  The assigned input shapes, each
+architecture's skipped cells and the paper's SD-KDE workloads are
+registered alongside with ``repro``'s values; no ported entry point
+reads them yet.
 """
 
 from __future__ import annotations
@@ -113,10 +112,8 @@ ARCH_IDS = (
     "whisper_large_v3",
     "falcon_mamba_7b",
 )
-#: the architectures the port can build (the SSM, dense and hybrid
-#: families)
-PORTED = ("minitron_8b", "phi3_mini_3p8b", "gemma2_2b", "chatglm3_6b",
-          "hymba_1p5b", "falcon_mamba_7b")
+#: the architectures the port can build: all of them
+PORTED = ARCH_IDS
 
 _ALIASES = {
     "minitron-8b": "minitron_8b",
@@ -137,10 +134,6 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in ARCH_IDS:
         raise KeyError(
             f"unknown arch {arch_id!r}; available: {', '.join(ARCH_IDS)}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP A15); the port "
-            f"has {', '.join(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.ARCH
 

@@ -4,9 +4,10 @@ A batch is a pure function of (seed, step): the generator is seeded from
 both, so a restart or a re-dispatched batch is identical.  Token streams
 are Zipf-distributed (low ids far more frequent, like real text).  The
 ids differ from ``repro``'s for the same seed (``torch.Generator`` is not
-``jax.random``); tests hand both packages the same numpy ids.  The
-modality stubs (VLM patches, audio frames) wait with their families
-(ROADMAP A15).
+``jax.random``); tests hand both packages the same numpy ids.  VLM
+patches and audio frames are Gaussian stub embeddings (the frontends are
+stubs, as in ``repro``), drawn in f32 after the tokens from the same
+generator and cast to the activation type.
 """
 
 from __future__ import annotations
@@ -41,11 +42,21 @@ def _generator(seed: int, step: int,
 
 def lm_batch(cfg: ModelConfig, seed: int, step: int, batch: int, seq: int,
              device: "str | torch.device" = "cuda") -> Dict[str, torch.Tensor]:
-    """The batch of (seed, step): ``{"tokens": (batch, seq) int64}`` on
-    ``device``."""
+    """The batch of (seed, step) on ``device``: ``{"tokens": (batch,
+    seq) int64}``, with ``"patches"`` (batch, n_patches, d_model) for
+    VLM and ``"frames"`` (batch, enc_frames, d_model) for audio in
+    ``cfg.dtype``."""
     check_family(cfg)
     gen = _generator(seed, step, device)
-    return {"tokens": _zipf_tokens(gen, (batch, seq), cfg.vocab_size)}
+    out = {"tokens": _zipf_tokens(gen, (batch, seq), cfg.vocab_size)}
+    stub = {"vlm": ("patches", cfg.n_patches),
+            "audio": ("frames", cfg.enc_frames)}.get(cfg.family)
+    if stub is not None:
+        name, rows = stub
+        out[name] = torch.randn((batch, rows, cfg.d_model), generator=gen,
+                                device=gen.device,
+                                dtype=torch.float32).to(cfg.dtype)
+    return out
 
 
 __all__ = ["lm_batch"]

@@ -6,12 +6,16 @@
         --device cpu --reduced --monitor              # the CPU, small
 
 ``generate`` prefills a batch of prompts (building the KV and SSM
-caches), copies the prefill cache into a fresh ``init_cache`` of
-prompt + ``gen`` positions (K / V left-aligned), greedy-decodes ``gen``
-tokens per sequence with ``decode_step``, and checks that every logit is
-finite.  It reports prefill ms (host clock, synchronized), decode tokens
-per second, the KV cache's bytes, the launches of each scan path and of
-kernels B1, B2 and B7 per stage and, on the card, peak memory per stage.
+caches, and for audio each layer's cross K / V), copies the prefill
+cache into a fresh ``init_cache`` of prompt + ``gen`` positions (K / V
+left-aligned; for VLM n_patches + prompt + ``gen``), greedy-decodes
+``gen`` tokens per sequence with ``decode_step``, and checks that every
+logit is finite.  VLM patches and audio frames are drawn with the tokens
+unless given.  It reports prefill ms (host clock, synchronized), decode
+tokens per second, the KV cache's bytes, the launches of each scan path
+and of kernels B1, B2 and B7 per stage, for MoE the share of (token,
+choice) pairs the experts' capacity dropped in the prefill and in each
+decode step and, on the card, peak memory per stage.
 The model runs at the architecture's full width unless ``reduced`` asks
 for ``repro``'s small CPU configuration; ``layers`` cuts depth only.
 ``ssm_kernel`` (on by default) runs the Mamba blocks (Falcon-Mamba's,
@@ -20,11 +24,13 @@ plain version also counts one ``selective_scan_plain`` call); off,
 through the associative-scan branch.  With ``monitor`` it fits the
 SD-KDE activation monitor (kernels B1/B2 on the card) on 8 × 16
 reference sequences of ``monitor_len`` tokens and flags the batch's
-requests.  Runs on the card unless ``device="cpu"``; asking for the card
-where there is none raises.  An int8 KV cache (``kv_quant``) after a
-prefill raises: ``repro``'s launcher casts the prefill's bf16 K / V to
-int8 and leaves their scales at zero (ROADMAP C), and the port does not
-copy that.
+requests (MoE as dense; VLM and audio raise: ``repro``'s launcher runs
+its monitor through ``forward_hidden`` without the patches, which
+asserts, and without the encoder).  Runs on the card unless
+``device="cpu"``; asking for the card where there is none raises.  An
+int8 KV cache (``kv_quant``) after a prefill raises: ``repro``'s
+launcher casts the prefill's bf16 K / V to int8 and leaves their scales
+at zero (ROADMAP C), and the port does not copy that.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from repro_torch.core.estimator import EstimatorConfig
 from repro_torch.data.synthetic import lm_batch
 from repro_torch.kernels import flash_kde, flash_score
 from repro_torch.kernels import selective_scan as scan_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig, init_params, param_count
 from repro_torch.models.transformer import (decode_step, forward_hidden,
@@ -86,6 +93,13 @@ def _counts() -> dict:
                               "mamba_scan": scan_mod.fused_launches}}
 
 
+def _on(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A tensor or array as a ``dtype`` tensor on ``dev``."""
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device=dev, dtype=dtype)
+
+
 def _stage(report: dict, stage: str, before: dict) -> None:
     """Record each count's increase since ``before`` under ``stage``."""
     for kind, now in _counts().items():
@@ -110,18 +124,20 @@ def generate(arch: str = DEFAULT_ARCH, *, batch: int = 4,
              device: str = "cuda", reduced: bool = False,
              layers: Optional[int] = None, ssm_kernel: bool = True,
              monitor: bool = False, monitor_len: Optional[int] = None,
-             params: Optional[dict] = None, tokens=None,
-             kv_quant: bool = False) -> dict:
+             params: Optional[dict] = None, tokens=None, patches=None,
+             frames=None, kv_quant: bool = False) -> dict:
     """Prefill + greedy decode (module docstring); returns the report.
 
     ``params`` (the port's parameter dict, e.g. from
-    ``convert.lm_params_from_state``) and ``tokens`` ((batch, prompt_len)
-    ids) replace the seeded ones; ``tokens`` then sets batch and
-    prompt_len.  The report holds ``cfg``, ``tokens`` (B, gen + 1) the
+    ``convert.lm_params_from_state``), ``tokens`` ((batch, prompt_len)
+    ids), ``patches`` (VLM) and ``frames`` (audio) replace the seeded
+    ones; ``tokens`` then sets batch and prompt_len.  The report holds ``cfg``, ``tokens`` (B, gen + 1) the
     greedy ids, ``logits`` the prefill logits and each step's, timings,
     ``scan_counts`` and ``kernel_counts`` per stage, ``cache`` the decode
     cache after the last step, ``kv_cache_bytes`` its K / V (and
-    scales), ``cache_bytes`` all of it, and with ``monitor`` the ``monitor``
+    scales), ``cache_bytes`` all of it, for MoE ``moe_dropped`` (the
+    dropped shares, ``{"prefill": x, "decode": [x per step]}``), and
+    with ``monitor`` the ``monitor``
     scores and flags, beside the fitted ``ActivationMonitor`` and the
     pooled activations it was fitted on and scored (``ref_acts``,
     ``acts``)."""
@@ -135,14 +151,27 @@ def generate(arch: str = DEFAULT_ARCH, *, batch: int = 4,
     dev = device_mod.resolve(device)
     cfg = build_config(arch, reduced=reduced, layers=layers,
                        ssm_kernel=ssm_kernel)
+    if monitor and cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"monitor=True for the {cfg.family} family: repro's launcher "
+            "pools forward_hidden without the patches (an assert) or "
+            "without the encoder (src/repro/launch/serve.py:95-97)")
     if params is None:
         params = init_params(
             cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-    if tokens is None:
-        tokens = lm_batch(cfg, seed, 0, batch, prompt_len, dev)["tokens"]
-    tokens = torch.as_tensor(np.asarray(tokens) if not torch.is_tensor(
-        tokens) else tokens, dtype=torch.int64, device=dev)
-    batch, prompt_len = tokens.shape
+    if tokens is not None:
+        tokens = _on(tokens, dev, torch.int64)
+        batch, prompt_len = tokens.shape
+    drawn = lm_batch(cfg, seed, 0, batch, prompt_len, dev)
+    tokens = drawn["tokens"] if tokens is None else tokens
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = drawn["patches"] if patches is None else _on(
+            patches, dev, cfg.dtype)
+    if cfg.family == "audio":
+        extra["frames"] = drawn["frames"] if frames is None else _on(
+            frames, dev, cfg.dtype)
+    del drawn
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     report = {"cfg": cfg, "params": param_count(cfg), "batch": batch,
@@ -153,29 +182,35 @@ def generate(arch: str = DEFAULT_ARCH, *, batch: int = 4,
         before = _counts()
         device_mod.synchronize(dev)
         t0 = time.perf_counter()
-        logits, pcache = prefill(params, tokens, cfg)
+        with moe_mod.recording() as routed:
+            logits, pcache = prefill(params, tokens, cfg, **extra)
         device_mod.synchronize(dev)
         report["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         _stage(report, "prefill", before)
         _peak(dev, report, "prefill")
+        del extra
 
-        cache = init_cache(cfg, batch, prompt_len + gen, dev)
-        for k in ("conv", "ssm"):
+        held = pcache["pos"]       # positions the prefill processed
+        cache = init_cache(cfg, batch, held + gen, dev)
+        for k in ("conv", "ssm", "xk", "xv"):
             if k in cache:
                 cache[k].copy_(pcache[k])
         for k in ("k", "v"):       # (L, B, S, Hkv, hd), left-aligned
             if k in cache:
-                cache[k][:, :, :prompt_len].copy_(pcache[k])
-        cache["pos"] = pcache["pos"]
+                cache[k][:, :, :held].copy_(pcache[k])
+        cache["pos"] = held
         del pcache
 
         all_logits = [logits]
         tok = torch.argmax(logits, dim=-1)[:, None]
         out_tokens = [tok]
+        steps_routed = []
         before = _counts()
         t0 = time.perf_counter()
         for _ in range(gen):
-            logits, cache = decode_step(params, cache, tok, cfg)
+            with moe_mod.recording() as step_routed:
+                logits, cache = decode_step(params, cache, tok, cfg)
+            steps_routed.append(step_routed)
             tok = torch.argmax(logits, dim=-1)[:, None]
             all_logits.append(logits)
             out_tokens.append(tok)
@@ -183,6 +218,11 @@ def generate(arch: str = DEFAULT_ARCH, *, batch: int = 4,
         decode_s = time.perf_counter() - t0
         _stage(report, "decode", before)
         _peak(dev, report, "decode")
+        if cfg.family == "moe":
+            report["moe_dropped"] = {
+                "prefill": moe_mod.dropped_share(routed),
+                "decode": [moe_mod.dropped_share(r) for r in steps_routed]}
+        del routed, steps_routed
         report.update(decode_s=decode_s,
                       decode_tok_s=gen * batch / decode_s if gen else 0.0,
                       tokens=torch.cat(out_tokens, dim=1), logits=all_logits,
@@ -214,7 +254,7 @@ def _monitor(params, cfg, tokens, seed, monitor_len, dev) -> dict:
     from repro_torch.core.monitor import ActivationMonitor, pool_activations
 
     def acts(toks):
-        return pool_activations(forward_hidden(params, toks, cfg))
+        return pool_activations(forward_hidden(params, toks, cfg)[0])
 
     t0 = time.perf_counter()
     ref = torch.cat([
@@ -278,6 +318,11 @@ def main(argv=None) -> int:
         print(f"monitor: {int(m['flags'].sum())}/{r['batch']} requests "
               f"flagged OOD (reference {m['ref_rows']} x "
               f"{m['monitor_len']} tokens)")
+    if "moe_dropped" in r:
+        dec = r["moe_dropped"]["decode"]
+        print(f"MoE pairs dropped: prefill {r['moe_dropped']['prefill']:.4f},"
+              f" decode steps {min(dec, default=0.0):.4f}-"
+              f"{max(dec, default=0.0):.4f}")
     if "peak_memory_bytes" in r:
         print(f"peak memory: {r['peak_memory_bytes'] / 2**30:.2f} GiB")
     print("sample generations (token ids):")

@@ -4,8 +4,9 @@ One ``ModelConfig`` carries every field of ``repro``'s, with dtypes as
 ``torch.dtype``.  ``param_shapes(cfg)`` is the single source of truth for
 every parameter's shape and dtype: ``param_count`` sums it without
 allocating, ``init_params`` materializes it on a device from a
-``torch.Generator``.  The SSM, dense and hybrid families' shapes are
-ported; MoE, VLM and audio raise naming ROADMAP A15.  Sharding
+``torch.Generator``.  Every family of ``repro``'s is ported: SSM,
+dense, hybrid, MoE, VLM (a patch projection before the tokens) and audio
+(an encoder stack and cross-attention in the decoder).  Sharding
 (``repro``'s PartitionSpecs, through ``models/parallel.py``) comes with
 A15's dry-run step.
 """
@@ -19,20 +20,28 @@ from typing import Any, Dict, Literal, Optional, Tuple
 import torch
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
-PORTED_FAMILIES = ("ssm", "dense", "hybrid")
+PORTED_FAMILIES = ("ssm", "dense", "hybrid", "moe", "vlm", "audio")
 
 
-#: Fields that only the families the port lacks read (MoE, the encoder,
-#: VLM patches) and training (``seq_shard_attn``).  The ported paths take
-#: each at its default only, so a value set there raises rather than
-#: changing nothing.  The widths n_heads, n_kv_heads, head_dim and d_ff
-#: stay free: ``repro``'s Falcon-Mamba carries them unused and
-#: ``reduced()`` shrinks them; so do remat and loss_chunk, which shape
-#: only a train step.
-UNPORTED_FIELDS = (
-    "n_experts", "top_k", "moe_dff", "n_shared_experts", "capacity_factor",
-    "expert_2d_sharding", "n_enc_layers", "enc_frames", "n_patches",
-    "seq_shard_attn")
+#: Fields that one family alone reads (the router and experts, the patch
+#: prefix, the encoder).  Another family takes each at its default only,
+#: so a value set there raises rather than changing nothing.  The widths
+#: n_heads, n_kv_heads, head_dim and d_ff stay free: ``repro``'s
+#: Falcon-Mamba carries them unused and ``reduced()`` shrinks them; so do
+#: remat and loss_chunk, which shape only a train step.
+FAMILY_FIELDS = {
+    "moe": ("n_experts", "top_k", "moe_dff", "n_shared_experts",
+            "capacity_factor"),
+    "vlm": ("n_patches",),
+    "audio": ("n_enc_layers", "enc_frames"),
+}
+
+#: Fields only a device mesh reads: ``repro``'s sequence-sharded
+#: attention hint (``_seq_shard_qkv``) and the 2-D expert layout of its
+#: MoE mesh paths.  Without a registered mesh ``repro`` ignores both; on
+#: one device the port takes and ignores them too (Kimi-K2 sets both).
+#: They come with ``models/parallel.py`` in A15's dry-run step.
+MESH_ONLY_FIELDS = ("seq_shard_attn", "expert_2d_sharding")
 
 #: Fields only the attention and MLP layers read: an attention-free (SSM)
 #: config takes each at its default, so a value set there raises too.
@@ -42,19 +51,22 @@ ATTENTION_FIELDS = (
 
 
 def check_family(cfg: "ModelConfig") -> None:
-    """Raise unless the port has ``cfg``'s family and ``cfg`` sets none
-    of ``UNPORTED_FIELDS`` (nor, attention-free, ``ATTENTION_FIELDS``)
-    away from its default."""
+    """Raise unless the port has ``cfg``'s family, ``cfg`` sets no field
+    of another family's ``FAMILY_FIELDS`` (nor, attention-free, of
+    ``ATTENTION_FIELDS``) away from its default, and a MoE config has
+    experts to route to."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet "
-            "(ROADMAP A15); the port has " + ", ".join(PORTED_FAMILIES))
-    odd = [f for f in UNPORTED_FIELDS
-           if getattr(cfg, f) != _DEFAULTS[f]]
+            f"the {cfg.family!r} family ({cfg.name}) is not a family of "
+            "repro's (ROADMAP A15); the port has "
+            + ", ".join(PORTED_FAMILIES))
+    odd = [f for fam, fields in FAMILY_FIELDS.items() if fam != cfg.family
+           for f in fields if getattr(cfg, f) != _DEFAULTS[f]]
     if odd:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(odd)} select features of families "
-            "the port does not have yet (ROADMAP A15)")
+            f"{cfg.name}: {', '.join(odd)} select features of another "
+            f"family than {cfg.family!r}, which does not read them "
+            "(ROADMAP A15)")
     if cfg.attn_free != (cfg.family == "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: attn_free={cfg.attn_free} with the "
@@ -65,6 +77,9 @@ def check_family(cfg: "ModelConfig") -> None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(odd)} select attention features the "
             "attention-free SSM family does not read (ROADMAP A15)")
+    if cfg.family == "moe" and not 1 <= cfg.top_k <= cfg.n_experts:
+        raise ValueError(f"{cfg.name}: a MoE config routes to top_k of "
+                         f"n_experts, got {cfg.top_k} of {cfg.n_experts}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +216,28 @@ def _mlp_shapes(cfg: ModelConfig, d_ff: int) -> Dict[str, ShapeSpec]:
     return out
 
 
+def _moe_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+    """The router, the stacked experts (E, d, f) / (E, f, d) and the
+    shared experts, f·n_shared_experts wide (``repro``'s, without its
+    PartitionSpecs)."""
+    d, pd, e, f = cfg.d_model, cfg.param_dtype, cfg.n_experts, cfg.moe_dff
+    out: Dict[str, ShapeSpec] = {
+        "mlp_norm": ((d,), pd),
+        "router": ((d, e), pd),
+        "experts_up": ((e, d, f), pd),
+        "experts_down": ((e, f, d), pd),
+    }
+    if cfg.gated:
+        out["experts_gate"] = ((e, d, f), pd)
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        out["shared_up"] = ((d, fs), pd)
+        out["shared_down"] = ((fs, d), pd)
+        if cfg.gated:
+            out["shared_gate"] = ((d, fs), pd)
+    return out
+
+
 def _ssm_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     d, pd = cfg.d_model, cfg.param_dtype
     di, n, dtr, dc = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
@@ -221,7 +258,8 @@ def _ssm_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     """One layer's parameters: the Mamba block (SSM); attention, the
     Mamba block, the two fuse scales and the MLP (hybrid); attention and
-    the MLP, with the sandwich norms under ``post_norms`` (dense)."""
+    the MLP (the router and experts for MoE), with the sandwich norms
+    under ``post_norms`` (dense, MoE, VLM, audio's decoder)."""
     d, pd = cfg.d_model, cfg.param_dtype
     if cfg.family == "ssm":
         return _ssm_shapes(cfg)
@@ -232,16 +270,46 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
         shapes["fuse_ssm_scale"] = ((d,), pd)
         shapes.update(_mlp_shapes(cfg, cfg.d_ff))
         return shapes
-    shapes.update(_mlp_shapes(cfg, cfg.d_ff))
+    if cfg.family == "moe":
+        shapes.update(_moe_shapes(cfg))
+    else:
+        shapes.update(_mlp_shapes(cfg, cfg.d_ff))
     if cfg.post_norms:
         shapes["post_attn_norm"] = ((d,), pd)
         shapes["post_mlp_norm"] = ((d,), pd)
     return shapes
 
 
+def _enc_layer_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+    """Whisper's encoder layer: bidirectional attention and the MLP."""
+    shapes = dict(_attn_shapes(cfg))
+    shapes.update(_mlp_shapes(cfg, cfg.d_ff))
+    return shapes
+
+
+def _dec_cross_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+    """The decoder layer's cross-attention to the encoder output."""
+    d, pd = cfg.d_model, cfg.param_dtype
+    return {
+        "xattn_norm": ((d,), pd),
+        "xwq": ((d, cfg.q_dim), pd),
+        "xwk": ((d, cfg.kv_dim), pd),
+        "xwv": ((d, cfg.kv_dim), pd),
+        "xwo": ((cfg.q_dim, d), pd),
+    }
+
+
+def _stack(layer_shapes: Dict[str, ShapeSpec], n_layers: int,
+           prefix: str) -> Dict[str, ShapeSpec]:
+    """Prepend the stacked-layer axis."""
+    return {f"{prefix}{k}": ((n_layers, *shape), dt)
+            for k, (shape, dt) in layer_shapes.items()}
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     """Flat dict path -> (shape, dtype); per-layer parameters are stacked
-    on a leading layer axis under ``layers/``, as in ``repro``."""
+    on a leading layer axis under ``layers/`` (the encoder's under
+    ``enc_layers/``), as in ``repro``."""
     check_family(cfg)
     d, v, pd = cfg.d_model, cfg.padded_vocab, cfg.param_dtype
     shapes: Dict[str, ShapeSpec] = {
@@ -250,8 +318,19 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     }
     if not cfg.tie_embeddings:
         shapes["lm_head"] = ((d, v), pd)
-    for k, (shape, dt) in _layer_shapes(cfg).items():
-        shapes[f"layers/{k}"] = ((cfg.n_layers, *shape), dt)
+    shapes.update(_stack(_layer_shapes(cfg), cfg.n_layers, "layers/"))
+    if cfg.family == "audio":
+        # the conv frontend is a stub: the encoder reads frame embeddings
+        shapes["enc_pos"] = ((cfg.enc_frames, d), pd)
+        shapes["enc_final_norm"] = ((d,), pd)
+        shapes.update(_stack(_enc_layer_shapes(cfg), cfg.n_enc_layers,
+                             "enc_layers/"))
+        shapes.update(_stack(_dec_cross_shapes(cfg), cfg.n_layers,
+                             "layers/"))
+    if cfg.family == "vlm":
+        # the patch frontend is a stub: one learned projection of the
+        # patch embeddings
+        shapes["patch_proj"] = ((d, d), pd)
     return shapes
 
 
@@ -277,8 +356,14 @@ def _init_one(gen: torch.Generator, name: str, shape, dtype,
               device: torch.device) -> torch.Tensor:
     """``repro``'s rules: ones for norms, conv_b, dt_bias and D; A_log =
     log(1..N) on every channel; 0.5 for the hybrid's fuse scales;
-    normal/√fan_in elsewhere (drawn in f32, one leading slice at a time,
-    then cast)."""
+    normal/√fan_in elsewhere, fan_in = shape[-2].  The normal values are
+    drawn in f32 one matrix (the last two axes) at a time, in row-major
+    order of the leading axes (a stacked parameter layer by layer, a
+    stacked expert tensor expert by expert within each layer), each
+    scaled and cast before the next is drawn: the f32 transient is one
+    expert's matrix, not a layer's 384 (Kimi-K2).  On the CPU generator
+    the split does not change the values wherever a matrix holds a
+    multiple of 16 elements (it draws normals in blocks of 16)."""
     if not shape or shape[-1] == 0:
         return torch.zeros(shape, dtype=dtype, device=device)
     last = name.split("/")[-1]
@@ -293,8 +378,8 @@ def _init_one(gen: torch.Generator, name: str, shape, dtype,
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(shape, dtype=dtype, device=device)
-    rows = out if len(shape) > 2 else out[None]
-    for part in rows:       # a stacked parameter one layer at a time
+    parts = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+    for part in parts:
         part.copy_(torch.randn(part.shape, generator=gen, device=device,
                                dtype=torch.float32) * scale)
     return out
@@ -324,7 +409,8 @@ def layer_params(params: Dict[str, torch.Tensor], i: int,
     return {k: v[i] for k, v in layer_tree(params, prefix).items()}
 
 
-__all__ = ["Family", "PORTED_FAMILIES", "UNPORTED_FIELDS", "ATTENTION_FIELDS",
+__all__ = ["Family", "PORTED_FAMILIES", "FAMILY_FIELDS", "MESH_ONLY_FIELDS",
+           "ATTENTION_FIELDS",
            "ModelConfig",
            "ShapeSpec",
            "check_family", "param_shapes", "param_count", "active_param_count",

@@ -1,5 +1,5 @@
-"""Decoder-only LM: forward, prefill and decode with a cache
-(``repro.models.transformer``), for the SSM, dense and hybrid families.
+"""Decoder LM: forward, prefill and decode with a cache
+(``repro.models.transformer``), for every family of ``repro``'s.
 
 ``repro`` scans one layer body over the stacked ``layers/*`` parameters
 with ``lax.scan``; here a Python loop indexes layer i of each stacked
@@ -13,20 +13,33 @@ global window being ``GLOBAL_WINDOW``).  The families:
   ``post_norms`` (Gemma-2's sandwich norms);
 * hybrid (Hymba): attention and the Mamba block read the same normed
   input, and x + fuse_attn_scale·attention + fuse_ssm_scale·norm(Mamba),
-  then the MLP.
+  then the MLP;
+* moe (Granite-MoE, Kimi-K2): the dense layer with ``models/moe.py``'s
+  routed experts in place of the MLP; each layer also returns the
+  router's auxiliary loss, which ``forward_hidden`` sums (training reads
+  it; serving drops it);
+* vlm (LLaVA-NeXT): the dense layers over the projected patch embeddings
+  (``patch_proj``) followed by the tokens;
+* audio (Whisper): the encoder (``models/encdec.py``) runs once, each
+  decoder layer adds a cross-attention to its output after the
+  self-attention, and the cache carries each layer's cross K / V.
 
 The cache is ``repro``'s: ``k`` / ``v`` (L, B, max_len, Hkv, hd) in the
 activation type (int8 with ``k_scale`` / ``v_scale`` (L, B, max_len,
 Hkv) f32 under ``kv_quant``) unless the model is attention-free;
 ``conv`` (L, B, dc-1, d_inner) and ``ssm`` (L, B, d_inner, N) f32 for
-the SSM and hybrid families; and the position ``pos``.  ``decode_step``
-writes the new position's K / V (and scales) and the new SSM states into
-the cache it is given, in place (``repro``'s serving loop donates the
-cache for the same reason: one copy, not two), and returns it.
+the SSM and hybrid families; ``xk`` / ``xv`` (L, B, enc_frames, Hkv, hd)
+for audio; and the position ``pos``.  After a VLM prefill ``pos`` is
+n_patches + S, the positions the cache holds.  ``repro``'s ``prefill``
+sets S, so its first decode step takes RoPE position S, overwrites the
+K / V the prefill wrote there and masks every position after it
+(ROADMAP C); the port does not copy that.  ``decode_step`` writes the
+new position's K / V (and scales) and the new SSM states into the cache
+it is given, in place (``repro``'s serving loop donates the cache for
+the same reason: one copy, not two), and returns it.
 ``models/parallel.py``'s sharding hints (``repro``'s ``_seq_shard_qkv``
 and ``hint``, no-ops without a registered mesh) come with A15's dry-run
-step.  The MoE, VLM and audio families raise ``NotImplementedError``
-naming ROADMAP A15 (``check_family``).
+step.
 """
 
 from __future__ import annotations
@@ -39,7 +52,9 @@ from torch import nn
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ModelConfig, check_family,
                                        init_params, layer_params)
+from repro_torch.models.encdec import cross_attend, cross_kv, encode
 from repro_torch.models.layers import embed_tokens, logits_head, mlp, rmsnorm
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.ssm import mamba_block, mamba_decode_step
 
 GLOBAL_WINDOW = 2**30     # a window no key reaches past: global attention
@@ -79,10 +94,18 @@ def _attn_sublayer(x, lp, cfg, positions, window):
 
 
 def _ffn_sublayer(x, lp, cfg):
-    out = mlp(_norm(x, lp, "mlp_norm", cfg), lp, cfg)
+    """The FFN sublayer's (output, aux): the MLP (aux None), or for MoE
+    the routed experts over the flattened tokens and their aux loss."""
+    h = _norm(x, lp, "mlp_norm", cfg)
+    if cfg.family == "moe":
+        b, s, d = h.shape
+        out, aux = moe_ffn(h.reshape(b * s, d), lp, cfg)
+        out = out.reshape(b, s, d)
+    else:
+        out, aux = mlp(h, lp, cfg), None
     if cfg.post_norms:
         out = _norm(out, lp, "post_mlp_norm", cfg)
-    return out
+    return out, aux
 
 
 def _fuse(x, lp, a, s, cfg):
@@ -95,37 +118,66 @@ def _fuse(x, lp, a, s, cfg):
 
 def decoder_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
                   cfg: ModelConfig, positions: torch.Tensor,
-                  window: int) -> torch.Tensor:
-    """One layer.  ``repro``'s also returns an auxiliary loss, which only
-    MoE layers make."""
+                  window: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One layer; returns (x', aux), aux the MoE router's loss (None for
+    the other families, where ``repro``'s is 0)."""
     if cfg.family == "ssm":
-        return x + mamba_block(_norm(x, lp, "ssm_norm", cfg), lp, cfg)
+        return x + mamba_block(_norm(x, lp, "ssm_norm", cfg), lp, cfg), None
     if cfg.family == "hybrid":
         h = _norm(x, lp, "attn_norm", cfg)
         a, _, _ = _attend(h, lp, cfg, positions, window)
         x = _fuse(x, lp, a, mamba_block(h, lp, cfg), cfg)
-        return x + _ffn_sublayer(x, lp, cfg)
-    o, _, _ = _attn_sublayer(x, lp, cfg, positions, window)
-    x = x + o
-    return x + _ffn_sublayer(x, lp, cfg)
+    else:
+        o, _, _ = _attn_sublayer(x, lp, cfg, positions, window)
+        x = x + o
+    out, aux = _ffn_sublayer(x, lp, cfg)
+    return x + out, aux
+
+
+def _embed(params, tokens, cfg, patches):
+    """The token embeddings, after the projected patch embeddings for
+    VLM (which needs ``patches`` (B, n_patches, d))."""
+    x = embed_tokens(params, tokens, cfg)
+    if cfg.family != "vlm":
+        return x
+    if patches is None:
+        raise ValueError(f"{cfg.name}: a VLM forward needs the patch "
+                         "embeddings (patches=)")
+    p = patches.to(cfg.dtype) @ params["patch_proj"].to(cfg.dtype)
+    return torch.cat([p, x], dim=1)
 
 
 def forward_hidden(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
-    """Token ids -> final hidden states (after the final norm)."""
+                   cfg: ModelConfig, *,
+                   patches: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token ids (after the patch prefix for VLM) -> (final hidden
+    states after the final norm, the layers' summed aux loss f32).  The
+    audio family's forward is ``encdec.encdec_hidden``: ``repro``'s
+    ``forward_hidden`` would run its decoder without the cross-attention,
+    so this one raises for it."""
     check_family(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name}: the encoder-decoder's forward is "
+                         "models.encdec.encdec_hidden (it needs frames)")
+    x = _embed(params, tokens, cfg, patches)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, window in enumerate(layer_windows(cfg)):
-        x = decoder_layer(x, layer_params(params, i), cfg, positions, window)
-    return rmsnorm(x, params["final_norm"], one_plus=cfg.rms_one_plus)
+        x, a = decoder_layer(x, layer_params(params, i), cfg, positions,
+                             window)
+        if a is not None:
+            aux = aux + a
+    return rmsnorm(x, params["final_norm"], one_plus=cfg.rms_one_plus), aux
 
 
 def prefill_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
-                  cfg: ModelConfig, positions: torch.Tensor, window: int):
+                  cfg: ModelConfig, positions: torch.Tensor, window: int, *,
+                  enc: Optional[torch.Tensor] = None):
     """One layer of prompt processing; returns (x', cache entries): the
-    layer's K / V after RoPE, and the SSM family's and the hybrid's conv
-    window and state at the end of the prompt."""
+    layer's K / V after RoPE, the SSM family's and the hybrid's conv
+    window and state at the end of the prompt, and for audio the cross
+    K / V of the encoder output ``enc``."""
     if cfg.family == "ssm":
         out, conv, ssm = mamba_block(_norm(x, lp, "ssm_norm", cfg), lp, cfg,
                                      return_state=True)
@@ -135,32 +187,46 @@ def prefill_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
         a, k, v = _attend(h, lp, cfg, positions, window)
         s, conv, ssm = mamba_block(h, lp, cfg, return_state=True)
         x = _fuse(x, lp, a, s, cfg)
-        return x + _ffn_sublayer(x, lp, cfg), {
+        return x + _ffn_sublayer(x, lp, cfg)[0], {
             "k": k, "v": v, "conv": conv.to(cfg.dtype), "ssm": ssm}
     o, k, v = _attn_sublayer(x, lp, cfg, positions, window)
     x = x + o
-    return x + _ffn_sublayer(x, lp, cfg), {"k": k, "v": v}
+    ce = {"k": k, "v": v}
+    if cfg.family == "audio":
+        ce["xk"], ce["xv"] = cross_kv(enc, lp, cfg)
+        x = x + cross_attend(_norm(x, lp, "xattn_norm", cfg), lp, ce["xk"],
+                             ce["xv"], cfg)
+    return x + _ffn_sublayer(x, lp, cfg)[0], ce
 
 
 def prefill(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
-            cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """Prompt pass: (last-position logits (B, V) f32, decode cache).  The
-    cache's max_len is the prompt's length; ``launch.serve.generate``
+            cfg: ModelConfig, *, patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """Prompt pass: (last-position logits (B, V) f32, decode cache).  VLM
+    needs ``patches`` (B, n_patches, d), audio ``frames`` (B, enc_frames,
+    d).  The cache's max_len is the positions processed (the patch
+    prefix included), and so is ``pos``; ``launch.serve.generate``
     copies it into a longer one to decode."""
     check_family(cfg)
-    x = embed_tokens(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, patches)
+    enc = None
+    if cfg.family == "audio":
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an audio prefill needs the frame "
+                             "embeddings (frames=)")
+        enc = encode(params, frames, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     caches = []
     for i, window in enumerate(layer_windows(cfg)):
         x, ce = prefill_layer(x, layer_params(params, i), cfg, positions,
-                              window)
+                              window, enc=enc)
         caches.append(ce)
     x = rmsnorm(x, params["final_norm"], one_plus=cfg.rms_one_plus)
     logits = logits_head(params, x[:, -1:], cfg)
     cache = {}
     for k in list(caches[0]):
         cache[k] = torch.stack([ce.pop(k) for ce in caches])
-    cache["pos"] = tokens.shape[1]
+    cache["pos"] = x.shape[1]
     return logits[:, 0], cache
 
 
@@ -182,6 +248,9 @@ def cache_spec(cfg: ModelConfig, batch: int,
         spec["conv"] = ((l, batch, cfg.ssm_conv - 1, cfg.d_inner), cfg.dtype)
         spec["ssm"] = ((l, batch, cfg.d_inner, cfg.ssm_state),
                        torch.float32)
+    if cfg.family == "audio":
+        spec["xk"] = ((l, batch, cfg.enc_frames, hkv, hd), cfg.dtype)
+        spec["xv"] = ((l, batch, cfg.enc_frames, hkv, hd), cfg.dtype)
     return spec
 
 
@@ -235,6 +304,17 @@ def _decode_ssm(h, lp, cache_l, cfg):
     return out
 
 
+def _decode_cross(h, lp, cache_l, cfg):
+    """The new token's cross-attention: its query against the layer's
+    cross K / V in the cache, every frame visible (``repro`` masks past
+    position enc_frames - 1, which is none)."""
+    q = (h @ lp["xwq"].to(h.dtype)).reshape(h.shape[0], 1, cfg.n_heads,
+                                            cfg.hd)
+    o = attn.decode_attention(q, cache_l["xk"], cache_l["xv"],
+                              cfg.enc_frames - 1)
+    return o.reshape(h.shape[0], 1, cfg.q_dim) @ lp["xwo"].to(h.dtype)
+
+
 def decode_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
                  cache_l: Dict[str, torch.Tensor], cfg: ModelConfig,
                  positions: torch.Tensor, pos: int,
@@ -249,11 +329,14 @@ def decode_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     a = _decode_attend(h, lp, cache_l, cfg, positions, pos, window)
     if cfg.family == "hybrid":
         x = _fuse(x, lp, a, _decode_ssm(h, lp, cache_l, cfg), cfg)
-        return x + _ffn_sublayer(x, lp, cfg)
+        return x + _ffn_sublayer(x, lp, cfg)[0]
     if cfg.post_norms:
         a = _norm(a, lp, "post_attn_norm", cfg)
     x = x + a
-    return x + _ffn_sublayer(x, lp, cfg)
+    if cfg.family == "audio":
+        x = x + _decode_cross(_norm(x, lp, "xattn_norm", cfg), lp, cache_l,
+                              cfg)
+    return x + _ffn_sublayer(x, lp, cfg)[0]
 
 
 def decode_step(params: Dict[str, torch.Tensor], cache: Dict,
@@ -301,11 +384,17 @@ class LM(nn.Module):
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.weights.items())
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward_hidden(self.params, tokens, self.cfg)
+    def forward(self, tokens: torch.Tensor, *,
+                patches: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return forward_hidden(self.params, tokens, self.cfg, patches=patches)
 
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-        return prefill(self.params, tokens, self.cfg)
+    def prefill(self, tokens: torch.Tensor, *,
+                patches: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        return prefill(self.params, tokens, self.cfg, patches=patches,
+                       frames=frames)
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
         return init_cache(self.cfg, batch, max_len,

@@ -221,8 +221,9 @@ def test_layer_windows_and_cache_spec_match_repro(arch):
 def test_forward_hidden_matches_repro(arch):
     m = model(arch)
     x = ids(2, 20, seed=1)
-    close(ttr.forward_hidden(m.tp, torch.as_tensor(x), m.tcfg),
-          m.hidden(m.jp, jnp.asarray(x, jnp.int32)))
+    h, aux = ttr.forward_hidden(m.tp, torch.as_tensor(x), m.tcfg)
+    close(h, m.hidden(m.jp, jnp.asarray(x, jnp.int32)))
+    assert float(aux) == 0.0          # no router: repro's aux is 0 too
 
 
 def ssm_kernels(arch):
@@ -389,7 +390,7 @@ def test_monitor_scores_on_reduced_gemma_match_repro():
     jacts = jnp.mean(m.hidden(m.jp, jnp.asarray(x, jnp.int32)).astype(
         jnp.float32), axis=1)
     tacts = pool_activations(ttr.forward_hidden(m.tp, torch.as_tensor(x),
-                                                m.tcfg))
+                                                m.tcfg)[0])
     close(tacts, jacts)
     proj = np.random.default_rng(8).standard_normal(
         (m.tcfg.d_model, 4)).astype(np.float32) / 2.0

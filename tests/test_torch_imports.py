@@ -94,14 +94,20 @@ def test_measurement_modules_are_scanned_and_import(module):
     importlib.import_module(module)
 
 
-# the attention families' slice (ROADMAP A15: dense and hybrid serving)
+# the LM families' slices (ROADMAP A15: dense and hybrid serving; MoE,
+# VLM and audio)
 A15_MODULES = ("repro_torch.models.rope", "repro_torch.models.attention",
                "repro_torch.models.transformer",
                "repro_torch.configs.gemma2_2b",
                "repro_torch.configs.minitron_8b",
                "repro_torch.configs.phi3_mini_3p8b",
                "repro_torch.configs.chatglm3_6b",
-               "repro_torch.configs.hymba_1p5b")
+               "repro_torch.configs.hymba_1p5b",
+               "repro_torch.models.moe", "repro_torch.models.encdec",
+               "repro_torch.configs.granite_moe_3b_a800m",
+               "repro_torch.configs.kimi_k2_1t_a32b",
+               "repro_torch.configs.llava_next_34b",
+               "repro_torch.configs.whisper_large_v3")
 
 
 @pytest.mark.parametrize("module", A15_MODULES)
@@ -116,12 +122,14 @@ def test_a15_modules_are_scanned_and_import(module):
 
 
 def test_lm_launcher_defaults_to_the_card(no_card):
-    """``launch.serve.generate`` of a dense model raises without a card
-    unless asked for the CPU."""
+    """``launch.serve.generate`` of a model of any family raises without
+    a card unless asked for the CPU."""
     from repro_torch.launch import serve
 
-    with pytest.raises(RuntimeError, match="cuda"):
-        serve.generate("gemma2_2b", reduced=True, gen=1)
+    for arch in ("gemma2_2b", "granite_moe_3b_a800m", "llava_next_34b",
+                 "whisper_large_v3"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve.generate(arch, reduced=True, gen=1)
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--reduced", "--gen", "1"])
 
