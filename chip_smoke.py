@@ -309,7 +309,36 @@ Run from the repository root.  Phases, each printing its lines:
                   against the per-expert f32 loop (phase 8's bars).
                   Prefill ms (first, warm), decode tok/s, KV bytes and
                   peak memory by stage are printed beside the card's
-                  name and power limit.
+                  name and power limit;
+ 16. training     (a) each of the eight CUDA wrappers (B1-B6, B7's two
+                  modes), given card operands that require grad, refuses
+                  under grad mode (C1: a launch has no backward) and runs
+                  under no_grad on the same inputs; (b) every family's
+                  reduced config (f32) takes 3 steps of
+                  launch.steps.make_train_step on the card and on the CPU
+                  from the same parameters and batches (4 x 16, 2
+                  microbatches), loss, grad norm, lr, every parameter and
+                  optimizer-state leaf held at the model bar (the Mamba
+                  families' and the bf16 accumulators' gradient-derived
+                  leaves at their own bars), and no B1-B7 launch; (c)
+                  Gemma-2-2B whole (2,614,341,888 bf16 parameters, AdamW
+                  with f32 master, moments and accumulator, remat
+                  "full", loss_chunk 512), batch 4 x 1024 in 2
+                  microbatches, 3 steps: step ms (first, warm), tokens/s,
+                  peak memory, MFU over the bf16 peak, one warm step
+                  profiled (device busy by class, idle share), finite
+                  loss and grad norm, no B1-B7 launch; then f32 at 2
+                  layers of full width against the same step in float64
+                  on the card (loss, grad norm, lr, parameters, moments;
+                  the model bar); (d) the ~100M Gemma-2-family config of
+                  examples/train_lm.py, built from its fields, 300 steps
+                  of 8 x 128: the mean of the last 10 losses below the
+                  first 10's by more than 1.0 (repro's assert), tokens/s;
+                  (e) ``python -m repro_torch.launch.train`` at the
+                  reduced Gemma-2 as three processes: --inject-failure 7
+                  exits 42, the same command resumes at step 5, and its
+                  step-10 checkpoint equals an uninterrupted run's bit
+                  for bit; the saves' host-snapshot ms and bytes.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -323,6 +352,7 @@ import argparse
 import importlib.util
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -495,6 +525,34 @@ FAM_PARAMS = {"granite_moe_3b_a800m": 3_375_072_768,
               "kimi_k2_1t_a32b": 1_043_853_440_000,
               "llava_next_34b": 34_440_297_472,
               "whisper_large_v3": 1_536_652_800}
+
+# phase 16: training.  Gemma-2-2B whole (bf16 weights; AdamW with f32
+# master, moments and accumulator; remat "full"; loss_chunk 512, which at
+# S - 1 = 1023 takes the whole sequence, repro's rule), batch 4 x 1024 in
+# 2 microbatches of 2 (phase 14's serving batch), TRAIN_STEPS steps; its
+# f32 check at TRAIN_CHECK_LAYERS of full width against float64; every
+# family's reduced config on the card against the CPU; the ~100M config
+# of examples/train_lm.py (its fields; 300 steps of 8 x 128)
+TRAIN_ARCH = "gemma2_2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS = 4, 1024, 2, 3
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 256
+TRAIN_CHECK_LR = 1e-7
+TRAIN_REDUCED_BATCH, TRAIN_REDUCED_SEQ, TRAIN_REDUCED_STEPS = 4, 16, 3
+# the gradient-derived leaves' bars (tests/test_torch_train_step.py): the
+# families with a Mamba block, whose f32 gradients' noise floor lies
+# above the model bar, and bf16 accumulators (three bf16 roundings, 3
+# ulps, doubled in the second moments; of the leaf's largest magnitude
+# too, since two microbatches' gradients can cancel)
+TRAIN_SSM_ATOL = 2e-4
+TRAIN_BF16_BAR = 6 * 2.0**-8
+HUNDRED_M = dict(n_layers=6, d_model=512, n_heads=8, n_kv_heads=4,
+                 head_dim=64, d_ff=2048, vocab_size=32768,
+                 dtype=torch.float32, param_dtype=torch.float32,
+                 remat="none", loss_chunk=128, sliding_window=64)
+HUNDRED_M_STEPS, HUNDRED_M_BATCH, HUNDRED_M_SEQ = 300, 8, 128
+# the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet, 700 W),
+# the MFU denominator
+BF16_PEAK = 989e12
 
 
 def log(msg: str) -> None:
@@ -4814,6 +4872,452 @@ def phase_families(ops, fs, fk, fp, fl, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training
+# ---------------------------------------------------------------------------
+
+
+def grad_refusals(ops) -> dict:
+    """(a) Each of the eight CUDA wrappers, given card operands of which
+    the floating ones require grad, refuses under grad mode (C1: a
+    launch has no backward) and runs under no_grad on the same inputs,
+    its output finite and of its plain version's shape."""
+    from repro_torch.kernels import flash_kde as fk
+    from repro_torch.kernels import flash_laplace as fl
+    from repro_torch.kernels import flash_pruned as fp
+    from repro_torch.kernels import flash_score as fs
+    from repro_torch.kernels import selective_scan as ss
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(256, 4, generator=g, device="cuda")
+    y = torch.randn(128, 4, generator=g, device="cuda")
+    y_ops, xt_ops, nrm_y, nrm_x = ops._prep_eval(x, y, 128, 128, "f32")
+    inv = ops._inv2h2(0.5, x.device)
+    kde = (y_ops[0], nrm_y, xt_ops[0], nrm_x, inv)
+    xs, xts, xaug, nrm, _ = ops._score_operands(y, "f32")
+    score = (xs[0], nrm, xts[0], xaug[0], inv)
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    tmap = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    blocks = {"block_m": 128, "block_n": 128}
+    bsz, s, d, n = 2, 64, 32, 16
+    xi, dt, z = (torch.randn(bsz, s, d, generator=g, device="cuda")
+                 for _ in range(3))
+    b, c = (torch.randn(bsz, s, n, generator=g, device="cuda")
+            for _ in range(2))
+    a = -torch.rand(d, n, generator=g, device="cuda") - 0.5
+    h0 = torch.zeros(bsz, d, n, device="cuda")
+    dt = 0.1 * dt
+    fused = (xi, dt, b, c, a, h0, torch.zeros(d, device="cuda"),
+             torch.ones(d, device="cuda"), z)
+    cases = {
+        "flash_score": (fs.flash_score_cuda, fs.flash_score_plain, score,
+                        {}),
+        "flash_kde": (fk.flash_kde_cuda, fk.flash_kde_plain, kde, {}),
+        "flash_score_pruned": (fp.flash_score_pruned_cuda,
+                               fp.flash_score_pruned_plain,
+                               (one, tmap) + score, blocks),
+        "flash_kde_pruned": (fp.flash_kde_pruned_cuda,
+                             fp.flash_kde_pruned_plain, (one, tmap) + kde,
+                             blocks),
+        "flash_laplace": (fl.flash_laplace_cuda, fl.flash_laplace_plain,
+                          kde, {}),
+        "sq_moment": (fl.sq_moment_cuda, fl.sq_moment_plain, kde, {}),
+        "selective_scan": (ss.selective_scan_cuda, ss.selective_scan_plain,
+                           (xi, dt, b, c, a, h0), {}),
+        "mamba_scan": (ss.mamba_scan_cuda, ss.mamba_scan_plain, fused, {}),
+    }
+    out = {}
+    for name, (cuda, plain, args, kw) in cases.items():
+        graded = tuple(t.detach().clone().requires_grad_()
+                       if t.is_floating_point() else t for t in args)
+        try:
+            cuda(*graded, **kw)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            msg = str(e)
+        else:
+            raise AssertionError(f"{name}_cuda launched on inputs that "
+                                 "require grad under grad mode (C1)")
+        with torch.no_grad():
+            got = cuda(*graded, **kw)
+            want = plain(*graded, **({} if "scan" in name else
+                                     {"block_n": 128}))
+        got = got[0] if isinstance(got, tuple) else got
+        want = want[0] if isinstance(want, tuple) else want
+        sync()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}_cuda under no_grad: shape "
+                                 f"{tuple(got.shape)} (plain "
+                                 f"{tuple(want.shape)}) or non-finite")
+        out[name] = {"refused": msg.split(":")[0], "no_grad_shape":
+                     list(got.shape)}
+    log(f"  (a) all eight wrappers refuse a grad-requiring input under "
+        f"grad mode and run under no_grad: {', '.join(out)}")
+    return out
+
+
+def train_bars(arch, leaf: str) -> tuple:
+    """(rtol, atol fraction) for a train-step metric or state leaf: the
+    model bar; the gradient-derived leaves (grad norm, moments) at
+    TRAIN_SSM_ATOL for the families with a Mamba block and at
+    TRAIN_BF16_BAR for bf16 accumulators (tests/test_torch_train_step.py
+    states both)."""
+    from_grads = leaf == "grad_norm" or leaf.split("/")[0] in ("mu", "nu",
+                                                              "v")
+    if from_grads and arch.accum_dtype == "bfloat16":
+        return TRAIN_BF16_BAR, TRAIN_BF16_BAR
+    if from_grads and arch.model.family in ("ssm", "hybrid"):
+        return MODEL_RTOL, TRAIN_SSM_ATOL
+    return MODEL_RTOL, MODEL_ATOL
+
+
+def state_leaves(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(state_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def to_card(tree):
+    """A copy of a nest of dicts of tensors on the card."""
+    if isinstance(tree, dict):
+        return {k: to_card(v) for k, v in tree.items()}
+    return tree.to("cuda", copy=True)
+
+
+def reduced_steps(counts_fns, card) -> dict:
+    """(b) Each family's reduced config (f32) takes TRAIN_REDUCED_STEPS
+    steps on the card and on the CPU from the same parameters and
+    batches, held leaf by leaf; no kernel of B1-B7 may launch."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_IDS, ShapeCfg, get_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
+
+    shape = ShapeCfg("reduced", "train", TRAIN_REDUCED_SEQ,
+                     TRAIN_REDUCED_BATCH, microbatches=2)
+    out = {}
+    for arch_id in ARCH_IDS:
+        arch = get_arch(arch_id)
+        arch = dataclasses.replace(
+            arch, model=arch.model.reduced(dtype=torch.float32))
+        p_cpu, o_cpu = train_mod.init_state(arch, SEED, "cpu")
+        p_gpu, o_gpu = to_card(p_cpu), to_card(o_cpu)
+        step_cpu = make_train_step(arch, shape, device="cpu")
+        step_gpu = make_train_step(arch, shape, device="cuda")
+        reset_counts(*counts_fns)
+        step_ms, worst = [], 0.0
+        for i in range(TRAIN_REDUCED_STEPS):
+            batch = train_mod.shaped_batch(arch.model, SEED, i, shape, "cpu")
+            p_cpu, o_cpu, m_cpu = step_cpu(p_cpu, o_cpu, batch)
+            gb = {k: v.cuda() for k, v in batch.items()}
+            (p_gpu, o_gpu, m_gpu), ms = host_ms(
+                lambda: step_gpu(p_gpu, o_gpu, gb))
+            step_ms.append(ms)
+            for k in ("loss", "grad_norm", "lr"):
+                rtol, atol = train_bars(arch, k)
+                r = close_stats(m_gpu[k].cpu().reshape(1),
+                                m_cpu[k].reshape(1), rtol,
+                                f"{arch_id} step {i} {k}", atol)
+                if r[1] > 0:
+                    raise AssertionError(f"{arch_id} step {i} {k}: card "
+                                         f"{float(m_gpu[k])} CPU "
+                                         f"{float(m_cpu[k])}")
+        counts = read_counts(*counts_fns)
+        if any(counts.values()):
+            raise AssertionError(f"{arch_id} training launched {counts}")
+        want = {**{f"params/{k}": v for k, v in p_cpu.items()},
+                **state_leaves(o_cpu)}
+        got = {**{f"params/{k}": v for k, v in p_gpu.items()},
+               **state_leaves(o_gpu)}
+        for k, w in want.items():
+            if k == "step":
+                if int(got[k]) != int(w):
+                    raise AssertionError(f"{arch_id}: step {int(got[k])}")
+                continue
+            rtol, atol = train_bars(arch, k.removeprefix("params/"))
+            stats, excess = close_stats(got[k].cpu(), w, rtol, k, atol)
+            if excess > 0:
+                raise AssertionError(f"{arch_id} {k}: card against CPU "
+                                     f"outside the bar ({stats})")
+            worst = max(worst, stats["max_abs_err"]
+                        / max(float(w.abs().max()), 1e-30))
+        out[arch_id] = {"loss": [float(m_gpu["loss"])],
+                        "step_ms": step_ms, "launches": counts,
+                        "worst_err_over_max": worst}
+    log(f"  (b) reduced configs, {TRAIN_REDUCED_STEPS} f32 steps each, "
+        f"batch {TRAIN_REDUCED_BATCH} x {TRAIN_REDUCED_SEQ} in 2 "
+        f"microbatches, card against CPU leaf by leaf, no B1-B7 launch: "
+        + "; ".join(f"{k} {v['step_ms'][-1]:.1f} ms/step (worst "
+                    f"{v['worst_err_over_max']:.1e} of max)"
+                    for k, v in out.items()) + f" [{card}]")
+    return out
+
+
+def full_width_training(counts_fns, card) -> dict:
+    """(c) Gemma-2-2B whole (bf16 weights, AdamW with f32 master, moments
+    and accumulator, remat "full", loss_chunk 512), batch TRAIN_BATCH x
+    TRAIN_SEQ in TRAIN_MB microbatches: TRAIN_STEPS steps timed, peak
+    memory, MFU, one more step profiled; no B1-B7 launch."""
+    from repro_torch.analysis import flops
+    from repro_torch.configs import ShapeCfg, get_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import common
+
+    arch = get_arch(TRAIN_ARCH)
+    cfg = arch.model
+    if common.param_count(cfg) != ATTN_PARAMS[TRAIN_ARCH]:
+        raise AssertionError(f"{TRAIN_ARCH}: {common.param_count(cfg)} "
+                             "parameters")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt), init_ms = host_ms(
+        lambda: train_mod.init_state(arch, SEED, "cuda"))
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    shape = ShapeCfg("train", "train", TRAIN_SEQ, TRAIN_BATCH,
+                     microbatches=TRAIN_MB)
+    step = make_train_step(arch, shape, device="cuda")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    reset_counts(*counts_fns)
+    step_ms, losses, norms = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = train_mod.shaped_batch(cfg, SEED, i, shape, "cuda")
+        (params, opt, m), ms = host_ms(lambda: step(params, opt, batch))
+        step_ms.append(ms)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts = read_counts(*counts_fns)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(counts.values()):
+        raise AssertionError(f"{TRAIN_ARCH} training launched {counts}")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{TRAIN_ARCH}: loss {losses}, grad norm "
+                             f"{norms}")
+    warm = min(step_ms[1:])
+    mfu = flops.model_flops(cfg, tokens, training=True) / (
+        warm / 1e3 * BF16_PEAK)
+    out = {"params": common.param_count(cfg), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "microbatches": TRAIN_MB,
+           "init_ms": init_ms, "state_gib": state_gib,
+           "step_ms": step_ms, "first_step_ms": step_ms[0],
+           "warm_step_ms": warm, "tokens_per_s": tokens / warm * 1e3,
+           "peak_memory_gib": peak, "mfu_bf16": mfu, "loss": losses,
+           "grad_norm": norms, "launches": counts, "card": card}
+    log(f"  (c) {TRAIN_ARCH} whole ({out['params']} parameters, state "
+        f"{state_gib:.2f} GiB after init), batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {TRAIN_MB} microbatches: steps "
+        + ", ".join(f"{v:.1f}" for v in step_ms)
+        + f" ms (first {step_ms[0]:.1f}, warm {warm:.1f}); "
+        f"{out['tokens_per_s']:.0f} tokens/s; peak memory {peak:.2f} GiB; "
+        f"MFU {100 * mfu:.2f}% of bf16 {BF16_PEAK / 1e12:.0f} TFLOP/s; "
+        f"loss {losses}, grad norm {norms}; launches {json.dumps(counts)}"
+        f" [{card}]")
+    batch = train_mod.shaped_batch(cfg, SEED, TRAIN_STEPS, shape, "cuda")
+    out["profile"] = device_breakdown(
+        lambda: step(params, opt, batch),
+        f"{TRAIN_ARCH} one warm train step, profiled")
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def f64_check(card) -> dict:
+    """(c) f32 at TRAIN_CHECK_LAYERS of full width against the same step
+    in float64 on the card: loss, grad norm, the moments and the updated
+    parameters.  One step at lr TRAIN_CHECK_LR (warmup 0): an Adam step
+    moves a weight by about lr·sign(g), so a gradient element that rounds
+    to the other sign moves it by 2·lr, which at this rate stays below
+    the bar's atol for every leaf (the embedding's, 2e-5 of ~0.012, is
+    the smallest) while the step still moves each weight by ~100 ulps."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeCfg, get_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import common
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    arch = get_arch(TRAIN_ARCH)
+    c32 = dataclasses.replace(arch.model, n_layers=TRAIN_CHECK_LAYERS,
+                              dtype=torch.float32,
+                              param_dtype=torch.float32)
+    c64 = dataclasses.replace(c32, dtype=torch.float64,
+                              param_dtype=torch.float64)
+    shape = ShapeCfg("check", "train", TRAIN_CHECK_SEQ, TRAIN_CHECK_BATCH,
+                     microbatches=TRAIN_CHECK_BATCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p32 = common.init_params(c32, gen, "cuda")
+    batch = train_mod.shaped_batch(c32, SEED, 0, shape, "cuda")
+    res = {}
+    for label, cfg, acc, mom in (("f64", c64, "float64", torch.float64),
+                                 ("f32", c32, "float32", torch.float32)):
+        a = dataclasses.replace(arch, model=cfg, accum_dtype=acc)
+        p = {k: v.to(cfg.param_dtype, copy=True) for k, v in p32.items()}
+        o = adamw_init(p, AdamWConfig(moment_dtype=mom))
+        step = make_train_step(a, shape, peak_lr=TRAIN_CHECK_LR, warmup=0,
+                               device="cuda")
+        p, o, m = step(p, o, batch)
+        res[label] = (p, o, m)
+        sync()
+    (p64, o64, m64), (p32n, o32, m32) = res["f64"], res["f32"]
+    out = {}
+    for k in ("loss", "grad_norm", "lr"):
+        out[k] = compare_model(m32[k].reshape(1), m64[k].reshape(1),
+                               f"f32 against f64 {k}")
+    worst = {}
+    for part, got, want in (("params", p32n, p64), ("mu", o32["mu"],
+                                                     o64["mu"]),
+                            ("nu", o32["nu"], o64["nu"])):
+        for k in want:
+            stats, excess = close_stats(got[k], want[k], MODEL_RTOL,
+                                        f"{part}/{k}", MODEL_ATOL)
+            if excess > 0:
+                raise AssertionError(f"f32 against f64 {part}/{k}: outside "
+                                     f"the model bar ({stats})")
+            worst[f"{part}/{k}"] = stats["max_abs_err"] / max(
+                float(want[k].abs().max()), 1e-300)
+    moved = max(float((p32n[k] - p32[k]).abs().max()) for k in p32)
+    top = max(worst, key=worst.get)
+    log(f"  (c) f32 against f64 on the card, {TRAIN_CHECK_LAYERS} layers of "
+        f"full width, batch {TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, one "
+        f"step at lr {TRAIN_CHECK_LR:.0e}: loss, grad norm, lr, every "
+        f"parameter, mu and nu within rtol {MODEL_RTOL:.0e} / atol "
+        f"{MODEL_ATOL:.0e} of max (worst {top} {worst[top]:.2e} of max); "
+        f"largest weight move {moved:.2e} [{card}]")
+    out["worst_err_over_max"] = worst
+    out["largest_move"] = moved
+    del res, p32, p64, o64, p32n, o32
+    torch.cuda.empty_cache()
+    return out
+
+
+def hundred_m(card) -> dict:
+    """(d) The ~100M Gemma-2-family config of examples/train_lm.py, built
+    here from its fields: HUNDRED_M_STEPS steps of HUNDRED_M_BATCH x
+    HUNDRED_M_SEQ in 2 microbatches, peak lr 3e-3, warmup 20; the mean of
+    the last 10 losses must fall below the first 10's by more than 1.0
+    (repro's own assert)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeCfg, get_arch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import common
+
+    base = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(base.model, **HUNDRED_M)
+    arch = dataclasses.replace(base, model=cfg)
+    params, opt = train_mod.init_state(arch, SEED, "cuda")
+    shape = ShapeCfg("100m", "train", HUNDRED_M_SEQ, HUNDRED_M_BATCH,
+                     microbatches=2)
+    step = make_train_step(arch, shape, peak_lr=3e-3, warmup=20,
+                           total_steps=max(HUNDRED_M_STEPS, 100),
+                           device="cuda")
+    losses = []
+    sync()
+    t0 = time.perf_counter()
+    for i in range(HUNDRED_M_STEPS):
+        batch = train_mod.shaped_batch(cfg, SEED, i, shape, "cuda")
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"])
+    losses = [float(v) for v in losses]
+    sync()
+    secs = time.perf_counter() - t0
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    tps = HUNDRED_M_STEPS * HUNDRED_M_BATCH * HUNDRED_M_SEQ / secs
+    log(f"  (d) ~100M config ({common.param_count(cfg)} parameters, f32), "
+        f"{HUNDRED_M_STEPS} steps of {HUNDRED_M_BATCH} x {HUNDRED_M_SEQ}: "
+        f"loss {first:.3f} -> {last:.3f} (first and last 10; ln V = "
+        f"{math.log(cfg.vocab_size):.2f}), {secs:.1f} s, {tps:.0f} "
+        f"tokens/s [{card}]")
+    if not last < first - 1.0:
+        raise AssertionError(f"the ~100M config did not converge: {first} "
+                             f"-> {last}")
+    del params, opt
+    torch.cuda.empty_cache()
+    return {"params": common.param_count(cfg), "first10": first,
+            "last10": last, "losses": losses, "seconds": secs,
+            "tokens_per_s": tps}
+
+
+def kill_and_resume(card) -> dict:
+    """(e) The launcher's kill and resume as three processes on the card,
+    reduced Gemma-2: --inject-failure 7 must exit 42, the same command
+    again resumes at step 5, and its step-10 checkpoint equals an
+    uninterrupted run's bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_pytree
+
+    def run(ckpt, *extra):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               TRAIN_ARCH, "--steps", "10", "--ckpt-every", "5",
+               "--log-every", "1", "--ckpt-dir", ckpt, *extra]
+        r, ms = host_ms(lambda: subprocess.run(
+            cmd, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}))
+        return r, ms
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = f"{tmp}/a", f"{tmp}/b"
+        killed, ms1 = run(a, "--inject-failure", "7")
+        if killed.returncode != 42:
+            raise AssertionError(f"--inject-failure 7 exited "
+                                 f"{killed.returncode}: {killed.stderr}")
+        resumed, ms2 = run(a, "--inject-failure", "7")
+        whole, ms3 = run(b)
+        for name, r in (("resume", resumed), ("whole", whole)):
+            if r.returncode != 0:
+                raise AssertionError(f"{name} exited {r.returncode}: "
+                                     f"{r.stderr[-2000:]}")
+        if "restored checkpoint at step 5" not in resumed.stdout:
+            raise AssertionError(f"the rerun did not resume at step 5: "
+                                 f"{resumed.stdout}")
+        ta = restore_pytree(f"{a}/step_000000010", "cpu")
+        tb = restore_pytree(f"{b}/step_000000010", "cpu")
+        fa, fb = state_leaves(ta), state_leaves(tb)
+        if set(fa) != set(fb) or not all(
+                fa[k].dtype == fb[k].dtype and
+                fa[k].reshape(-1).view(torch.uint8).equal(
+                    fb[k].reshape(-1).view(torch.uint8)) for k in fa):
+            raise AssertionError("the resumed run's step-10 checkpoint "
+                                 "differs from the uninterrupted run's")
+    snaps = [(float(mo.group(1)), int(mo.group(2))) for mo in re.finditer(
+        r"host snapshot ([0-9.]+) ms, (\d+) bytes", whole.stdout)]
+    log(f"  (e) launcher on the card: --inject-failure 7 exited 42 "
+        f"({ms1 / 1e3:.1f} s), the rerun resumed at step 5 ({ms2 / 1e3:.1f}"
+        f" s), an uninterrupted run ({ms3 / 1e3:.1f} s): step-10 "
+        f"checkpoints equal bit for bit ({len(fa)} leaves); host snapshots "
+        + ", ".join(f"{m:.2f} ms / {n} bytes" for m, n in snaps)
+        + f" [{card}]")
+    return {"process_s": [ms1 / 1e3, ms2 / 1e3, ms3 / 1e3],
+            "snapshots": [{"ms": m, "bytes": n} for m, n in snaps],
+            "leaves": len(fa)}
+
+
+def phase_training(ops, fs, fk, fp, fl, card) -> dict:
+    log(f"== phase 16: training [{card}]")
+    t_phase = time.perf_counter()
+    counts_fns = (fs, fk, fp, fl)
+    torch.cuda.empty_cache()
+    out = {"refusals": grad_refusals(ops)}
+    out["reduced"] = reduced_steps(counts_fns, card)
+    out["full"] = full_width_training(counts_fns, card)
+    out["f64_check"] = f64_check(card)
+    out["hundred_m"] = hundred_m(card)
+    out["kill_resume"] = kill_and_resume(card)
+    out["launches"] = out["full"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 16 took {out['phase_s']:.1f} s")
+    return out
+
+
 def prefill_profile(checkout: Path) -> int:
     """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
     weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
@@ -4938,6 +5442,10 @@ def main(argv=None) -> int:
     families = phase_families(ops, fs, fk, fp, fl, card)
     fam_launches = {arch: m["launches"]
                     for arch, m in families["models"].items()}
+    training = phase_training(ops, fs, fk, fp, fl, card)
+    train_launches = {"full": training["launches"],
+                      **{arch: r["launches"]
+                         for arch, r in training["reduced"].items()}}
 
     # launches: each kernel's count from the path that runs it, with its
     # counts set to 0 just before and read just after (phases 4 and 4c)
@@ -4980,6 +5488,13 @@ def main(argv=None) -> int:
                     arch: c["mamba_scan"] + c["selective_scan"]
                     for arch, c in fam_launches.items()},
                 "hymba": attention["hymba_scan"],
+                # phase 16, counts zeroed before each run: training (the
+                # SSM trains through the associative scan) launches none
+                "launches_training": {
+                    run: c["mamba_scan"] + c["selective_scan"]
+                    for run, c in train_launches.items()},
+                "grad_refusal": {m: training["refusals"][m]
+                                 for m in ("selective_scan", "mamba_scan")},
                 "ptxas": scan_regs})
             continue
         tiers = timings["entries"][kname]
@@ -5039,6 +5554,12 @@ def main(argv=None) -> int:
             # phase 15, the same: Granite-MoE's monitor
             entry["launches_families"] = {
                 arch: c[kname] for arch, c in fam_launches.items()}
+        # phase 16, counts zeroed before each run: no training run
+        # launches a kernel; under grad mode the wrapper refuses an input
+        # that requires grad (C1)
+        entry["launches_training"] = {run: c[kname] for run, c in
+                                      train_launches.items()}
+        entry["grad_refusal"] = training["refusals"][kname]
         if kname == "flash_score":
             entry["rect"] = timings["entries"]["flash_score rect"]
         if kname == "flash_kde_pruned":
@@ -5065,6 +5586,7 @@ def main(argv=None) -> int:
     summary["measurement"] = measurement
     summary["attention"] = attention
     summary["families"] = families
+    summary["training"] = training
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

@@ -1,11 +1,12 @@
 """Architecture / workload registry (``repro.configs``).
 
 Every architecture ``repro`` knows keeps its id here, each a module
-exporting ``ARCH`` (an ``ArchSpec`` with the published numbers); the
-port builds all ten (``PORTED``).  The assigned input shapes, each
-architecture's skipped cells and the paper's SD-KDE workloads are
-registered alongside with ``repro``'s values; no ported entry point
-reads them yet.
+exporting ``ARCH`` (an ``ArchSpec`` with the published numbers and
+``repro``'s training policy); the port builds all ten (``PORTED``).  The
+assigned input shapes, each architecture's skipped cells and the paper's
+SD-KDE workloads are registered alongside with ``repro``'s values;
+``launch.train`` builds its own train shape, and the dry run (A15's next
+step) reads the assigned ones.
 """
 
 from __future__ import annotations
@@ -52,16 +53,20 @@ SHAPES: Dict[str, ShapeCfg] = {s.name: s for s in LM_SHAPES}
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
-    """An architecture's published model configuration and the assigned
+    """An architecture's published model configuration, the assigned
     cells it skips (shape name -> reason, e.g. long_500k on a pure
-    full-attention model).  ``repro``'s training fields (optimizer,
-    accumulator type, microbatches) wait for the port's training path
-    (ROADMAP A15)."""
+    full-attention model) and its training policy, ``repro``'s:
+    ``optimizer`` ("adamw" or "adafactor"), the gradient accumulator's
+    type ``accum_dtype`` (a ``torch`` dtype's name) and
+    ``train_microbatches``, which overrides a train shape's count."""
 
     arch_id: str
     model: ModelConfig
     skips: Dict[str, str] = dataclasses.field(default_factory=dict)
     source: str = ""
+    optimizer: str = "adamw"          # adamw | adafactor
+    accum_dtype: str = "float32"      # gradient-accumulator dtype
+    train_microbatches: Optional[int] = None
 
     def shape_applicable(self, shape: ShapeCfg) -> Optional[str]:
         """None if the (arch, shape) cell runs; else the skip reason."""

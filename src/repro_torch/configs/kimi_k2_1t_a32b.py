@@ -10,9 +10,9 @@ long_500k is an assigned skip.
 ``expert_2d_sharding`` and ``seq_shard_attn`` are ``repro``'s mesh
 layout (experts over ``model``, d_ff over ``data``; sequence-sharded
 attention): on one device both are ignored, in ``repro`` and here
-(``models.common.MESH_ONLY_FIELDS``).  ``repro``'s training fields
-(adafactor, bf16 accumulators, 2 microbatches) wait for the port's
-training path.
+(``models.common.MESH_ONLY_FIELDS``).  Training follows ``repro``'s
+policy for the ~1T configuration: Adafactor (factored second moments, no
+first moment), bf16 gradient accumulators and 2 microbatches.
 """
 
 import torch
@@ -47,4 +47,7 @@ ARCH = ArchSpec(
     model=MODEL,
     skips={"long_500k": FULL_ATTN_LONG_SKIP},
     source="arXiv:2501.kimi2 (paper-table); unverified",
+    optimizer="adafactor",
+    accum_dtype="bfloat16",
+    train_microbatches=2,
 )

@@ -7,6 +7,7 @@ frontend is a stub, as in ``repro``: precomputed anyres patch
 embeddings (B, 2880, d) (4 high-resolution tiles and the base tile, 576
 patches each) pass one learned projection and go before the text
 tokens.  Pure full attention, so long_500k is an assigned skip.
+Training accumulates gradients in bf16, as ``repro``'s policy says.
 """
 
 import torch
@@ -36,4 +37,5 @@ ARCH = ArchSpec(
     model=MODEL,
     skips={"long_500k": FULL_ATTN_LONG_SKIP},
     source="hf:llava-hf/llava-v1.6-mistral-7b-hf (anyres tiling); unverified",
+    accum_dtype="bfloat16",
 )

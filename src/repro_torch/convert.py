@@ -30,7 +30,10 @@ nothing of JAX:
   * ``lm_params_from_state`` — ``repro.models.common.init_params``'
     output (or any parameter dict of that layout) becomes the port's
     parameter dict for ``repro_torch.models``, so both packages compute
-    the same model.
+    the same model;
+  * ``opt_state_from_state`` — ``repro``'s AdamW or Adafactor state
+    becomes the port's (``repro_torch.optim``), so both packages train
+    on from the same step.
 
 With these the KDE pass can be held against JAX's on a debiased set that
 JAX computed, apart from the score pass, and the pruned path on
@@ -46,11 +49,13 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.configs import ArchSpec
 from repro_torch.core.bandwidth import gaussian_norm_const
 from repro_torch.core.estimator import SDKDE, EstimatorConfig, LaplaceKDE
 from repro_torch.kernels.flash_rff import RFFState
 from repro_torch.kernels.spatial import SpatialIndex
 from repro_torch.models.common import ModelConfig, param_shapes
+from repro_torch.optim.adafactor import factored
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.registry import PreparedEstimator
 from repro_torch.stream import StreamConfig, StreamingSDKDE
@@ -236,5 +241,60 @@ def lm_params_from_state(params: "dict[str, np.ndarray]", cfg: ModelConfig,
     return out
 
 
+def opt_state_from_state(state: dict, arch: ArchSpec, cfg: ModelConfig,
+                         device: str = "cuda") -> dict:
+    """The port's optimizer state for a ``repro`` one given as numpy
+    arrays: ``adamw_init``'s ``{"step", "master", "mu", "nu"}`` or
+    ``adafactor_init``'s ``{"step", "master", "v"}`` (``arch.optimizer``
+    says which) for the parameters of ``cfg``.  ``step`` becomes a 0-d
+    int32 tensor; every other leaf keeps its type (f32, or the moments'
+    bf16: numpy arrays of ``ml_dtypes`` widen exactly) on ``device``.
+    Raises when a name is missing or extra, a factor is missing or a
+    shape differs from the parameter's."""
+    dev = device_mod.resolve(device)
+    shapes = param_shapes(cfg)
+    parts = {"adamw": ("master", "mu", "nu"),
+             "adafactor": ("master", "v")}.get(arch.optimizer)
+    if parts is None:
+        raise ValueError(f"unknown optimizer {arch.optimizer!r}")
+    if set(state) != {"step", *parts}:
+        raise ValueError(f"{arch.optimizer} state has keys {sorted(state)}, "
+                         f"expected {sorted({'step', *parts})}")
+
+    def leaf(arr, shape, what):
+        arr = np.asarray(arr)
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"{what}: shape {arr.shape}, expected {shape}")
+        dtype = {"float32": torch.float32,
+                 "bfloat16": torch.bfloat16}.get(str(arr.dtype))
+        if dtype is None:
+            raise ValueError(f"{what}: dtype {arr.dtype}")
+        return torch.as_tensor(arr.astype(np.float32), device=dev).to(dtype)
+
+    out = {"step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32, device=dev)}
+    for part in parts:
+        tree = state[part]
+        missing, extra = set(shapes) - set(tree), set(tree) - set(shapes)
+        if missing or extra:
+            raise ValueError(f"{part}: names differ: missing "
+                             f"{sorted(missing)}, extra {sorted(extra)}")
+        out[part] = {}
+        for name, (shape, _) in shapes.items():
+            if part != "v":
+                out[part][name] = leaf(tree[name], shape, f"{part}/{name}")
+                continue
+            s = tuple(shape)
+            want = ({"vr": s[:-1], "vc": s[:-2] + s[-1:]} if factored(s)
+                    else {"v": s})
+            if set(tree[name]) != set(want):
+                raise ValueError(f"v/{name}: factors {sorted(tree[name])}, "
+                                 f"expected {sorted(want)}")
+            out[part][name] = {f: leaf(tree[name][f], sh, f"v/{name}/{f}")
+                               for f, sh in want.items()}
+    return out
+
+
 __all__ = ["sdkde_from_state", "laplace_from_state", "prepared_from_state",
-           "index_from_state", "stream_from_state", "lm_params_from_state"]
+           "index_from_state", "stream_from_state", "lm_params_from_state",
+           "opt_state_from_state"]

@@ -7,12 +7,17 @@ ids differ from ``repro``'s for the same seed (``torch.Generator`` is not
 ``jax.random``); tests hand both packages the same numpy ids.  VLM
 patches and audio frames are Gaussian stub embeddings (the frontends are
 stubs, as in ``repro``), drawn in f32 after the tokens from the same
-generator and cast to the activation type.
+generator and cast to the activation type.  ``PrefetchLoader`` makes
+step t + 1's batch on a thread while step t runs.  (``repro``'s
+``host_local_batch`` and ``batch_pspecs`` place a batch on a mesh; they
+come with A15's dry-run step.)
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import queue
+import threading
+from typing import Any, Callable, Dict, Iterator
 
 import numpy as np
 import torch
@@ -59,4 +64,58 @@ def lm_batch(cfg: ModelConfig, seed: int, step: int, batch: int, seq: int,
     return out
 
 
-__all__ = ["lm_batch"]
+class PrefetchLoader:
+    """Double-buffered loader: a background thread makes the batches of
+    steps ``start_step``, ``start_step + 1``, ... with ``make_batch(step)``
+    and holds up to ``depth`` of them ahead of the consumer.  Iterating
+    yields ``(step, batch)``; ``close`` stops the thread (also on leaving
+    a ``with`` block).  A batch the maker raises on is raised to the
+    consumer."""
+
+    def __init__(self, make_batch: Callable[[int], Any], start_step: int = 0,
+                 depth: int = 2):
+        self._make = make_batch
+        self._q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self) -> None:
+        step = self._step
+        while not self._stop.is_set():
+            try:
+                item = (step, self._make(step), None)
+            except Exception as e:          # handed to the consumer
+                item = (step, None, e)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            if item[2] is not None:
+                return
+            step += 1
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def __next__(self):
+        step, batch, err = self._q.get()
+        if err is not None:
+            raise err
+        return step, batch
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=1.0)
+
+    def __enter__(self) -> "PrefetchLoader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+__all__ = ["lm_batch", "PrefetchLoader"]

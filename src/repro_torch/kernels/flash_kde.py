@@ -114,12 +114,33 @@ def _check(y, nrm_y, xt, nrm_x, inv2h2, y_lo, xt_lo, block_m, block_n):
     return m, n, d
 
 
+def refuse_grad(name: str, tensors, route: str) -> None:
+    """Raise when autograd would record a launch: grad mode is on and a
+    floating input requires grad.  The kernels launch through ``ctypes``
+    into ``torch.empty`` outputs and have no backward, so their outputs
+    would carry no ``grad_fn`` and the inputs would silently get no
+    gradient.  ``route`` names the differentiable version to use
+    instead; under ``torch.no_grad()`` or ``inference_mode`` nothing is
+    refused."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward and would leave its inputs without a "
+            f"gradient: differentiate through {route}, or call it under "
+            "torch.no_grad()")
+
+
 def check_cuda(name, tier, operands, floats, d, block_m, ints=()):
-    """Checks shared by every kernel launch: all tensors contiguous on one
-    CUDA device, the GEMM ``operands`` (None for an absent lo plane) of
-    the tier's type, the norms and inv2h2 (``floats``) f32, index tensors
-    (``ints``) int32, and d and block_m within what the kernels are built
-    for.  Returns the device."""
+    """Checks shared by every kernel launch: first the refusal of an
+    input that requires grad under grad mode (``refuse_grad``, naming
+    the plain version), then all tensors contiguous on one CUDA device,
+    the GEMM ``operands`` (None for an absent lo plane) of the tier's
+    type, the norms and inv2h2 (``floats``) f32, index tensors (``ints``)
+    int32, and d and block_m within what the kernels are built for.
+    Returns the device."""
+    refuse_grad(name, operands + floats,
+                f"the plain version {name.removesuffix('_cuda')}_plain")
     dev = operands[0].device
     for t in operands + floats + ints:
         if t is None:
@@ -253,6 +274,7 @@ def flash_kde(
 
 
 __all__ = ["MAX_D", "MAX_BLOCK_M", "TIER_CODES", "SPLIT_COLUMNS",
-           "MAX_SPLITS", "SplitPlan", "plan_splits", "check_cuda",
+           "MAX_SPLITS", "SplitPlan", "plan_splits", "refuse_grad",
+           "check_cuda",
            "launch_dense_pass", "flash_kde", "flash_kde_cuda",
            "flash_kde_plain"]

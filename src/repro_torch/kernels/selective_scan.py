@@ -71,6 +71,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_kde import refuse_grad
 
 MAX_N = 16      # the largest state size the kernel is built for
 CHUNK = 64      # time steps the plain version materialises at once
@@ -131,10 +132,15 @@ def _check_fused(xi, dt_raw, b, c, a, h0, dt_bias, d_skip, z):
 
 
 def _card_checks(fn: str, tensors: dict, contiguous, n: int, bsz: int):
-    """Raise unless those named in ``contiguous`` are contiguous and the
-    others unit-stride along their last axis, every tensor lies on one
-    CUDA device, and N and B fit the kernel's build and grid; returns the
-    device."""
+    """Raise when grad mode is on and an input requires grad (the kernel
+    has no backward: ``repro`` trains through its associative scan, the
+    port through ``ssm_kernel=False``), then unless those named in
+    ``contiguous`` are contiguous and the others unit-stride along their
+    last axis, every tensor lies on one CUDA device, and N and B fit the
+    kernel's build and grid; returns the device."""
+    refuse_grad(fn, tensors.values(),
+                f"the associative scan (ssm_kernel=False) or "
+                f"{fn.removesuffix('_cuda')}_plain")
     for name, t in tensors.items():
         if name in contiguous and not t.is_contiguous():
             raise ValueError(f"{fn} needs {name} contiguous")

@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import softcap
+from repro_torch.models.layers import softcap, wide
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
@@ -82,10 +82,13 @@ def _ungroup(o: torch.Tensor, sq: int) -> torch.Tensor:
 def _scores(qg: torch.Tensor, k: torch.Tensor, scale: float,
             cap: Optional[float]) -> torch.Tensor:
     """qg (B, Hkv, G·Sq, hd), k (B, Sk, Hkv, hd) -> f32 (B, Hkv, G·Sq,
-    Sk): the product of the operands widened to f32, times ``scale``,
-    softcapped."""
-    kt = k.permute(0, 2, 3, 1).to(torch.float32)           # (B, Hkv, hd, Sk)
-    s = torch.matmul(qg.to(torch.float32), kt)
+    Sk): the product of the operands widened to f32 (``layers.wide``),
+    times ``scale``, softcapped.  The in-place scaling is safe under
+    autograd: the product's backward reads its operands, not its
+    output."""
+    wt = wide(qg.dtype)
+    kt = k.permute(0, 2, 3, 1).to(wt)                      # (B, Hkv, hd, Sk)
+    s = torch.matmul(qg.to(wt), kt)
     s.mul_(scale)
     return softcap(s, cap)
 
@@ -123,6 +126,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = 1.0 / math.sqrt(hd)
+    wt = wide(q.dtype)
     q_chunk = _pick_chunk(sq, q_chunk)
     kv_chunk = _pick_chunk(sk, kv_chunk)
     dev = q.device
@@ -132,11 +136,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qg = _group(q[:, q0:q0 + q_chunk], hkv)
         qpos = q0 + torch.arange(q_chunk, device=dev)
         rows = g * q_chunk
-        m = torch.full((b, hkv, rows), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, hkv, rows), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, rows, hd), dtype=torch.float32,
-                          device=dev)
+        m = torch.full((b, hkv, rows), NEG_INF, dtype=wt, device=dev)
+        l = torch.zeros((b, hkv, rows), dtype=wt, device=dev)
+        acc = torch.zeros((b, hkv, rows, hd), dtype=wt, device=dev)
         for k0 in range(0, sk, kv_chunk):
             s = _scores(qg, k[:, k0:k0 + kv_chunk], scale, cap)
             kpos = k0 + torch.arange(kv_chunk, device=dev)
@@ -146,8 +148,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            pv = torch.matmul(p.to(v.dtype).to(torch.float32),
-                              vt[:, :, k0:k0 + kv_chunk].to(torch.float32))
+            pv = torch.matmul(p.to(v.dtype).to(wt),
+                              vt[:, :, k0:k0 + kv_chunk].to(wt))
             acc = acc * corr[..., None] + pv
             m = m_new
         o = acc / torch.clamp(l[..., None], min=1e-30)

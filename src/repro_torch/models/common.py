@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Literal, Optional, Tuple
+from typing import Any, Dict, List, Literal, Optional, Tuple
 
 import torch
 
@@ -28,7 +28,8 @@ PORTED_FAMILIES = ("ssm", "dense", "hybrid", "moe", "vlm", "audio")
 #: so a value set there raises rather than changing nothing.  The widths
 #: n_heads, n_kv_heads, head_dim and d_ff stay free: ``repro``'s
 #: Falcon-Mamba carries them unused and ``reduced()`` shrinks them; so do
-#: remat and loss_chunk, which shape only a train step.
+#: remat and loss_chunk, which shape only a train step
+#: (``models/remat.py``, ``transformer.lm_loss``).
 FAMILY_FIELDS = {
     "moe": ("n_experts", "top_k", "moe_dff", "n_shared_experts",
             "capacity_factor"),
@@ -405,8 +406,20 @@ def layer_tree(params: Dict[str, torch.Tensor], prefix: str = "layers/"):
 
 def layer_params(params: Dict[str, torch.Tensor], i: int,
                  prefix: str = "layers/") -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s parameters: a view of each stacked tensor."""
+    """Layer ``i``'s parameters alone: a view of each stacked tensor (the
+    models' loops take every layer's at once, ``layer_list``)."""
     return {k: v[i] for k, v in layer_tree(params, prefix).items()}
+
+
+def layer_list(params: Dict[str, torch.Tensor], n: int,
+               prefix: str = "layers/") -> List[Dict[str, torch.Tensor]]:
+    """The ``n`` layers' parameters, each stacked tensor unbound once.
+    Under autograd the backward of an unbind is one stack of the layers'
+    gradients, where indexing each layer (``layer_params``) writes a zero
+    tensor the size of the whole stack for every layer: 26 × 4.05 GB a
+    microbatch for Gemma-2-2B's bf16 stacks."""
+    cols = {k: torch.unbind(v) for k, v in layer_tree(params, prefix).items()}
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 __all__ = ["Family", "PORTED_FAMILIES", "FAMILY_FIELDS", "MESH_ONLY_FIELDS",
@@ -415,4 +428,4 @@ __all__ = ["Family", "PORTED_FAMILIES", "FAMILY_FIELDS", "MESH_ONLY_FIELDS",
            "ShapeSpec",
            "check_family", "param_shapes", "param_count", "active_param_count",
            "init_params",
-           "layer_tree", "layer_params"]
+           "layer_tree", "layer_params", "layer_list"]

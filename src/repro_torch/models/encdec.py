@@ -18,8 +18,9 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ModelConfig, layer_params
+from repro_torch.models.common import ModelConfig, layer_list
 from repro_torch.models.layers import embed_tokens, mlp, rmsnorm
+from repro_torch.models.remat import remat_call
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor, heads: int,
@@ -44,8 +45,8 @@ def encode(params: Dict[str, torch.Tensor], frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """Frame embeddings (B, enc_frames, d) -> encoder hidden states."""
     x = frames.to(cfg.dtype) + params["enc_pos"].to(cfg.dtype)[None]
-    for i in range(cfg.n_enc_layers):
-        x = encoder_layer(x, layer_params(params, i, "enc_layers/"), cfg)
+    for lp in layer_list(params, cfg.n_enc_layers, "enc_layers/"):
+        x = remat_call(cfg, encoder_layer, x, lp, cfg)
     return rmsnorm(x, params["enc_final_norm"])
 
 
@@ -74,25 +75,35 @@ def _cross_attend(x, lp, enc, cfg: ModelConfig) -> torch.Tensor:
                         *cross_kv(enc, lp, cfg), cfg)
 
 
+def decoder_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
+                  enc: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, window: int) -> torch.Tensor:
+    """One decoder layer of the training forward: causal self-attention,
+    the cross-attention to the encoder output ``enc``, the MLP."""
+    q, k, v = attn.qkv_project(rmsnorm(x, lp["attn_norm"]), lp, cfg,
+                               positions)
+    o = attn.attention(q, k, v, causal=True, window=window,
+                       cap=cfg.attn_softcap)
+    x = x + o.reshape(*x.shape[:-1], cfg.q_dim) @ lp["wo"].to(x.dtype)
+    x = x + _cross_attend(x, lp, enc, cfg)
+    return x + mlp(rmsnorm(x, lp["mlp_norm"]), lp, cfg)
+
+
 def encdec_hidden(params: Dict[str, torch.Tensor], frames: torch.Tensor,
                   tokens: torch.Tensor,
                   cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole encoder-decoder to the decoder's final hidden states;
-    returns (h, aux), aux 0 (no router)."""
+    returns (h, aux), aux 0 (no router).  Each encoder and decoder layer
+    is rematerialized under ``cfg.remat == "full"`` with grad enabled."""
     from repro_torch.models.transformer import layer_windows
 
     enc = encode(params, frames, cfg)
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i, window in enumerate(layer_windows(cfg)):
-        lp = layer_params(params, i)
-        q, k, v = attn.qkv_project(rmsnorm(x, lp["attn_norm"]), lp, cfg,
-                                   positions)
-        o = attn.attention(q, k, v, causal=True, window=window,
-                           cap=cfg.attn_softcap)
-        x = x + o.reshape(*x.shape[:-1], cfg.q_dim) @ lp["wo"].to(x.dtype)
-        x = x + _cross_attend(x, lp, enc, cfg)
-        x = x + mlp(rmsnorm(x, lp["mlp_norm"]), lp, cfg)
+    for lp, window in zip(layer_list(params, cfg.n_layers),
+                          layer_windows(cfg)):
+        x = remat_call(cfg, decoder_layer, x, lp, enc, cfg, positions,
+                       window)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rmsnorm(x, params["final_norm"]), aux
 
@@ -103,11 +114,10 @@ def prefill_cross_cache(params: Dict[str, torch.Tensor],
     """Every decoder layer's cross K / V from the encoder output, stacked
     (L, B, enc_frames, Hkv, hd) in the activation type (serving)."""
     enc = encode(params, frames, cfg)
-    kvs = [cross_kv(enc, layer_params(params, i), cfg)
-           for i in range(cfg.n_layers)]
+    kvs = [cross_kv(enc, lp, cfg) for lp in layer_list(params, cfg.n_layers)]
     return {"xk": torch.stack([k for k, _ in kvs]).to(cfg.dtype),
             "xv": torch.stack([v for _, v in kvs]).to(cfg.dtype)}
 
 
 __all__ = ["encoder_layer", "encode", "cross_kv", "cross_attend",
-           "encdec_hidden", "prefill_cross_cache"]
+           "decoder_layer", "encdec_hidden", "prefill_cross_cache"]

@@ -9,13 +9,21 @@ import torch.nn.functional as F
 from repro_torch.models.common import ModelConfig
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The type ``repro`` takes norms, attention scores, RoPE angles,
+    logits and the loss in: float32, or ``dtype`` where it is wider, so
+    that a float64 reference run stays float64 end to end (bf16 and f32
+    runs are unchanged)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, one_plus: bool = False,
             eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.to(torch.float32)
+    x = x.to(wide(dt))
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    w = w.to(torch.float32)
+    w = w.to(x.dtype)
     scale = 1.0 + w if one_plus else w
     return (x * scale).to(dt)
 
@@ -64,7 +72,7 @@ def logits_head(params: dict, x: torch.Tensor,
         w = params["embed"].to(x.dtype).T
     else:
         w = params["lm_head"].to(x.dtype)
-    return softcap((x @ w).to(torch.float32), cfg.final_softcap)
+    return softcap((x @ w).to(wide(x.dtype)), cfg.final_softcap)
 
 
-__all__ = ["rmsnorm", "softcap", "mlp", "embed_tokens", "logits_head"]
+__all__ = ["wide", "rmsnorm", "softcap", "mlp", "embed_tokens", "logits_head"]

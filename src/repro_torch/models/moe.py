@@ -27,7 +27,8 @@ come with ``models/parallel.py`` in A15's dry-run step; on one device
 
 ``recording()`` collects each call's ``Routing`` while it is open, so
 that a caller (``launch.serve.generate``, the tests) can read which
-pairs were dropped without a device read inside the layers.
+pairs were dropped without a device read inside the layers; ``paused()``
+keeps a rematerialized layer's recomputation out of it.
 """
 
 from __future__ import annotations
@@ -170,6 +171,19 @@ def dropped_share(records: List[Routing]) -> float:
 
 
 @contextlib.contextmanager
+def paused() -> Iterator[None]:
+    """Append no ``Routing`` while the block runs: the recomputation of a
+    rematerialized layer (``models/remat.py``) routes the same tokens a
+    second time, in the backward pass."""
+    global _records
+    prev, _records = _records, None
+    try:
+        yield
+    finally:
+        _records = prev
+
+
+@contextlib.contextmanager
 def recording() -> Iterator[List[Routing]]:
     """Collect each ``moe_ffn`` call's ``Routing`` (in call order: layer
     by layer) into the list yielded, while the block runs."""
@@ -182,4 +196,4 @@ def recording() -> Iterator[List[Routing]]:
 
 
 __all__ = ["Routing", "capacity", "route", "moe_ffn", "dropped_share",
-           "recording"]
+           "paused", "recording"]

@@ -4,12 +4,15 @@ variants (``repro.models.rope``).
 The rotation pairs element i of the head dim with element i + D/2 (the
 two halves), as ``repro``'s ``_rotate`` does, though its docstring says
 "interleaved-pair".  Frequencies are theta^(−i/half) in f32, the angles
-f32, and the rotated values go back to the input's type.
+f32 (f64 for f64 inputs: ``layers.wide``), and the rotated values go
+back to the input's type.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.models.layers import wide
 
 
 def _rotate(x: torch.Tensor, positions: torch.Tensor,
@@ -17,9 +20,10 @@ def _rotate(x: torch.Tensor, positions: torch.Tensor,
     """RoPE over the whole last dim.  x: (..., S, H, D), D even;
     positions: (..., S) integers."""
     half = x.shape[-1] // 2
-    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+    wt = wide(x.dtype)
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=wt,
                                           device=x.device) / half))
-    ang = positions[..., :, None].to(torch.float32) * freqs  # (..., S, half)
+    ang = positions[..., :, None].to(wt) * freqs             # (..., S, half)
     cos = torch.cos(ang)[..., :, None, :]                    # (..., S, 1, half)
     sin = torch.sin(ang)[..., :, None, :]
     x1, x2 = x[..., :half], x[..., half:]

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan import mamba_scan
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import wide
 
 #: Calls of the associative-scan branch of ``mamba_block``; set to 0 to
 #: start a count (a path that should run B7 must leave it at 0).
@@ -79,9 +80,8 @@ def mamba_block(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
     xi_pre, z = xz.chunk(2, dim=-1)
     xi = F.silu(_conv1d(xi_pre, lp["conv_w"].to(x.dtype),
                         lp["conv_b"].to(x.dtype)))
-    a = -torch.exp(lp["A_log"].to(torch.float32))          # (di, N)
-
     if cfg.ssm_kernel:
+        a = -torch.exp(lp["A_log"].to(torch.float32))      # (di, N)
         dt_raw, b, c = _ssm_proj(xi, lp, cfg, raw_dt=True)
         h0 = torch.zeros((x.shape[0], cfg.d_inner, cfg.ssm_state),
                          dtype=torch.float32, device=x.device)
@@ -91,14 +91,15 @@ def mamba_block(x: torch.Tensor, lp: dict, cfg: ModelConfig, *,
     else:
         assoc_scans += 1
         dt, b, c = _ssm_proj(xi, lp, cfg)                  # (B,S,di),(B,S,N)
-        dt32 = dt.to(torch.float32)
+        wt = wide(x.dtype)             # f32, or f64 for an f64 model
+        a = -torch.exp(lp["A_log"].to(wt))                  # (di, N)
+        dt32 = dt.to(wt)
         decay = torch.exp(dt32[..., None] * a)              # (B,S,di,N)
-        drive = (dt32 * xi.to(torch.float32))[..., None] * \
-            b.to(torch.float32)[..., None, :]
+        drive = (dt32 * xi.to(wt))[..., None] * b.to(wt)[..., None, :]
         hs = _doubling_scan(decay, drive)
-        y = torch.einsum("bsdn,bsn->bsd", hs, c.to(torch.float32))
+        y = torch.einsum("bsdn,bsn->bsd", hs, c.to(wt))
         h_last = hs[:, -1].clone()      # not a view that pins hs
-        y = y + lp["D"].to(torch.float32) * xi.to(torch.float32)
+        y = y + lp["D"].to(wt) * xi.to(wt)
         y = y.to(x.dtype) * F.silu(z)
     out = y @ lp["out_proj"].to(x.dtype)
     if return_state:

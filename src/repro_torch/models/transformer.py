@@ -2,8 +2,8 @@
 (``repro.models.transformer``), for every family of ``repro``'s.
 
 ``repro`` scans one layer body over the stacked ``layers/*`` parameters
-with ``lax.scan``; here a Python loop indexes layer i of each stacked
-tensor, and each layer's attention window is a Python int
+with ``lax.scan``; here a Python loop walks the layers' views of the
+stacked tensors (``common.layer_list``), and each layer's attention window is a Python int
 (``layer_windows``: Gemma-2's even layers local, odd ones global, a
 global window being ``GLOBAL_WINDOW``).  The families:
 
@@ -40,6 +40,13 @@ the same reason: one copy, not two), and returns it.
 ``models/parallel.py``'s sharding hints (``repro``'s ``_seq_shard_qkv``
 and ``hint``, no-ops without a registered mesh) come with A15's dry-run
 step.
+
+Training: ``loss_fn`` (``lm_loss``'s chunked vocab cross-entropy plus
+0.01 × the MoE aux loss) is differentiated by ``launch.steps``.  The
+forward unbinds each stacked ``layers/*`` tensor once
+(``common.layer_list``) and, under ``cfg.remat == "full"`` with grad
+enabled, recomputes each layer in the backward (``models/remat.py``, as
+``repro``'s ``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -51,10 +58,13 @@ from torch import nn
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ModelConfig, check_family,
-                                       init_params, layer_params)
-from repro_torch.models.encdec import cross_attend, cross_kv, encode
-from repro_torch.models.layers import embed_tokens, logits_head, mlp, rmsnorm
+                                       init_params, layer_list)
+from repro_torch.models.encdec import (cross_attend, cross_kv, encdec_hidden,
+                                       encode)
+from repro_torch.models.layers import (embed_tokens, logits_head, mlp,
+                                       rmsnorm, wide)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.remat import remat_call
 from repro_torch.models.ssm import mamba_block, mamba_decode_step
 
 GLOBAL_WINDOW = 2**30     # a window no key reaches past: global attention
@@ -163,12 +173,52 @@ def forward_hidden(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
     x = _embed(params, tokens, cfg, patches)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, window in enumerate(layer_windows(cfg)):
-        x, a = decoder_layer(x, layer_params(params, i), cfg, positions,
-                             window)
+    windows = layer_windows(cfg)
+    for lp, window in zip(layer_list(params, cfg.n_layers), windows):
+        x, a = remat_call(cfg, decoder_layer, x, lp, cfg, positions, window)
         if a is not None:
             aux = aux + a
     return rmsnorm(x, params["final_norm"], one_plus=cfg.rms_one_plus), aux
+
+
+def lm_loss(params: Dict[str, torch.Tensor], hidden: torch.Tensor,
+            targets: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``hidden`` (B, S, d) against
+    ``targets`` (B, S), the vocab product taken ``cfg.loss_chunk``
+    positions at a time: the (B, chunk, V) f32 logits are the temporary.
+    As in ``repro``, a chunk that does not divide S (or 0) takes the
+    whole sequence at once: at S − 1 = 1023 or 4095 and the default 512,
+    that is every assigned training shape."""
+    b, s, _ = hidden.shape
+    chunk = min(cfg.loss_chunk or s, s)
+    if s % chunk:
+        chunk = s
+    tot = torch.zeros((), dtype=wide(hidden.dtype), device=hidden.device)
+    for c0 in range(0, s, chunk):
+        logits = logits_head(params, hidden[:, c0:c0 + chunk], cfg)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[:, c0:c0 + chunk, None])
+        tot = tot + torch.sum(logz - gold[..., 0])
+    return tot / (b * s)
+
+
+def loss_fn(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig) -> torch.Tensor:
+    """Next-token LM loss over ``batch`` (``{"tokens"}``, with
+    ``"patches"`` for VLM and ``"frames"`` for audio), plus 0.01 × the
+    MoE routers' aux loss.  The targets are the tokens rolled one to the
+    left, the last position dropped; the VLM loss counts only the text
+    positions after the patch prefix."""
+    tokens = batch["tokens"]
+    if cfg.family == "audio":
+        hidden, aux = encdec_hidden(params, batch["frames"], tokens, cfg)
+    else:
+        hidden, aux = forward_hidden(params, tokens, cfg,
+                                     patches=batch.get("patches"))
+        hidden = hidden[:, -tokens.shape[1]:]
+    targets = torch.roll(tokens, -1, dims=1)
+    loss = lm_loss(params, hidden[:, :-1], targets[:, :-1], cfg)
+    return loss + 0.01 * aux
 
 
 def prefill_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
@@ -217,9 +267,9 @@ def prefill(params: Dict[str, torch.Tensor], tokens: torch.Tensor,
         enc = encode(params, frames, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     caches = []
-    for i, window in enumerate(layer_windows(cfg)):
-        x, ce = prefill_layer(x, layer_params(params, i), cfg, positions,
-                              window, enc=enc)
+    for lp, window in zip(layer_list(params, cfg.n_layers),
+                          layer_windows(cfg)):
+        x, ce = prefill_layer(x, lp, cfg, positions, window, enc=enc)
         caches.append(ce)
     x = rmsnorm(x, params["final_norm"], one_plus=cfg.rms_one_plus)
     logits = logits_head(params, x[:, -1:], cfg)
@@ -352,10 +402,10 @@ def decode_step(params: Dict[str, torch.Tensor], cache: Dict,
     x = embed_tokens(params, tokens, cfg)
     positions = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     names = [k for k in cache if k != "pos"]
+    layers = layer_list(params, cfg.n_layers)
     for i, window in enumerate(layer_windows(cfg)):
-        x = decode_layer(x, layer_params(params, i),
-                         {k: cache[k][i] for k in names}, cfg, positions, pos,
-                         window)
+        x = decode_layer(x, layers[i], {k: cache[k][i] for k in names}, cfg,
+                         positions, pos, window)
     x = rmsnorm(x, params["final_norm"], one_plus=cfg.rms_one_plus)
     logits = logits_head(params, x, cfg)
     cache["pos"] = pos + 1
@@ -363,9 +413,11 @@ def decode_step(params: Dict[str, torch.Tensor], cache: Dict,
 
 
 class LM(nn.Module):
-    """The decoder as a module: holds the flat parameter dict (names as
-    in ``repro``, e.g. ``layers/wq``) and calls the functions above.
-    Inference only: the parameters do not require gradients."""
+    """The decoder as a module for serving: holds the flat parameter dict
+    (names as in ``repro``, e.g. ``layers/wq``) and calls the functions
+    above.  Its parameters do not require gradients.  Training takes the
+    flat dict itself: ``loss_fn`` above, the step of
+    ``launch.steps.make_train_step`` and the loop of ``launch.train``."""
 
     def __init__(self, cfg: ModelConfig,
                  params: Optional[Dict[str, torch.Tensor]] = None, *,
@@ -406,5 +458,5 @@ class LM(nn.Module):
 
 
 __all__ = ["GLOBAL_WINDOW", "layer_windows", "decoder_layer",
-           "forward_hidden", "prefill_layer", "prefill", "cache_spec",
+           "forward_hidden", "lm_loss", "loss_fn", "prefill_layer", "prefill", "cache_spec",
            "init_cache", "decode_layer", "decode_step", "LM"]

@@ -2,6 +2,7 @@
 and no silent fallback from a kernel request to the CPU."""
 
 import ast
+import dataclasses
 import importlib
 import pathlib
 import re
@@ -286,6 +287,116 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
 # ROADMAP items whose knobs have landed: A6, the launch tuner ("auto"
 # tiles), and A13, the ring backend
 LANDED = {"A6", "A13"}
+
+
+# the training slice (ROADMAP A15, steps 1 and 2): the loss and remat in
+# the models, optim/, the train step, checkpoints and the launcher
+TRAINING_MODULES = ("repro_torch.optim", "repro_torch.optim.adamw",
+                    "repro_torch.optim.adafactor",
+                    "repro_torch.optim.clipping",
+                    "repro_torch.optim.schedules",
+                    "repro_torch.checkpoint",
+                    "repro_torch.checkpoint.manager",
+                    "repro_torch.models.remat",
+                    "repro_torch.launch.steps", "repro_torch.launch.train")
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_are_scanned_and_import(module):
+    """Each module of the training slice is among the files the AST scan
+    holds to "no jax, nothing of repro", and imports without a card."""
+    rel = pathlib.Path("src", *module.split("."))
+    path = ROOT / (rel / "__init__.py" if (ROOT / rel).is_dir()
+                   else rel.with_suffix(".py"))
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+    importlib.import_module(module)
+
+
+def _wrapper_calls():
+    """Each of the eight CUDA wrappers (B1-B6, B7's two modes) with valid
+    CPU operands: name -> (wrapper, args, kwargs, launch count)."""
+    from repro_torch.kernels import flash_laplace, flash_pruned
+    from repro_torch.kernels import selective_scan as ss
+
+    kde = _kde_operands()
+    y, nrm_y, xt, nrm_x, inv = kde
+    xs, xt_s, xaug, nrm, _ = ops._score_operands(y, "f32")
+    one = torch.ones(1, dtype=torch.int32)
+    tmap = torch.zeros((1, 1), dtype=torch.int32)
+    g = torch.Generator().manual_seed(0)
+    bsz, s, d, n = 1, 8, 4, 2
+    xi, dt, z = (torch.randn(bsz, s, d, generator=g) for _ in range(3))
+    b, c = (torch.randn(bsz, s, n, generator=g) for _ in range(2))
+    a = -torch.rand(d, n, generator=g) - 0.5
+    h0 = torch.zeros(bsz, d, n)
+    blocks = {"block_m": 128, "block_n": 128}
+    return {
+        "flash_score_cuda": (flash_score.flash_score_cuda,
+                             (xs[0], nrm, xt_s[0], xaug[0], inv), {},
+                             lambda: flash_score.launches),
+        "flash_kde_cuda": (flash_kde.flash_kde_cuda, kde, {},
+                           lambda: flash_kde.launches),
+        "flash_score_pruned_cuda": (
+            flash_pruned.flash_score_pruned_cuda,
+            (one, tmap, xs[0], nrm, xt_s[0], xaug[0], inv), blocks,
+            lambda: dataclasses.astuple(flash_pruned.score_counts)),
+        "flash_kde_pruned_cuda": (
+            flash_pruned.flash_kde_pruned_cuda,
+            (one, tmap, y, nrm_y, xt, nrm_x, inv), blocks,
+            lambda: dataclasses.astuple(flash_pruned.kde_counts)),
+        "flash_laplace_cuda": (flash_laplace.flash_laplace_cuda, kde, {},
+                               lambda: flash_laplace.laplace_launches),
+        "sq_moment_cuda": (flash_laplace.sq_moment_cuda, kde, {},
+                           lambda: flash_laplace.sq_moment_launches),
+        "selective_scan_cuda": (ss.selective_scan_cuda,
+                                (xi, dt, b, c, a, h0), {},
+                                lambda: ss.launches),
+        "mamba_scan_cuda": (ss.mamba_scan_cuda,
+                            (xi, dt, b, c, a, h0, torch.zeros(d),
+                             torch.ones(d), z), {},
+                            lambda: ss.fused_launches),
+    }
+
+
+WRAPPERS = ("flash_score_cuda", "flash_kde_cuda", "flash_score_pruned_cuda",
+            "flash_kde_pruned_cuda", "flash_laplace_cuda", "sq_moment_cuda",
+            "selective_scan_cuda", "mamba_scan_cuda")
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_cuda_wrappers_refuse_an_input_that_requires_grad(name):
+    """C1: a kernel launch has no backward, so under grad mode a wrapper
+    given an input that requires grad raises, naming the differentiable
+    route, before any device check (these operands lie on the CPU);
+    under no_grad and inference_mode it reaches the device check as
+    before, and so it does when nothing requires grad."""
+    fn, args, kwargs, count = _wrapper_calls()[name]
+    before = count()
+    graded = tuple(t.detach().clone().requires_grad_()
+                   if torch.is_tensor(t) and t.is_floating_point() else t
+                   for t in args)
+    route = "ssm_kernel=False" if "scan" in name else name.replace(
+        "_cuda", "_plain")
+    with pytest.raises(RuntimeError, match="no backward") as err:
+        fn(*graded, **kwargs)
+    assert route in str(err.value)
+    for mode in (torch.no_grad, torch.inference_mode):
+        with mode(), pytest.raises(ValueError, match="CUDA"):
+            fn(*graded, **kwargs)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args, **kwargs)
+    assert count() == before
+
+
+def test_wrapper_list_covers_every_cuda_wrapper():
+    found = set()
+    for path in (ROOT / "src" / "repro_torch" / "kernels").glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.FunctionDef) and node.name.endswith(
+                    "_cuda") and node.name != "check_cuda":
+                found.add(node.name)
+    assert found == set(WRAPPERS)
 
 
 @pytest.mark.parametrize("kwargs, roadmap", [
