@@ -8,6 +8,9 @@
     python3 chip_smoke.py --prefill-profile DIR  # only phase 8's prefill,
                                          # profiled, with the port under
                                          # DIR/src (another checkout)
+    python3 chip_smoke.py --long-prefill DIR     # only phase 14's 8192-
+                                         # token prefill, timed, with the
+                                         # port under DIR/src
 
 Run from the repository root.  Phases, each printing its lines:
 
@@ -5318,6 +5321,298 @@ def phase_training(ops, fs, fk, fp, fl, card) -> dict:
     return out
 
 
+# phase 17: the dry run.  (a) in a child process (a fake world must not
+# meet this one's process group), beside (b) and (c), with DRYRUN_TIMEOUT,
+# the cells below on fake worlds of 256 / 512 ranks, DRYRUN_JOBS cells at
+# a time (the main process keeps two of the 8 cores); (b) a
+# one-rank NCCL world, mesh (1, 1) over (data, model): Gemma-2-2B's train
+# step (phase 16's shape) through build_cell against the mesh-less step
+# from the same seeded state, and Granite-MoE's decode step through the
+# stationary path against the mesh-less one; (c) the flash_sdkde_32k cell
+# (make_kde_step) on that mesh against SDKDE(backend="flash", prune="off")
+DRYRUN_CELLS = ("flash_sdkde_32k,flash_sdkde_1m,gemma2_2b/train_4k,"
+                "gemma2_2b/prefill_32k,gemma2_2b/decode_32k,"
+                "gemma2_2b/long_500k,granite_moe_3b_a800m/train_4k,"
+                "granite_moe_3b_a800m/decode_32k,kimi_k2_1t_a32b/decode_32k,"
+                "falcon_mamba_7b/long_500k,kimi_k2_1t_a32b/train_4k@multi")
+DRYRUN_JOBS, DRYRUN_TIMEOUT = 6, 400
+KDE_CELL_H = 0.725
+DECODE_CHECK_PROMPT = 1024
+
+
+def start_dryrun(tmp: str):
+    """(a) ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS in a
+    child process, started now and read by ``dryrun_cells``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+         "single", "--cells", DRYRUN_CELLS, "--jobs", str(DRYRUN_JOBS),
+         "--out", tmp], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def dryrun_cells(child, tmp: str, t0: float, card) -> dict:
+    """(a) the child's records: every cell ``ok`` or a listed skip."""
+    try:
+        stdout, stderr = child.communicate(
+            timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    wall = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"the dry run failed (rc {child.returncode}):"
+                             "\n" + stdout[-4000:] + stderr[-4000:])
+    records = []
+    for m in ("single", "multi"):
+        records += json.loads((Path(tmp) / f"dryrun_{m}.json").read_text())
+    done = [ln for ln in stdout.splitlines() if ln.startswith("DONE")]
+    for r in records:
+        if r["status"] == "skip":
+            log(f"  (a) {r['arch']}/{r['shape']} @ {r['mesh']}: skip "
+                f"({r['reason']})")
+            continue
+        if r["status"] != "ok":
+            raise AssertionError(f"dry run {r}")
+        log(f"  (a) {r['arch']}/{r['shape']} @ {r['mesh']}: peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB a rank (fits 80 GB: "
+            f"{r['fits']}), {r['hlo_flops']:.3e} FLOPs and "
+            f"{r['collective_bytes']:.3e} collective bytes a rank; terms "
+            f"{r['t_compute_s'] * 1e3:.2f} / {r['t_memory_s'] * 1e3:.2f} / "
+            f"{r['t_collective_s'] * 1e3:.2f} ms (data-sheet model), bound "
+            f"{r['bound']}, useful {r['useful_ratio']:.3f}, "
+            f"{r['compile_s']:.1f} s")
+    launches = {}
+    for r in records:
+        for k, n in r.get("kernel_launches", {}).items():
+            launches[k] = launches.get(k, 0) + n
+    log(f"  (a) {done[-1] if done else '?'}; {wall:.1f} s wall beside (b) "
+        f"and (c), {DRYRUN_JOBS} jobs (this machine's CPU); kernel "
+        f"launches over the cells {launches} [{card}]")
+    return {"records": records, "wall_s": wall, "done": done[-1],
+            "launches": launches}
+
+
+def _wrap_tree(tree, abstract, mesh):
+    """``tree``'s tensors as DTensors over the (1, 1) mesh, sharing their
+    storage (on one rank every shard is the whole tensor)."""
+    from repro_torch.models.parallel import Abstract, from_local
+
+    if isinstance(abstract, Abstract):
+        return from_local(tree, mesh, abstract.spec, abstract.shape)
+    if isinstance(abstract, dict):
+        return {k: _wrap_tree(tree[k], abstract[k], mesh) for k in tree}
+    return tree
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def mesh_train_check(mesh, card) -> dict:
+    """(b) Gemma-2-2B whole, phase 16's batch: the mesh-less step's
+    results copied to the host, the state drawn again from the seed, the
+    cell's step (build_cell) on it; every leaf held at the model bar."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeCfg, get_arch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+
+    arch = dataclasses.replace(get_arch(TRAIN_ARCH), train_microbatches=None)
+    shape = ShapeCfg("train", "train", TRAIN_SEQ, TRAIN_BATCH,
+                     microbatches=TRAIN_MB)
+    torch.cuda.empty_cache()
+    batch = train_mod.shaped_batch(arch.model, SEED, 0, shape, "cuda")
+    params, opt = train_mod.init_state(arch, SEED, "cuda")
+    plain = steps_mod.make_train_step(arch, shape, device="cuda")
+    (params, opt, m0), plain_ms = host_ms(lambda: plain(params, opt, batch))
+    want = {"loss": m0["loss"].cpu(), "grad_norm": m0["grad_norm"].cpu()}
+    want.update({f"params/{k}": v.cpu() for k, v in params.items()})
+    want.update({k: v.cpu() for k, v in state_leaves(opt).items()})
+    del params, opt, m0
+    torch.cuda.empty_cache()
+    params, opt = train_mod.init_state(arch, SEED, "cuda")
+    fn, abstract, _ = steps_mod.build_cell(arch, shape, mesh)
+    args = (_wrap_tree(params, abstract[0], mesh),
+            _wrap_tree(opt, abstract[1], mesh),
+            _wrap_tree(batch, abstract[2], mesh))
+    del params, opt
+    (p1, o1, m1), mesh_ms = host_ms(lambda: fn(*args))
+    got = {"loss": _local(m1["loss"]), "grad_norm": _local(m1["grad_norm"])}
+    got.update({f"params/{k}": _local(v) for k, v in p1.items()})
+    got.update({k: _local(v) for k, v in state_leaves(o1).items()})
+    worst, bitwise = 0.0, True
+    for k, w in want.items():
+        g = got[k]
+        bitwise &= bool(torch.equal(g.cpu(), w))
+        if k.endswith("step"):
+            continue
+        w = w.to("cuda", torch.float64)
+        g = g.to(torch.float64)
+        err = float((g - w).abs().max())
+        bar = 2e-4 * w.abs() + 2e-5 * float(w.abs().max())
+        if bool((g - w).abs().gt(bar).any()):
+            raise AssertionError(f"mesh train step {k}: max |err| {err:.3e}"
+                                 " outside the model bar")
+        worst = max(worst, err / max(float(w.abs().max()), 1e-30))
+        del w, g
+    out = {"plain_ms": plain_ms, "mesh_ms": mesh_ms,
+           "loss": float(want["loss"]), "grad_norm": float(want["grad_norm"]),
+           "worst_rel_to_leaf_max": worst, "bitwise_equal": bitwise,
+           "leaves": len(want)}
+    log(f"  (b) {TRAIN_ARCH} train step {TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{TRAIN_MB} microbatches on the (1, 1) mesh: {len(want)} leaves "
+        f"within the model bar (worst |err| {worst:.2e} of the leaf's max), "
+        f"bit for bit: {bitwise}; host ms: mesh-less {plain_ms:.1f}, "
+        f"DTensor {mesh_ms:.1f} (first call) [{card}]")
+    del p1, o1, m1, args, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_decode_check(mesh, card) -> dict:
+    """(b) Granite-MoE whole: a mesh-less prefill of SERVE_BATCH x
+    DECODE_CHECK_PROMPT, then one decode step mesh-less and one through
+    the cell's step (the stationary MoE path) on copies of the cache."""
+    from repro_torch.configs import ShapeCfg, get_arch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import common, transformer
+
+    arch = get_arch(FAM_MOE)
+    cfg = arch.model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = common.init_params(cfg, gen, "cuda")
+    b = lm_batch(cfg, SEED, 0, SERVE_BATCH, DECODE_CHECK_PROMPT, "cuda")
+    with torch.inference_mode():
+        _, pre = transformer.prefill(params, b["tokens"], cfg)
+    seq = DECODE_CHECK_PROMPT + 1
+    cache = transformer.init_cache(cfg, SERVE_BATCH, seq, "cuda")
+    for k in cache:
+        if k != "pos":
+            cache[k][:, :, :DECODE_CHECK_PROMPT] = pre[k]
+    cache["pos"] = DECODE_CHECK_PROMPT
+    tokens = b["tokens"][:, -1:]
+    c0 = {k: (v.clone() if torch.is_tensor(v) else v)
+          for k, v in cache.items()}
+    with torch.no_grad():
+        transformer.decode_step(params, c0, tokens, cfg)
+        c0["pos"] = DECODE_CHECK_PROMPT
+        (want, c0), plain_ms = host_ms(
+            lambda: transformer.decode_step(params, c0, tokens, cfg))
+    shape = ShapeCfg("d", "decode", seq, SERVE_BATCH)
+    fn, abstract, _ = steps_mod.build_cell(arch, shape, mesh)
+    c1 = {k: (v.clone() if torch.is_tensor(v) else v)
+          for k, v in cache.items()}
+    args = (_wrap_tree(params, abstract[0], mesh),
+            _wrap_tree(c1, abstract[1], mesh),
+            _wrap_tree(tokens, abstract[2], mesh))
+    fn(*args)
+    args[1]["pos"] = DECODE_CHECK_PROMPT
+    (got, c1w), mesh_ms = host_ms(lambda: fn(*args))
+    got = _local(got)
+    err = float((got.double() - want.double()).abs().max())
+    bar = 2e-4 * want.double().abs() + 2e-5 * float(want.abs().max())
+    if bool((got.double() - want.double()).abs().gt(bar).any()):
+        raise AssertionError(f"{FAM_MOE} mesh decode logits: max |err| "
+                             f"{err:.3e} outside the model bar")
+    for k in ("k", "v"):
+        if not torch.equal(_local(c1w[k]), c0[k]):
+            raise AssertionError(f"{FAM_MOE} mesh decode cache {k} differs")
+    out = {"plain_ms": plain_ms, "mesh_ms": mesh_ms, "max_abs_err": err,
+           "bitwise_equal": bool(torch.equal(got, want))}
+    log(f"  (b) {FAM_MOE} decode step (stationary MoE path) at batch "
+        f"{SERVE_BATCH}, cache {seq}: logits max |err| {err:.3e} within the "
+        f"model bar, bit for bit: {out['bitwise_equal']}; warm host ms: "
+        f"mesh-less {plain_ms:.2f}, DTensor {mesh_ms:.2f} [{card}]")
+    del params, cache, c0, c1, args, pre
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_kde_check(mesh, counts_fns, card) -> dict:
+    """(c) make_kde_step for flash_sdkde_32k on the (1, 1) mesh: B1 once
+    and B2 once, held against SDKDE(backend="flash", prune="off")."""
+    from repro_torch.configs import KDE_WORKLOADS
+    from repro_torch.core import estimator as est_mod
+    from repro_torch.core import mixtures
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models.parallel import shard_from_full
+
+    wl = KDE_WORKLOADS["flash_sdkde_32k"]
+    mix = mixtures.benchmark_mixture_16d()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = mix.sample(wl.n_train, gen)
+    y = mix.sample(wl.n_test, gen)
+    fn, (ax, ay), _ = steps_mod.make_kde_step(wl, mesh, h=KDE_CELL_H)
+    xd = shard_from_full(x, mesh, ax.spec)
+    yd = shard_from_full(y, mesh, ay.spec)
+    fn(xd, yd)
+    reset_counts(*counts_fns)
+    dens, ms = host_ms(lambda: fn(xd, yd))
+    counts = read_counts(*counts_fns)
+    want_counts = dict({k: 0 for k in counts}, flash_score=1, flash_kde=1)
+    if counts != want_counts:
+        raise AssertionError(f"KDE cell launched {counts}")
+    ref = est_mod.SDKDE(KDE_CELL_H, est_mod.EstimatorConfig(
+        backend="flash", prune="off")).fit(x).evaluate(y)
+    bar = f32_bar(torch.cat([x, y]), 1 / (2 * KDE_CELL_H ** 2))
+    got = _local(dens)
+    stats = compare(got, ref, bar, "KDE cell vs SDKDE flash")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn(xd, yd)
+    e1.record()
+    torch.cuda.synchronize()
+    out = {"launches": counts, "host_ms": ms, "device_ms":
+           e0.elapsed_time(e1), "bar": bar, **stats}
+    log(f"  (c) flash_sdkde_32k cell ({wl.n_train} x {wl.n_test} x "
+        f"{wl.dim}, h {KDE_CELL_H}) on the (1, 1) mesh: launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})}; vs SDKDE "
+        f"flash {json.dumps(stats)}; {ms:.2f} ms host, "
+        f"{out['device_ms']:.2f} ms between events [{card}]")
+    return out
+
+
+def phase_dryrun(fs, fk, fp, fl, card) -> dict:
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import world
+    from repro_torch.models import parallel
+
+    log(f"== phase 17: the dry run [{card}]")
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        child = start_dryrun(tmp)
+        try:
+            world.init(0, 1, os.path.join(tmp, "store"), backend="nccl")
+            try:
+                mesh = init_device_mesh("cuda", (1, 1),
+                                        mesh_dim_names=("data", "model"))
+                out["train"] = mesh_train_check(mesh, card)
+                out["decode"] = mesh_decode_check(mesh, card)
+                out["kde"] = mesh_kde_check(mesh, (fs, fk, fp, fl), card)
+            finally:
+                parallel.set_mesh(None)
+                dist.destroy_process_group()
+        finally:
+            out["dryrun"] = dryrun_cells(child, tmp, t_phase, card)
+    out["launches"] = out["kde"]["launches"]
+    out["fake_world_launches"] = out["dryrun"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 17 took {out['phase_s']:.1f} s")
+    return out
+
+
 def prefill_profile(checkout: Path) -> int:
     """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
     weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
@@ -5349,6 +5644,46 @@ def prefill_profile(checkout: Path) -> int:
     return 0
 
 
+def long_prefill(checkout: Path) -> int:
+    """Phase 14's LONG_PROMPT-token prefill alone (Gemma-2-2B at full width
+    and depth, seeded weights, chunked attention in every layer) with the
+    port found under ``checkout``/src: one call to warm, then three, each
+    on the host clock and with CUDA events.  Prints one JSON line; the
+    card's name and power limit come first."""
+    src = checkout / "src"
+    if not (src / "repro_torch").is_dir():
+        raise FileNotFoundError(f"no port under {src}")
+    sys.path.insert(0, str(src))
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import common, transformer
+
+    _, card = phase_device()
+    cfg = serve_mod.build_config(ATTN_MAIN)
+    params = common.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    ids = lm_batch(cfg, SEED, 2, 1, LONG_PROMPT, "cuda")["tokens"]
+    host, device = [], []
+    with torch.inference_mode():
+        transformer.prefill(params, ids, cfg)
+        for _ in range(3):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            (logits, _), ms = host_ms(
+                lambda: transformer.prefill(params, ids, cfg))
+            e1.record()
+            torch.cuda.synchronize()
+            host.append(ms)
+            device.append(e0.elapsed_time(e1))
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits in the long prefill")
+    print(json.dumps({"long_prefill": str(checkout), "arch": ATTN_MAIN,
+                      "prompt": LONG_PROMPT, "host_ms": host,
+                      "device_ms": device, "card": card}), flush=True)
+    return 0
+
+
 SOURCES = {
     "flash_score": ("src/repro_torch/kernels/csrc/flash_score.cu",
                     "src/repro/kernels/flash_score.py:78"),
@@ -5375,6 +5710,9 @@ def main(argv=None) -> int:
                     help="only profile one warm full-width prefill with the "
                          "port under CHECKOUT/src (e.g. an unpacked parent "
                          "commit), to compare two commits on one card")
+    ap.add_argument("--long-prefill", metavar="CHECKOUT", type=Path,
+                    help="only time phase 14's 8192-token Gemma-2-2B "
+                         "prefill with the port under CHECKOUT/src")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5383,6 +5721,8 @@ def main(argv=None) -> int:
         return 2
     if args.prefill_profile is not None:
         return prefill_profile(args.prefill_profile.resolve())
+    if args.long_prefill is not None:
+        return long_prefill(args.long_prefill.resolve())
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import device as device_mod
     from repro_torch import obs, serve
@@ -5443,6 +5783,7 @@ def main(argv=None) -> int:
     fam_launches = {arch: m["launches"]
                     for arch, m in families["models"].items()}
     training = phase_training(ops, fs, fk, fp, fl, card)
+    dryrun = phase_dryrun(fs, fk, fp, fl, card)
     train_launches = {"full": training["launches"],
                       **{arch: r["launches"]
                          for arch, r in training["reduced"].items()}}
@@ -5495,6 +5836,12 @@ def main(argv=None) -> int:
                     for run, c in train_launches.items()},
                 "grad_refusal": {m: training["refusals"][m]
                                  for m in ("selective_scan", "mamba_scan")},
+                # phase 17, as the other kernels' entries
+                "launches_dryrun": {
+                    k: c["mamba_scan"] + c["selective_scan"]
+                    for k, c in (("kde_cell", dryrun["launches"]),
+                                 ("fake_world",
+                                  dryrun["fake_world_launches"]))},
                 "ptxas": scan_regs})
             continue
         tiers = timings["entries"][kname]
@@ -5560,6 +5907,13 @@ def main(argv=None) -> int:
         entry["launches_training"] = {run: c[kname] for run, c in
                                       train_launches.items()}
         entry["grad_refusal"] = training["refusals"][kname]
+        # phase 17c, counts zeroed before the run: the flash_sdkde_32k
+        # cell's step (rectangular B1 once, B2 once); 17a, counts zeroed
+        # in the dry run's workers before each cell's step and summed
+        # over the cells
+        entry["launches_dryrun"] = {
+            "kde_cell": dryrun["launches"][kname],
+            "fake_world": dryrun["fake_world_launches"][kname]}
         if kname == "flash_score":
             entry["rect"] = timings["entries"]["flash_score rect"]
         if kname == "flash_kde_pruned":
@@ -5587,6 +5941,7 @@ def main(argv=None) -> int:
     summary["attention"] = attention
     summary["families"] = families
     summary["training"] = training
+    summary["dryrun"] = dryrun
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

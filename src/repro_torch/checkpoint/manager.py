@@ -15,7 +15,7 @@ writes and reads bf16 leaves through a 16-bit integer view, so no
 ``ml_dtypes`` is needed and the bits are kept.  (``repro``'s own
 ``restore_pytree`` cannot read that type back: ``jnp.asarray`` refuses a
 void array; ROADMAP C.)  ``repro``'s multi-host entries (``"sharded"``)
-come with A15's dry-run step; restoring one raises.
+are still to port (the last items of ROADMAP A); restoring one raises.
 
 ``CheckpointManager.save`` snapshots the tree to host copies when it is
 called and writes them on a background thread, one save in flight at a
@@ -122,8 +122,8 @@ def restore_pytree(directory: str,
     for path, meta in manifest.items():
         if meta.get("sharded"):
             raise NotImplementedError(
-                f"{path}: a multi-host (sharded) entry; restoring one comes "
-                "with the sharded layouts of ROADMAP A15's dry-run step")
+                f"{path}: a multi-host (sharded) entry; restoring one is "
+                "still to port (ROADMAP A)")
         flat[path] = _from_npz(data[meta["key"]], meta["dtype"]).to(dev)
     return _unflatten(flat)
 

@@ -5,8 +5,9 @@ exporting ``ARCH`` (an ``ArchSpec`` with the published numbers and
 ``repro``'s training policy); the port builds all ten (``PORTED``).  The
 assigned input shapes, each architecture's skipped cells and the paper's
 SD-KDE workloads are registered alongside with ``repro``'s values;
-``launch.train`` builds its own train shape, and the dry run (A15's next
-step) reads the assigned ones.
+``launch.train`` builds its own train shape, and the dry run
+(``launch/dryrun.py``) walks every arch's ``arch_cells`` and both KDE
+workloads.
 """
 
 from __future__ import annotations
@@ -147,7 +148,13 @@ def list_archs() -> Tuple[str, ...]:
     return ARCH_IDS
 
 
+def arch_cells(arch: ArchSpec):
+    """Every (shape, skip reason or None) cell of ``arch``, the skips
+    included, so that the dry run's table records why a cell is absent."""
+    return [(s, arch.shape_applicable(s)) for s in LM_SHAPES]
+
+
 __all__ = ["ShapeCfg", "TRAIN_4K", "PREFILL_32K", "DECODE_32K", "LONG_500K",
            "LM_SHAPES", "SHAPES", "ArchSpec", "FULL_ATTN_LONG_SKIP",
            "KdeWorkload", "KDE_WORKLOADS",
-           "ARCH_IDS", "PORTED", "get_arch", "list_archs"]
+           "ARCH_IDS", "PORTED", "get_arch", "list_archs", "arch_cells"]

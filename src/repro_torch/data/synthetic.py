@@ -8,9 +8,11 @@ ids differ from ``repro``'s for the same seed (``torch.Generator`` is not
 patches and audio frames are Gaussian stub embeddings (the frontends are
 stubs, as in ``repro``), drawn in f32 after the tokens from the same
 generator and cast to the activation type.  ``PrefetchLoader`` makes
-step t + 1's batch on a thread while step t runs.  (``repro``'s
-``host_local_batch`` and ``batch_pspecs`` place a batch on a mesh; they
-come with A15's dry-run step.)
+step t + 1's batch on a thread while step t runs.  ``batch_pspecs``
+shards a batch's rows over the batch axes (``repro``'s specs as tuples,
+``models/parallel.py``), ``batch_specs`` gives the dry run's unallocated
+inputs and ``host_local_batch`` the batch of (seed, step) as DTensors on
+a mesh.
 """
 
 from __future__ import annotations
@@ -118,4 +120,47 @@ class PrefetchLoader:
         self.close()
 
 
-__all__ = ["lm_batch", "PrefetchLoader"]
+def batch_pspecs(cfg: ModelConfig, batch_axes=("data",)) -> Dict[str, tuple]:
+    """Rows over the batch axes; sequence and features replicated."""
+    ax = tuple(batch_axes)
+    specs = {"tokens": (ax, None)}
+    if cfg.family == "vlm":
+        specs["patches"] = (ax, None, None)
+    if cfg.family == "audio":
+        specs["frames"] = (ax, None, None)
+    return specs
+
+
+def batch_specs(cfg: ModelConfig, mesh, batch: int, seq: int,
+                batch_axes=("data",)) -> Dict[str, Any]:
+    """Each input's ``parallel.Abstract`` (shape, dtype, spec): the dry
+    run's, nothing allocated.  Token ids are int64 (``lm_batch``'s)."""
+    from repro_torch.models.parallel import Abstract
+
+    specs = batch_pspecs(cfg, batch_axes)
+    shapes = {"tokens": ((batch, seq), torch.int64)}
+    if cfg.family == "vlm":
+        shapes["patches"] = ((batch, cfg.n_patches, cfg.d_model), cfg.dtype)
+    if cfg.family == "audio":
+        shapes["frames"] = ((batch, cfg.enc_frames, cfg.d_model), cfg.dtype)
+    return {k: Abstract(s, dt, specs[k]) for k, (s, dt) in shapes.items()}
+
+
+def host_local_batch(cfg: ModelConfig, seed: int, step: int, batch: int,
+                     seq: int, mesh, batch_axes=("data",),
+                     device: "str | torch.device" = "cuda"
+                     ) -> Dict[str, torch.Tensor]:
+    """The batch of (seed, step) as DTensors on ``mesh``, rows over
+    ``batch_axes``.  As ``repro``'s, it draws the global batch on the
+    host (``lm_batch`` on the CPU: the same values on every rank) and
+    keeps this rank's rows, which alone go to ``device``."""
+    from repro_torch.models.parallel import shard_from_full
+
+    specs = batch_pspecs(cfg, batch_axes)
+    full = lm_batch(cfg, seed, step, batch, seq, device="cpu")
+    return {k: shard_from_full(v, mesh, specs[k], device=device)
+            for k, v in full.items()}
+
+
+__all__ = ["lm_batch", "PrefetchLoader", "batch_pspecs", "batch_specs",
+           "host_local_batch"]

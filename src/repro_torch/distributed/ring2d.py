@@ -18,9 +18,15 @@ PAIR space over the whole mesh:
 
 ``chunk`` is the column block of the kernels' plain versions (shards on
 the CPU); on the card the kernels walk their own tiles.  Transport
-follows ``world.stages_through_host``.  ``repro``'s ``kde_input_specs``
-(the dry run's ShapeDtypeStructs) is not ported: it feeds only the dry
-run of ``launch/dryrun.py``, which is still to come (ROADMAP A15).
+follows ``world.stages_through_host``.
+
+``ring2d_sdkde`` takes whole arrays on every rank.  The step programs
+(``launch.steps.make_kde_step``, the dry run) take each rank's shards as
+DTensors laid out by ``kde_input_specs`` (x's rows over (pod, data), y's
+over ``model``) through ``ring2d_sdkde_sharded``, which gathers x's
+``model`` row shard and the shifted columns with DTensor redistributions
+and adds the column partials after a functional ``all_gather``: every
+byte it moves is a collective a rank counter sees.
 """
 
 from __future__ import annotations
@@ -54,27 +60,48 @@ def _column_sum(part: torch.Tensor, mesh) -> torch.Tensor:
     return total
 
 
+def _column_sum_functional(part: torch.Tensor, mesh) -> torch.Tensor:
+    """``_column_sum`` through functional all-gathers, one a column axis,
+    the inner axis first, so that the parts stack in flat rank order over
+    (pod, data) and are added in that order."""
+    from torch.distributed import _functional_collectives as funcol
+
+    names = list(mesh.mesh_dim_names)
+    parts = part.contiguous()[None]
+    for axis in reversed(col_axes(mesh)):
+        i = names.index(axis)
+        if mesh.size(i) > 1:
+            parts = funcol.all_gather_tensor(parts.contiguous(), 0,
+                                             (mesh, i))
+            parts = parts.view(mesh.size(i), -1, *part.shape).flatten(0, 1)
+    total = parts[0]
+    for i in range(1, parts.shape[0]):
+        total = total + parts[i]
+    return total
+
+
 def ring2d_score_stats(x_rows: torch.Tensor, x_cols: torch.Tensor, h, *,
-                       mesh, chunk: int = 2048):
+                       mesh, chunk: int = 2048, column_sum=_column_sum):
     """(S0, S1) of this rank's ``model`` row shard over every train column;
-    ``x_cols`` is its (pod, data) column shard."""
+    ``x_cols`` is its (pod, data) column shard.  ``column_sum(part,
+    mesh)`` adds the partials over the column shards."""
     d = x_rows.shape[1]
     part = ops.score_block(ops.ring_rows(x_rows), x_cols.to(x_rows.device),
                            ops._inv2h2(h, x_rows.device),
                            block_n=_block_n(x_rows, chunk))
-    s1aug = _column_sum(part, mesh)
+    s1aug = column_sum(part, mesh)
     return s1aug[:, d], s1aug[:, :d]
 
 
 def ring2d_kde_sums(y_rows: torch.Tensor, x_cols: torch.Tensor, h, *,
-                    mesh, chunk: int = 2048,
-                    laplace: bool = False) -> torch.Tensor:
+                    mesh, chunk: int = 2048, laplace: bool = False,
+                    column_sum=_column_sum) -> torch.Tensor:
     """Unnormalized (Laplace-)KDE sums at this rank's ``model`` query
     shard."""
     part = ops.kde_block(ops.ring_rows(y_rows), x_cols.to(y_rows.device),
                          ops._inv2h2(h, y_rows.device), laplace=laplace,
                          block_n=_block_n(y_rows, chunk))
-    return _column_sum(part, mesh)
+    return column_sum(part, mesh)
 
 
 def pad_for_mesh(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -116,5 +143,47 @@ def ring2d_sdkde(x: torch.Tensor, y: torch.Tensor, h, *, score_h=None,
     return ring.gather_rows(dens, mesh, ("model",))[:y.shape[0]]
 
 
-__all__ = ["col_axes", "ring2d_score_stats", "ring2d_kde_sums",
+def kde_input_specs(n: int, m: int, d: int, mesh):
+    """The dry run's inputs (``parallel.Abstract``): x (n, d) f32 rows
+    over (pod, data), y (m, d) f32 rows over ``model``."""
+    from repro_torch.models.parallel import Abstract
+
+    return (Abstract((n, d), torch.float32, (col_axes(mesh), None)),
+            Abstract((m, d), torch.float32, ("model", None)))
+
+
+def ring2d_sdkde_sharded(x, y, h, *, mesh, chunk: int = 2048,
+                         eps: float = 1e-30):
+    """SD-KDE of DTensors laid out by ``kde_input_specs`` (n and m
+    dividing their axes); returns the densities at y as a DTensor (m,)
+    over ``model``.
+
+      1. x's ``model`` row shard: a redistribution of x (an all-gather
+         over (pod, data), then each rank's rows);
+      2. score pass: those rows against the rank's (pod, data) columns,
+         one launch of rectangular B1, the partials added in rank order;
+      3. shift, on the row shard;
+      4. the shifted rows redistributed to (pod, data) columns;
+      5. KDE pass: y's ``model`` shard against them, one launch of B2.
+    """
+    from repro_torch.models.parallel import from_local, placements
+
+    n, d = x.shape
+    x_rows = x.redistribute(mesh, placements(mesh, ("model", None))
+                            ).to_local()
+    s0, s1 = ring2d_score_stats(x_rows, x.to_local(), h, mesh=mesh,
+                                chunk=chunk,
+                                column_sum=_column_sum_functional)
+    x_sd = ring.score_shift(x_rows, s0, s1, h, h, eps)
+    x_sd_cols = from_local(x_sd, mesh, ("model", None), (n, d)).redistribute(
+        mesh, placements(mesh, (col_axes(mesh), None))).to_local()
+    sums = ring2d_kde_sums(y.to_local(), x_sd_cols, h, mesh=mesh,
+                           chunk=chunk, column_sum=_column_sum_functional)
+    hf = torch.as_tensor(h, dtype=torch.float32).to(sums.device)
+    dens = sums / (n * gaussian_norm_const(d, 1.0) * hf**d)
+    return from_local(dens, mesh, ("model",), (y.shape[0],))
+
+
+__all__ = ["col_axes", "kde_input_specs", "ring2d_sdkde_sharded",
+           "ring2d_score_stats", "ring2d_kde_sums",
            "pad_for_mesh", "ring2d_sdkde"]

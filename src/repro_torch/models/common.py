@@ -6,9 +6,10 @@ every parameter's shape and dtype: ``param_count`` sums it without
 allocating, ``init_params`` materializes it on a device from a
 ``torch.Generator``.  Every family of ``repro``'s is ported: SSM,
 dense, hybrid, MoE, VLM (a patch projection before the tokens) and audio
-(an encoder stack and cross-attention in the decoder).  Sharding
-(``repro``'s PartitionSpecs, through ``models/parallel.py``) comes with
-A15's dry-run step.
+(an encoder stack and cross-attention in the decoder).
+``param_shape_specs`` adds ``repro``'s PartitionSpec of each parameter
+(a tuple, ``models/parallel.py``); ``abstract_params`` gives the dry
+run's unallocated inputs.
 """
 
 from __future__ import annotations
@@ -38,10 +39,10 @@ FAMILY_FIELDS = {
 }
 
 #: Fields only a device mesh reads: ``repro``'s sequence-sharded
-#: attention hint (``_seq_shard_qkv``) and the 2-D expert layout of its
-#: MoE mesh paths.  Without a registered mesh ``repro`` ignores both; on
-#: one device the port takes and ignores them too (Kimi-K2 sets both).
-#: They come with ``models/parallel.py`` in A15's dry-run step.
+#: attention (``transformer._seq_shard_qkv``) and the 2-D expert layout
+#: (``param_shape_specs``, ``moe``'s mesh paths).  They act only under a
+#: mesh registered in ``models/parallel.py``; without one ``repro``
+#: ignores both and so does the port (Kimi-K2 sets both).
 MESH_ONLY_FIELDS = ("seq_shard_attn", "expert_2d_sharding")
 
 #: Fields only the attention and MLP layers read: an attention-free (SSM)
@@ -192,71 +193,87 @@ class ModelConfig:
 _DEFAULTS = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
 
 ShapeSpec = Tuple[Tuple[int, ...], Any]  # (shape, dtype)
+#: (shape, dtype, spec): ``repro``'s ``param_shapes`` entries, the spec a
+#: tuple of PartitionSpec entries (``models/parallel.py``)
+ShapeSpecP = Tuple[Tuple[int, ...], Any, Tuple[Any, ...]]
 
 
-def _attn_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+def _attn_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpecP]:
     d, pd = cfg.d_model, cfg.param_dtype
     return {
-        "attn_norm": ((d,), pd),
-        "wq": ((d, cfg.q_dim), pd),
-        "wk": ((d, cfg.kv_dim), pd),
-        "wv": ((d, cfg.kv_dim), pd),
-        "wo": ((cfg.q_dim, d), pd),
+        "attn_norm": ((d,), pd, (None,)),
+        "wq": ((d, cfg.q_dim), pd, (None, "model")),
+        "wk": ((d, cfg.kv_dim), pd, (None, "model")),
+        "wv": ((d, cfg.kv_dim), pd, (None, "model")),
+        "wo": ((cfg.q_dim, d), pd, ("model", None)),
     }
 
 
-def _mlp_shapes(cfg: ModelConfig, d_ff: int) -> Dict[str, ShapeSpec]:
+def _mlp_shapes(cfg: ModelConfig, d_ff: int) -> Dict[str, ShapeSpecP]:
     d, pd = cfg.d_model, cfg.param_dtype
-    out: Dict[str, ShapeSpec] = {
-        "mlp_norm": ((d,), pd),
-        "w_up": ((d, d_ff), pd),
-        "w_down": ((d_ff, d), pd),
+    out: Dict[str, ShapeSpecP] = {
+        "mlp_norm": ((d,), pd, (None,)),
+        "w_up": ((d, d_ff), pd, (None, "model")),
+        "w_down": ((d_ff, d), pd, ("model", None)),
     }
     if cfg.gated:
-        out["w_gate"] = ((d, d_ff), pd)
+        out["w_gate"] = ((d, d_ff), pd, (None, "model"))
+    return out
+
+
+def _moe_shape_specs(cfg: ModelConfig) -> Dict[str, ShapeSpecP]:
+    """The router, the stacked experts (E, d, f) / (E, f, d) and the
+    shared experts, f·n_shared_experts wide.  The experts' specs are
+    ``repro``'s: over ``model`` by expert (EP) when E divides 16, else by
+    the per-expert d_ff (TP-in-expert); under ``expert_2d_sharding``
+    experts over ``model`` and d_ff over ``data``."""
+    d, pd, e, f = cfg.d_model, cfg.param_dtype, cfg.n_experts, cfg.moe_dff
+    if cfg.expert_2d_sharding:
+        es, es_down = ("model", None, "data"), ("model", "data", None)
+    elif e % 16 == 0:
+        es = es_down = ("model", None, None)
+    else:
+        es, es_down = (None, None, "model"), (None, "model", None)
+    out: Dict[str, ShapeSpecP] = {
+        "mlp_norm": ((d,), pd, (None,)),
+        "router": ((d, e), pd, (None, None)),
+        "experts_up": ((e, d, f), pd, es),
+        "experts_down": ((e, f, d), pd, es_down),
+    }
+    if cfg.gated:
+        out["experts_gate"] = ((e, d, f), pd, es)
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        out["shared_up"] = ((d, fs), pd, (None, "model"))
+        out["shared_down"] = ((fs, d), pd, ("model", None))
+        if cfg.gated:
+            out["shared_gate"] = ((d, fs), pd, (None, "model"))
     return out
 
 
 def _moe_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
-    """The router, the stacked experts (E, d, f) / (E, f, d) and the
-    shared experts, f·n_shared_experts wide (``repro``'s, without its
-    PartitionSpecs)."""
-    d, pd, e, f = cfg.d_model, cfg.param_dtype, cfg.n_experts, cfg.moe_dff
-    out: Dict[str, ShapeSpec] = {
-        "mlp_norm": ((d,), pd),
-        "router": ((d, e), pd),
-        "experts_up": ((e, d, f), pd),
-        "experts_down": ((e, f, d), pd),
-    }
-    if cfg.gated:
-        out["experts_gate"] = ((e, d, f), pd)
-    if cfg.n_shared_experts:
-        fs = f * cfg.n_shared_experts
-        out["shared_up"] = ((d, fs), pd)
-        out["shared_down"] = ((fs, d), pd)
-        if cfg.gated:
-            out["shared_gate"] = ((d, fs), pd)
-    return out
+    """(shape, dtype) of ``_moe_shape_specs``."""
+    return {k: (s, dt) for k, (s, dt, _) in _moe_shape_specs(cfg).items()}
 
 
-def _ssm_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+def _ssm_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpecP]:
     d, pd = cfg.d_model, cfg.param_dtype
     di, n, dtr, dc = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
     return {
-        "ssm_norm": ((d,), pd),
-        "in_proj": ((d, 2 * di), pd),
-        "conv_w": ((dc, di), pd),
-        "conv_b": ((di,), pd),
-        "x_proj": ((di, dtr + 2 * n), pd),
-        "dt_proj": ((dtr, di), pd),
-        "dt_bias": ((di,), pd),
-        "A_log": ((di, n), pd),
-        "D": ((di,), pd),
-        "out_proj": ((di, d), pd),
+        "ssm_norm": ((d,), pd, (None,)),
+        "in_proj": ((d, 2 * di), pd, (None, "model")),
+        "conv_w": ((dc, di), pd, (None, "model")),
+        "conv_b": ((di,), pd, ("model",)),
+        "x_proj": ((di, dtr + 2 * n), pd, ("model", None)),
+        "dt_proj": ((dtr, di), pd, (None, "model")),
+        "dt_bias": ((di,), pd, ("model",)),
+        "A_log": ((di, n), pd, ("model", None)),
+        "D": ((di,), pd, ("model",)),
+        "out_proj": ((di, d), pd, ("model", None)),
     }
 
 
-def _layer_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+def _layer_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpecP]:
     """One layer's parameters: the Mamba block (SSM); attention, the
     Mamba block, the two fuse scales and the MLP (hybrid); attention and
     the MLP (the router and experts for MoE), with the sandwich norms
@@ -264,66 +281,69 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     d, pd = cfg.d_model, cfg.param_dtype
     if cfg.family == "ssm":
         return _ssm_shapes(cfg)
-    shapes: Dict[str, ShapeSpec] = dict(_attn_shapes(cfg))
+    shapes: Dict[str, ShapeSpecP] = dict(_attn_shapes(cfg))
     if cfg.family == "hybrid":
         shapes.update(_ssm_shapes(cfg))
-        shapes["fuse_attn_scale"] = ((d,), pd)
-        shapes["fuse_ssm_scale"] = ((d,), pd)
+        shapes["fuse_attn_scale"] = ((d,), pd, (None,))
+        shapes["fuse_ssm_scale"] = ((d,), pd, (None,))
         shapes.update(_mlp_shapes(cfg, cfg.d_ff))
         return shapes
     if cfg.family == "moe":
-        shapes.update(_moe_shapes(cfg))
+        shapes.update(_moe_shape_specs(cfg))
     else:
         shapes.update(_mlp_shapes(cfg, cfg.d_ff))
     if cfg.post_norms:
-        shapes["post_attn_norm"] = ((d,), pd)
-        shapes["post_mlp_norm"] = ((d,), pd)
+        shapes["post_attn_norm"] = ((d,), pd, (None,))
+        shapes["post_mlp_norm"] = ((d,), pd, (None,))
     return shapes
 
 
-def _enc_layer_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+def _enc_layer_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpecP]:
     """Whisper's encoder layer: bidirectional attention and the MLP."""
     shapes = dict(_attn_shapes(cfg))
     shapes.update(_mlp_shapes(cfg, cfg.d_ff))
     return shapes
 
 
-def _dec_cross_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+def _dec_cross_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpecP]:
     """The decoder layer's cross-attention to the encoder output."""
     d, pd = cfg.d_model, cfg.param_dtype
     return {
-        "xattn_norm": ((d,), pd),
-        "xwq": ((d, cfg.q_dim), pd),
-        "xwk": ((d, cfg.kv_dim), pd),
-        "xwv": ((d, cfg.kv_dim), pd),
-        "xwo": ((cfg.q_dim, d), pd),
+        "xattn_norm": ((d,), pd, (None,)),
+        "xwq": ((d, cfg.q_dim), pd, (None, "model")),
+        "xwk": ((d, cfg.kv_dim), pd, (None, "model")),
+        "xwv": ((d, cfg.kv_dim), pd, (None, "model")),
+        "xwo": ((cfg.q_dim, d), pd, ("model", None)),
     }
 
 
-def _stack(layer_shapes: Dict[str, ShapeSpec], n_layers: int,
-           prefix: str) -> Dict[str, ShapeSpec]:
-    """Prepend the stacked-layer axis."""
-    return {f"{prefix}{k}": ((n_layers, *shape), dt)
-            for k, (shape, dt) in layer_shapes.items()}
+def _stack(layer_shapes: Dict[str, ShapeSpecP], n_layers: int,
+           prefix: str) -> Dict[str, ShapeSpecP]:
+    """Prepend the stacked-layer axis (replicated in the spec)."""
+    return {f"{prefix}{k}": ((n_layers, *shape), dt, (None, *spec))
+            for k, (shape, dt, spec) in layer_shapes.items()}
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
-    """Flat dict path -> (shape, dtype); per-layer parameters are stacked
-    on a leading layer axis under ``layers/`` (the encoder's under
-    ``enc_layers/``), as in ``repro``."""
+def param_shape_specs(cfg: ModelConfig) -> Dict[str, ShapeSpecP]:
+    """Flat dict path -> (shape, dtype, spec), ``repro``'s
+    ``param_shapes``: per-layer parameters stacked on a leading layer
+    axis under ``layers/`` (the encoder's under ``enc_layers/``), with
+    Megatron tensor parallelism over ``model`` (embeddings and lm_head by
+    vocab, column-parallel q/k/v, up and gate, row-parallel wo and down,
+    the SSM's d_inner) and everything else replicated."""
     check_family(cfg)
     d, v, pd = cfg.d_model, cfg.padded_vocab, cfg.param_dtype
-    shapes: Dict[str, ShapeSpec] = {
-        "embed": ((v, d), pd),
-        "final_norm": ((d,), pd),
+    shapes: Dict[str, ShapeSpecP] = {
+        "embed": ((v, d), pd, ("model", None)),
+        "final_norm": ((d,), pd, (None,)),
     }
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = ((d, v), pd)
+        shapes["lm_head"] = ((d, v), pd, (None, "model"))
     shapes.update(_stack(_layer_shapes(cfg), cfg.n_layers, "layers/"))
     if cfg.family == "audio":
         # the conv frontend is a stub: the encoder reads frame embeddings
-        shapes["enc_pos"] = ((cfg.enc_frames, d), pd)
-        shapes["enc_final_norm"] = ((d,), pd)
+        shapes["enc_pos"] = ((cfg.enc_frames, d), pd, (None, None))
+        shapes["enc_final_norm"] = ((d,), pd, (None,))
         shapes.update(_stack(_enc_layer_shapes(cfg), cfg.n_enc_layers,
                              "enc_layers/"))
         shapes.update(_stack(_dec_cross_shapes(cfg), cfg.n_layers,
@@ -331,8 +351,34 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
     if cfg.family == "vlm":
         # the patch frontend is a stub: one learned projection of the
         # patch embeddings
-        shapes["patch_proj"] = ((d, d), pd)
+        shapes["patch_proj"] = ((d, d), pd, (None, "model"))
     return shapes
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, ShapeSpec]:
+    """Flat dict path -> (shape, dtype) of ``param_shape_specs``."""
+    return {k: (s, dt) for k, (s, dt, _) in param_shape_specs(cfg).items()}
+
+
+def param_pspecs(cfg: ModelConfig) -> Dict[str, Tuple[Any, ...]]:
+    """Flat dict path -> spec (``repro``'s ``param_pspecs``)."""
+    return {k: spec for k, (_, _, spec) in param_shape_specs(cfg).items()}
+
+
+def abstract_params(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """Each parameter's ``parallel.Abstract`` (shape, dtype, spec): the
+    dry run's inputs, nothing allocated.  ``mesh`` must hold every axis
+    the specs name."""
+    from repro_torch.models.parallel import Abstract, entry_axes
+
+    names = set(mesh.mesh_dim_names)
+    out = {}
+    for k, (shape, dt, spec) in param_shape_specs(cfg).items():
+        missing = {a for e in spec for a in entry_axes(e)} - names
+        if missing:
+            raise ValueError(f"{k}: the mesh has no axis {sorted(missing)}")
+        out[k] = Abstract(tuple(shape), dt, spec)
+    return out
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -425,7 +471,9 @@ def layer_list(params: Dict[str, torch.Tensor], n: int,
 __all__ = ["Family", "PORTED_FAMILIES", "FAMILY_FIELDS", "MESH_ONLY_FIELDS",
            "ATTENTION_FIELDS",
            "ModelConfig",
-           "ShapeSpec",
-           "check_family", "param_shapes", "param_count", "active_param_count",
+           "ShapeSpec", "ShapeSpecP",
+           "check_family", "param_shape_specs", "param_shapes",
+           "param_pspecs", "abstract_params", "param_count",
+           "active_param_count",
            "init_params",
            "layer_tree", "layer_params", "layer_list"]

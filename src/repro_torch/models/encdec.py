@@ -20,6 +20,7 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models.common import ModelConfig, layer_list
 from repro_torch.models.layers import embed_tokens, mlp, rmsnorm
+from repro_torch.models.parallel import linear, split_heads
 from repro_torch.models.remat import remat_call
 
 
@@ -27,7 +28,7 @@ def _heads(x: torch.Tensor, w: torch.Tensor, heads: int,
            cfg: ModelConfig) -> torch.Tensor:
     """x (B, S, d) @ w, split into (B, S, heads, hd)."""
     b, s, _ = x.shape
-    return (x @ w.to(x.dtype)).reshape(b, s, heads, cfg.hd)
+    return split_heads(linear(x, w.to(x.dtype)), heads, cfg.hd)
 
 
 def encoder_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
@@ -37,7 +38,7 @@ def encoder_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     k = _heads(h, lp["wk"], cfg.n_kv_heads, cfg)
     v = _heads(h, lp["wv"], cfg.n_kv_heads, cfg)
     o = attn.attention(q, k, v, causal=False)      # bidirectional, no RoPE
-    x = x + o.reshape(*x.shape[:-1], cfg.q_dim) @ lp["wo"].to(h.dtype)
+    x = x + linear(o.reshape(*x.shape[:-1], cfg.q_dim), lp["wo"].to(h.dtype))
     return x + mlp(rmsnorm(x, lp["mlp_norm"]), lp, cfg)
 
 
@@ -66,7 +67,7 @@ def cross_attend(h: torch.Tensor, lp: Dict[str, torch.Tensor],
     xwo."""
     q = _heads(h, lp["xwq"], cfg.n_heads, cfg)
     o = attn.attention(q, xk, xv, causal=False)
-    return o.reshape(*h.shape[:-1], cfg.q_dim) @ lp["xwo"].to(h.dtype)
+    return linear(o.reshape(*h.shape[:-1], cfg.q_dim), lp["xwo"].to(h.dtype))
 
 
 def _cross_attend(x, lp, enc, cfg: ModelConfig) -> torch.Tensor:
@@ -84,7 +85,7 @@ def decoder_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
                                positions)
     o = attn.attention(q, k, v, causal=True, window=window,
                        cap=cfg.attn_softcap)
-    x = x + o.reshape(*x.shape[:-1], cfg.q_dim) @ lp["wo"].to(x.dtype)
+    x = x + linear(o.reshape(*x.shape[:-1], cfg.q_dim), lp["wo"].to(x.dtype))
     x = x + _cross_attend(x, lp, enc, cfg)
     return x + mlp(rmsnorm(x, lp["mlp_norm"]), lp, cfg)
 

@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.parallel import embedding, linear
 
 
 def wide(dtype: torch.dtype) -> torch.dtype:
@@ -49,17 +50,17 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 def mlp(x: torch.Tensor, lp: dict, cfg: ModelConfig,
         prefix: str = "") -> torch.Tensor:
     """Gated (SwiGLU/GeGLU) or plain (GELU/ReLU²) feed-forward."""
-    up = x @ lp[prefix + "w_up"].to(x.dtype)
+    up = linear(x, lp[prefix + "w_up"].to(x.dtype))
     if cfg.gated:
-        h = _act(x @ lp[prefix + "w_gate"].to(x.dtype), cfg.act) * up
+        h = _act(linear(x, lp[prefix + "w_gate"].to(x.dtype)), cfg.act) * up
     else:
         h = _act(up, cfg.act)
-    return h @ lp[prefix + "w_down"].to(x.dtype)
+    return linear(h, lp[prefix + "w_down"].to(x.dtype))
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = embedding(params["embed"], tokens).to(cfg.dtype)
     # common convention (gemma/whisper): scale by sqrt(d)
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=cfg.dtype)
@@ -72,7 +73,7 @@ def logits_head(params: dict, x: torch.Tensor,
         w = params["embed"].to(x.dtype).T
     else:
         w = params["lm_head"].to(x.dtype)
-    return softcap((x @ w).to(wide(x.dtype)), cfg.final_softcap)
+    return softcap(linear(x, w).to(wide(x.dtype)), cfg.final_softcap)
 
 
 __all__ = ["wide", "rmsnorm", "softcap", "mlp", "embed_tokens", "logits_head"]

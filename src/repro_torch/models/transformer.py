@@ -37,9 +37,13 @@ K / V the prefill wrote there and masks every position after it
 new position's K / V (and scales) and the new SSM states into the cache
 it is given, in place (``repro``'s serving loop donates the cache for
 the same reason: one copy, not two), and returns it.
-``models/parallel.py``'s sharding hints (``repro``'s ``_seq_shard_qkv``
-and ``hint``, no-ops without a registered mesh) come with A15's dry-run
-step.
+Under a mesh registered in ``models/parallel.py`` the layers run on
+DTensors and take ``repro``'s hints, each a no-op without one: the
+training forward shards attention's Q and output over the sequence on
+``model`` when the heads do not divide that axis (``_seq_shard_qkv``,
+Kimi-K2 by its ``seq_shard_attn`` override), and every FFN sublayer
+first gathers its input over ``model``.  ``models/attention.py`` runs
+the attention of sharded q / k / v on each rank's shards.
 
 Training: ``loss_fn`` (``lm_loss``'s chunked vocab cross-entropy plus
 0.01 × the MoE aux loss) is differentiated by ``launch.steps``.  The
@@ -64,6 +68,9 @@ from repro_torch.models.encdec import (cross_attend, cross_kv, encdec_hidden,
 from repro_torch.models.layers import (embed_tokens, logits_head, mlp,
                                        rmsnorm, wide)
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.parallel import (axis_sizes, get_mesh, hint,
+                                         is_dtensor, linear, relayout,
+                                         split_heads)
 from repro_torch.models.remat import remat_call
 from repro_torch.models.ssm import mamba_block, mamba_decode_step
 
@@ -86,18 +93,48 @@ def _norm(x, lp, key, cfg):
     return rmsnorm(x, lp[key], one_plus=cfg.rms_one_plus)
 
 
-def _attend(h, lp, cfg, positions, window):
+def seq_shard_attn(cfg: ModelConfig, mesh) -> bool:
+    """Whether the training forward shards attention over the sequence
+    on ``mesh``: ``cfg.seq_shard_attn``, or when unset whether the head
+    count leaves the ``model`` axis indivisible (``repro``'s rule: 8, 20,
+    24, 25 or 56 heads on 16 ranks)."""
+    use = cfg.seq_shard_attn
+    if use is None:
+        use = cfg.n_heads % axis_sizes(mesh)["model"] != 0
+    return bool(use)
+
+
+def _seq_shard_qkv(q, k, v, cfg: ModelConfig):
+    """Under a registered mesh and ``seq_shard_attn``: Q over the sequence
+    on ``model`` and K / V replicated over it, rows over the batch axes,
+    so that every (S_loc × S) score tile stays on its rank (``repro``'s
+    §Perf fix).  Returns the inputs themselves otherwise."""
+    mesh = get_mesh()
+    if mesh is None or not seq_shard_attn(cfg, mesh):
+        return q, k, v
+    return (hint(q, "dp", "model", None, None),
+            hint(k, "dp", None, None, None),
+            hint(v, "dp", None, None, None))
+
+
+def _attend(h, lp, cfg, positions, window, seq_shard=False):
     """Self-attention over the normed input ``h``, projected through wo;
-    returns (output, k, v), k and v being the cache's entries."""
+    returns (output, k, v), k and v being the cache's entries.  With
+    ``seq_shard`` (the training forward) Q is laid out by
+    ``_seq_shard_qkv`` and the output hinted back to it."""
     q, k, v = attn.qkv_project(h, lp, cfg, positions)
-    o = attn.attention(q, k, v, causal=True, window=window,
+    q2, k2, v2 = _seq_shard_qkv(q, k, v, cfg) if seq_shard else (q, k, v)
+    o = attn.attention(q2, k2, v2, causal=True, window=window,
                        cap=cfg.attn_softcap)
-    return o.reshape(*h.shape[:-1], cfg.q_dim) @ lp["wo"].to(h.dtype), k, v
+    if q2 is not q:
+        o = hint(o, "dp", "model", None, None)
+    return linear(o.reshape(*h.shape[:-1], cfg.q_dim),
+                  lp["wo"].to(h.dtype)), k, v
 
 
-def _attn_sublayer(x, lp, cfg, positions, window):
+def _attn_sublayer(x, lp, cfg, positions, window, seq_shard=False):
     o, k, v = _attend(_norm(x, lp, "attn_norm", cfg), lp, cfg, positions,
-                      window)
+                      window, seq_shard)
     if cfg.post_norms:
         o = _norm(o, lp, "post_attn_norm", cfg)
     return o, k, v
@@ -105,7 +142,11 @@ def _attn_sublayer(x, lp, cfg, positions, window):
 
 def _ffn_sublayer(x, lp, cfg):
     """The FFN sublayer's (output, aux): the MLP (aux None), or for MoE
-    the routed experts over the flattened tokens and their aux loss."""
+    the routed experts over the flattened tokens and their aux loss.
+    Under a mesh its input is first gathered over ``model`` (``repro``:
+    with sequence-sharded activations GSPMD gathered the (d, d_ff)
+    weights instead)."""
+    x = hint(x, "dp", None, None)
     h = _norm(x, lp, "mlp_norm", cfg)
     if cfg.family == "moe":
         b, s, d = h.shape
@@ -135,10 +176,11 @@ def decoder_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
         return x + mamba_block(_norm(x, lp, "ssm_norm", cfg), lp, cfg), None
     if cfg.family == "hybrid":
         h = _norm(x, lp, "attn_norm", cfg)
-        a, _, _ = _attend(h, lp, cfg, positions, window)
+        a, _, _ = _attend(h, lp, cfg, positions, window, seq_shard=True)
         x = _fuse(x, lp, a, mamba_block(h, lp, cfg), cfg)
     else:
-        o, _, _ = _attn_sublayer(x, lp, cfg, positions, window)
+        o, _, _ = _attn_sublayer(x, lp, cfg, positions, window,
+                                 seq_shard=True)
         x = x + o
     out, aux = _ffn_sublayer(x, lp, cfg)
     return x + out, aux
@@ -153,7 +195,7 @@ def _embed(params, tokens, cfg, patches):
     if patches is None:
         raise ValueError(f"{cfg.name}: a VLM forward needs the patch "
                          "embeddings (patches=)")
-    p = patches.to(cfg.dtype) @ params["patch_proj"].to(cfg.dtype)
+    p = linear(patches.to(cfg.dtype), params["patch_proj"].to(cfg.dtype))
     return torch.cat([p, x], dim=1)
 
 
@@ -196,10 +238,74 @@ def lm_loss(params: Dict[str, torch.Tensor], hidden: torch.Tensor,
     tot = torch.zeros((), dtype=wide(hidden.dtype), device=hidden.device)
     for c0 in range(0, s, chunk):
         logits = logits_head(params, hidden[:, c0:c0 + chunk], cfg)
+        if _vocab_cut(logits):
+            tot = tot + torch.sum(_vocab_parallel_nll(
+                logits, targets[:, c0:c0 + chunk]))
+            continue
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, targets[:, c0:c0 + chunk, None])
         tot = tot + torch.sum(logz - gold[..., 0])
     return tot / (b * s)
+
+
+def _vocab_cut(logits) -> bool:
+    """Whether DTensor ``logits`` have their vocab cut over more than one
+    rank (a mesh dim of size 1 cuts nothing: the plain formula then runs
+    on each rank's whole vocab)."""
+    from torch.distributed.tensor import Shard
+
+    if not is_dtensor(logits):
+        return False
+    last = logits.ndim - 1
+    return any(isinstance(p, Shard) and p.dim == last
+               and logits.device_mesh.size(i) > 1
+               for i, p in enumerate(logits.placements))
+
+
+def _vocab_parallel_nll(logits, targets):
+    """logsumexp(logits) − logits[target] for DTensor logits whose vocab
+    is cut over ``model``, on each rank's shard (Megatron's vocab-parallel
+    cross-entropy): the rows' max over the vocab (no gradient, as in
+    logsumexp's own backward) and, as partial sums completed by
+    all-reduces, the sum of exp(logits − max) and the target's logit
+    (from the rank that holds it).  The cut vocab is never gathered, and
+    no (B, chunk, V) tensor leaves its rank (DTensor's strategies for the
+    same ops replicate rows cut over (pod, data))."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.models.parallel import contiguous_stride, cut
+
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    pl = [p if isinstance(p, Shard) else Replicate()
+          for p in logits.placements]
+    logits = relayout(logits, pl)
+    vocab = [i for i, p in enumerate(pl) if p == Shard(last)]
+    t_pl = [Replicate() if i in vocab else p for i, p in enumerate(pl)]
+    targets = relayout(targets, t_pl)
+    ll = logits.to_local(grad_placements=pl)
+    tl = targets.to_local()
+    _, off = cut(logits.shape, mesh, pl)
+    m = ll.detach().amax(dim=-1, keepdim=True)
+    for i in vocab:
+        m = funcol.all_reduce(m, "max", (mesh, i))
+    m = m * 1                       # wait for the collective
+    sumexp = torch.exp(ll - m).sum(dim=-1)
+    rel = tl - off[last]
+    hit = (rel >= 0) & (rel < ll.shape[-1])
+    gold = torch.gather(ll, -1, rel.clamp(0, ll.shape[-1] - 1)[..., None])
+    gold = gold[..., 0] * hit.to(ll.dtype)
+    shape, stride = targets.shape, contiguous_stride(targets.shape)
+    part = [Partial() if i in vocab else p for i, p in enumerate(t_pl)]
+
+    def whole(t, pls):
+        d = DTensor.from_local(t, mesh, pls, run_check=False, shape=shape,
+                               stride=stride)
+        return relayout(d, t_pl)
+
+    return (whole(m[..., 0], t_pl) + torch.log(whole(sumexp, part))
+            - whole(gold, part))
 
 
 def loss_fn(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
@@ -216,8 +322,9 @@ def loss_fn(params: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
         hidden, aux = forward_hidden(params, tokens, cfg,
                                      patches=batch.get("patches"))
         hidden = hidden[:, -tokens.shape[1]:]
-    targets = torch.roll(tokens, -1, dims=1)
-    loss = lm_loss(params, hidden[:, :-1], targets[:, :-1], cfg)
+    # each position's target is the next token (the last position has
+    # none): ``repro``'s roll by one, its wrapped last column dropped
+    loss = lm_loss(params, hidden[:, :-1], tokens[:, 1:], cfg)
     return loss + 0.01 * aux
 
 
@@ -322,11 +429,38 @@ def _quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q8.to(torch.int8), s
 
 
+def _write_position(cache_t, pos: int, new) -> None:
+    """``cache_t[:, pos] = new`` for a DTensor cache view (B, S, Hkv, hd)
+    and row (B, 1, Hkv, hd): the row laid out as the cache's rows and
+    heads, written by the ranks whose sequence shard holds ``pos``."""
+    from repro_torch.models.parallel import cut
+
+    new = new.redistribute(new.device_mesh, attn.cache_query_placements(
+        cache_t.placements))
+    shp, off = cut(cache_t.shape, cache_t.device_mesh, cache_t.placements)
+    if off[1] <= pos < off[1] + shp[1]:
+        local = cache_t.to_local()
+        local[:, pos - off[1]] = new.to_local()[:, 0].to(local.dtype)
+
+
 def _decode_attend(h, lp, cache_l, cfg, positions, pos, window):
     """The new token's attention: its K / V (quantized under
     ``kv_quant``) written at ``pos`` of the layer's cache, in place, then
-    its query against the cache, projected through wo."""
+    its query against the cache, projected through wo.  A DTensor cache
+    (under a mesh) is written shard-locally (``_write_position``); a
+    quantized one is refused there."""
     q, k, v = attn.qkv_project(h, lp, cfg, positions)
+    if is_dtensor(cache_l["k"]):
+        if cfg.kv_quant:
+            raise NotImplementedError(
+                f"{cfg.name}: an int8 KV cache on a mesh (no assigned "
+                "configuration sets kv_quant)")
+        _write_position(cache_l["k"], pos, k)
+        _write_position(cache_l["v"], pos, v)
+        o = attn.decode_attention(q, cache_l["k"], cache_l["v"], pos,
+                                  window=window, cap=cfg.attn_softcap)
+        return linear(o.reshape(h.shape[0], 1, cfg.q_dim),
+                      lp["wo"].to(h.dtype))
     if cfg.kv_quant:
         for name, t in (("k", k), ("v", v)):
             t8, ts = _quant(t)
@@ -341,7 +475,7 @@ def _decode_attend(h, lp, cache_l, cfg, positions, pos, window):
         k_full, v_full = cache_l["k"], cache_l["v"]
     o = attn.decode_attention(q, k_full, v_full, pos, window=window,
                               cap=cfg.attn_softcap)
-    return o.reshape(h.shape[0], 1, cfg.q_dim) @ lp["wo"].to(h.dtype)
+    return linear(o.reshape(h.shape[0], 1, cfg.q_dim), lp["wo"].to(h.dtype))
 
 
 def _decode_ssm(h, lp, cache_l, cfg):
@@ -358,11 +492,10 @@ def _decode_cross(h, lp, cache_l, cfg):
     """The new token's cross-attention: its query against the layer's
     cross K / V in the cache, every frame visible (``repro`` masks past
     position enc_frames - 1, which is none)."""
-    q = (h @ lp["xwq"].to(h.dtype)).reshape(h.shape[0], 1, cfg.n_heads,
-                                            cfg.hd)
+    q = split_heads(linear(h, lp["xwq"].to(h.dtype)), cfg.n_heads, cfg.hd)
     o = attn.decode_attention(q, cache_l["xk"], cache_l["xv"],
                               cfg.enc_frames - 1)
-    return o.reshape(h.shape[0], 1, cfg.q_dim) @ lp["xwo"].to(h.dtype)
+    return linear(o.reshape(h.shape[0], 1, cfg.q_dim), lp["xwo"].to(h.dtype))
 
 
 def decode_layer(x: torch.Tensor, lp: Dict[str, torch.Tensor],
@@ -457,6 +590,7 @@ class LM(nn.Module):
         return decode_step(self.params, cache, tokens, self.cfg)
 
 
-__all__ = ["GLOBAL_WINDOW", "layer_windows", "decoder_layer",
+__all__ = ["GLOBAL_WINDOW", "layer_windows", "seq_shard_attn",
+           "decoder_layer",
            "forward_hidden", "lm_loss", "loss_fn", "prefill_layer", "prefill", "cache_spec",
            "init_cache", "decode_layer", "decode_step", "LM"]

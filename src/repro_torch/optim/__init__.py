@@ -6,8 +6,10 @@ The state dicts have ``repro``'s keys (``step``, ``master``, ``mu`` /
 ``nu`` or ``v``), so a checkpoint written by either package and
 ``convert.opt_state_from_state`` map one package's state onto the
 other's.  The updates work in place, one parameter at a time, in f32 (or
-wider), in ``repro``'s order of operations.  ``repro``'s ZeRO-1
-``*_pspecs`` helpers come with A15's dry-run step.
+wider), in ``repro``'s order of operations.  ZeRO-1:
+``opt_state_pspecs`` and ``adafactor_state_pspecs`` give ``repro``'s
+state specs; on a mesh the updates take each gradient to its state's
+placements and write each parameter back to its own.
 """
 
 from repro_torch.optim.adafactor import adafactor_init, adafactor_update

@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models.layers import wide
+from repro_torch.models.parallel import placed_as
 
 
 def factored(shape) -> bool:
@@ -46,7 +47,7 @@ def adafactor_init(params: Dict[str, torch.Tensor]) -> dict:
 
 def _update_one(g, m, v, lr, beta, *, eps, clip_threshold,
                 weight_decay) -> None:
-    g = g.to(m.dtype)
+    g = placed_as(g, m).to(m.dtype)
     g2 = g * g + eps
     if "vr" in v:
         vr, vc = v["vr"], v["vc"]
@@ -81,9 +82,29 @@ def adafactor_update(grads: Dict[str, torch.Tensor], state: dict,
         _update_one(grads[k], m, state["v"][k], lr, beta, eps=eps,
                     clip_threshold=clip_threshold,
                     weight_decay=weight_decay)
-        p.copy_(m)
+        p.copy_(placed_as(m, p))
     state["step"] = step
     return params, state
 
 
-__all__ = ["factored", "adafactor_init", "adafactor_update"]
+def adafactor_state_pspecs(param_shapes: Dict[str, tuple], data_size: int,
+                           *, axis="data") -> dict:
+    """Specs of ``adafactor_init``'s state for ``param_shape_specs``
+    entries: the master ZeRO-1 (``adamw._zero1_spec``), each factor the
+    parameter's spec without the dim it averages out."""
+    from repro_torch.optim.adamw import _zero1_spec
+
+    master, v = {}, {}
+    for name, (shape, _, spec) in param_shapes.items():
+        master[name] = _zero1_spec(shape, spec, data_size, axis)
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        if factored(shape):
+            v[name] = {"vr": tuple(entries[:-1]),
+                       "vc": tuple(entries[:-2] + entries[-1:])}
+        else:
+            v[name] = {"v": tuple(entries)}
+    return {"step": (), "master": master, "v": v}
+
+
+__all__ = ["factored", "adafactor_init", "adafactor_update",
+           "adafactor_state_pspecs"]

@@ -6,7 +6,10 @@ f32 master copy of each and the two moments: ``{"step", "master", "mu",
 decoupled and applied to the master; each parameter is then the master
 cast to its storage type.
 
-``adamw_update`` works in place, one parameter at a time: the moments and
+``adamw_update`` works in place, one parameter at a time (on a mesh
+each gradient first taken to its ZeRO-1 state's placements, a
+reduce-scatter, and each parameter written back in its own, an
+all-gather; ``parallel.placed_as``): the moments and
 the master are updated where they lie and the parameter is overwritten,
 with two temporaries of one parameter's size in f32 (for Gemma-2-2B's
 589.8M-row embedding 2.36 GB each; out-of-place arithmetic would hold a
@@ -23,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models.layers import wide
+from repro_torch.models.parallel import placed_as
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +63,7 @@ def _update_one(g, m, mu, nu, lr, c1, c2, cfg: AdamWConfig) -> None:
     mu' = mu·b1 + (1−b1)·g, nu' = nu·b2 + (1−b2)·g·g,
     m' = m − lr·((mu'/c1) / (sqrt(nu'/c2) + eps) + wd·m)."""
     wt = m.dtype
-    g = g.to(wt)
+    g = placed_as(g, m).to(wt)
     mu_w = mu if mu.dtype == wt else mu.to(wt)
     nu_w = nu if nu.dtype == wt else nu.to(wt)
     tmp = torch.mul(g, 1 - cfg.b1)
@@ -92,9 +96,47 @@ def adamw_update(grads: Dict[str, torch.Tensor], state: dict,
         m = state["master"][k]
         _update_one(grads[k], m, state["mu"][k], state["nu"][k], lr, c1,
                     c2, cfg)
-        p.copy_(m)
+        p.copy_(placed_as(m, p))
     state["step"] = step
     return params, state
 
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update"]
+# ---------------------------------------------------------------------------
+# ZeRO-1 specs (``repro.optim.adamw``).
+# ---------------------------------------------------------------------------
+
+
+def _zero1_spec(shape: Tuple[int, ...], spec: tuple, data_size: int,
+                axis="data") -> tuple:
+    """``spec`` extended by sharding one more dim over ``axis`` (a mesh
+    axis, or a tuple such as ("pod", "data")): the first dim that the
+    spec leaves unsharded and that ``data_size`` divides (and does not
+    exceed).  ``spec`` itself when it already uses one of those axes or
+    no dim qualifies (small vectors stay as the parameter is)."""
+    axis_names = axis if isinstance(axis, tuple) else (axis,)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for e in entries:
+        if e is not None:
+            used.update(e if isinstance(e, tuple) else (e,))
+    if used & set(axis_names):
+        return tuple(spec)
+    for i, (dim, e) in enumerate(zip(shape, entries)):
+        if e is None and dim % data_size == 0 and dim >= data_size:
+            new = list(entries)
+            new[i] = axis
+            return tuple(new)
+    return tuple(spec)
+
+
+def opt_state_pspecs(param_shapes: Dict[str, tuple], data_size: int, *,
+                     axis="data") -> dict:
+    """Specs of ``adamw_init``'s state for parameters given as
+    ``models.common.param_shape_specs`` entries (shape, dtype, spec):
+    master and moments ZeRO-1 (``_zero1_spec``), the step replicated."""
+    z = {name: _zero1_spec(shape, spec, data_size, axis)
+         for name, (shape, _, spec) in param_shapes.items()}
+    return {"step": (), "master": dict(z), "mu": dict(z), "nu": dict(z)}
+
+
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "opt_state_pspecs"]
