@@ -342,6 +342,31 @@ Run from the repository root.  Phases, each printing its lines:
                   exits 42, the same command resumes at step 5, and its
                   step-10 checkpoint equals an uninterrupted run's bit
                   for bit; the saves' host-snapshot ms and bytes.
+  17. dry run      (a) ``python -m repro_torch.launch.dryrun`` over listed
+                  production cells on fake worlds of 256 / 512 ranks, in
+                  a child process; (b) on a one-rank NCCL (1, 1) mesh,
+                  Gemma-2-2B's train step and Granite-MoE's decode step
+                  against the mesh-less ones; (c) the flash_sdkde_32k
+                  cell (B1 once, B2 once) against SDKDE flash;
+ 18. mesh train   the launcher over a world: (a) reduced Gemma-2 through
+                  ``torchrun --standalone --nproc-per-node 1 -m
+                  repro_torch.launch.train`` (one NCCL rank, mesh (1,
+                  1)): --inject-failure 7 exits 42, the same command
+                  resumes at step 5, and its step-10 checkpoint (sharded
+                  entries) equals an uninterrupted world run's and the
+                  one-device launcher's (16e) bit for bit; the saves'
+                  host-snapshot ms and bytes, the restore ms and the
+                  launcher's own kernel counts; (b)
+                  that checkpoint restored whole on the
+                  card, the one-device one restored onto the (1, 1) mesh,
+                  each equal to its source bit for bit, and one train
+                  step from each held at the model bar, no B1-B7 launch;
+                  (c) Gemma-2-2B whole (16c's shape, 5 steps) through
+                  both launchers, each its own process: losses equal bit
+                  for bit, step ms (first, every warm one, their median)
+                  and the launchers' kernel counts printed.  The elastic
+                  restart across worlds of several ranks is a CPU test:
+                  NCCL refuses two ranks on one card.
 
 Before the last line it prints one JSON object ``{"kernels": [...]}``;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -357,8 +382,10 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -5249,11 +5276,12 @@ def hundred_m(card) -> dict:
             "tokens_per_s": tps}
 
 
-def kill_and_resume(card) -> dict:
+def kill_and_resume(card, whole_dir: str) -> dict:
     """(e) The launcher's kill and resume as three processes on the card,
     reduced Gemma-2: --inject-failure 7 must exit 42, the same command
     again resumes at step 5, and its step-10 checkpoint equals an
-    uninterrupted run's bit for bit."""
+    uninterrupted run's bit for bit.  The uninterrupted run's checkpoints
+    stay in ``whole_dir`` (phase 18 holds the world's against them)."""
     import tempfile
 
     from repro_torch.checkpoint import restore_pytree
@@ -5268,7 +5296,7 @@ def kill_and_resume(card) -> dict:
         return r, ms
 
     with tempfile.TemporaryDirectory() as tmp:
-        a, b = f"{tmp}/a", f"{tmp}/b"
+        a, b = f"{tmp}/a", whole_dir
         killed, ms1 = run(a, "--inject-failure", "7")
         if killed.returncode != 42:
             raise AssertionError(f"--inject-failure 7 exited "
@@ -5304,7 +5332,7 @@ def kill_and_resume(card) -> dict:
             "leaves": len(fa)}
 
 
-def phase_training(ops, fs, fk, fp, fl, card) -> dict:
+def phase_training(ops, fs, fk, fp, fl, card, whole_dir: str) -> dict:
     log(f"== phase 16: training [{card}]")
     t_phase = time.perf_counter()
     counts_fns = (fs, fk, fp, fl)
@@ -5314,7 +5342,7 @@ def phase_training(ops, fs, fk, fp, fl, card) -> dict:
     out["full"] = full_width_training(counts_fns, card)
     out["f64_check"] = f64_check(card)
     out["hundred_m"] = hundred_m(card)
-    out["kill_resume"] = kill_and_resume(card)
+    out["kill_resume"] = kill_and_resume(card, whole_dir)
     out["launches"] = out["full"]["launches"]
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 16 took {out['phase_s']:.1f} s")
@@ -5613,6 +5641,347 @@ def phase_dryrun(fs, fk, fp, fl, card) -> dict:
     return out
 
 
+# phase 18: training over a mesh.  (a) reduced Gemma-2 through the
+# launcher in a one-rank NCCL world started by torchrun: --inject-failure
+# MESH_FAIL exits 42, the same command resumes at the last save, and its
+# step-MESH_STEPS checkpoint (per-rank shards) equals an uninterrupted
+# world run's and the one-device launcher's (phase 16e's uninterrupted
+# run) bit for bit, f32 (on a mesh of one device the model's hints are
+# the identity: tests/test_torch_train_one_rank.py); (b) that checkpoint
+# restored with no mesh on the card, the one-device checkpoint restored
+# onto the (1, 1) mesh, and one counted train step on each; (c)
+# Gemma-2-2B whole through both launchers, each its own process, phase
+# 16c's shape, MESH_FULL_STEPS steps.  Each launcher run that reaches
+# its end prints its own kernel counts ("kernel launches: {...}", zeroed
+# before its loop).  NCCL refuses two ranks on one card and DTensor over gloo
+# wants a CPU mesh, so the elastic restart across worlds of several ranks
+# stays a CPU test (tests/test_torch_elastic.py,
+# tests/test_torch_train_mesh.py).
+MESH_STEPS, MESH_EVERY, MESH_FAIL = 10, 5, 7
+MESH_FULL_STEPS = 5
+LAUNCH_TIMEOUT = 600
+STEP_LINE = re.compile(r"step\s+(\d+) loss (\S+) gnorm \S+ lr \S+ "
+                       r"\(([0-9.]+) ms/step\)")
+SNAPSHOT_LINE = re.compile(r"checkpoint step (\d+): host snapshot ([0-9.]+) "
+                           r"ms, (\d+) bytes")
+RESTORE_LINE = re.compile(r"restored checkpoint at step (\d+) \(([0-9.]+) "
+                          r"ms\)")
+LAUNCH_LINE = re.compile(r"^kernel launches: (\{.*\})$", re.M)
+
+
+def launcher_args(*args) -> list:
+    return ["-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+            "--log-every", "1", *args]
+
+
+def run_launcher(world: bool, args: list):
+    """The launcher as its own process: in a one-rank NCCL world started
+    by torchrun (``world``), or on one device.  (result, host ms)."""
+    cmd = [sys.executable]
+    if world:
+        cmd += ["-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "1"]
+    cmd += args
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return host_ms(lambda: subprocess.run(
+        cmd, capture_output=True, text=True, timeout=LAUNCH_TIMEOUT,
+        env=env, cwd=ROOT))
+
+
+def launcher_ok(r, what: str) -> None:
+    if r.returncode != 0:
+        raise AssertionError(f"{what} exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+
+
+def launcher_launches(r, what: str) -> dict:
+    """The kernel counts a launcher run printed after its loop."""
+    m = LAUNCH_LINE.search(r.stdout)
+    if m is None:
+        raise AssertionError(f"{what} printed no kernel counts:\n"
+                             f"{r.stdout[-2000:]}")
+    return json.loads(m.group(1))
+
+
+def leaves_equal(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and not leaves_differing(a, b)
+
+
+def leaves_differing(a: dict, b: dict) -> list:
+    """(leaf, max |a - b|) of each leaf of both trees whose bits differ."""
+    out = []
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            out.append((k, float("nan")))
+        elif not x.reshape(-1).view(torch.uint8).equal(
+                y.reshape(-1).view(torch.uint8)):
+            out.append((k, float((x.double() - y.double()).abs().max())))
+    return out
+
+
+def model_bar_worst(got: dict, want: dict, what: str) -> float:
+    """The largest |got - want| over a leaf's largest magnitude; raises
+    where an element lies outside the model bar (rtol 2e-4, atol 2e-5 of
+    the leaf's largest magnitude)."""
+    worst = 0.0
+    for k, w in want.items():
+        g, w = got[k].double(), w.double()
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        if bool((g - w).abs().gt(2e-4 * w.abs() + 2e-5 * scale).any()):
+            raise AssertionError(f"{what}: {k} outside the model bar")
+        if w.numel():
+            worst = max(worst, float((g - w).abs().max()) / max(scale, 1e-30))
+    return worst
+
+
+def world_resume(whole_dir: str, tmp: str, card) -> dict:
+    """(a) the killed world run beside an uninterrupted one, then the
+    resumed run: its step-MESH_STEPS checkpoint equal to the
+    uninterrupted world run's and the one-device launcher's (phase
+    16e's) bit for bit."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.checkpoint import restore_pytree
+
+    ckpt, whole_world = f"{tmp}/world", f"{tmp}/world_whole"
+    common = launcher_args("--steps", str(MESH_STEPS), "--ckpt-every",
+                           str(MESH_EVERY))
+    args = common + ["--ckpt-dir", ckpt, "--inject-failure", str(MESH_FAIL)]
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        other = pool.submit(run_launcher, True,
+                            common + ["--ckpt-dir", whole_world])
+        killed, ms1 = run_launcher(True, args)
+        whole, ms0 = other.result()
+    launcher_ok(whole, "the uninterrupted world run")
+    if (killed.returncode == 0 or f"injected failure at step {MESH_FAIL}"
+            not in killed.stdout
+            or not re.search(r"exitcode\s*:\s*42\b", killed.stderr)):
+        raise AssertionError(f"--inject-failure {MESH_FAIL} under torchrun "
+                             f"exited {killed.returncode}, not 42:\n"
+                             f"{killed.stdout[-2000:]}\n"
+                             f"{killed.stderr[-4000:]}")
+    resumed, ms2 = run_launcher(True, args)
+    launcher_ok(resumed, "the resumed world run")
+    for want in ("world=1 device=cuda", "mesh: (1, 1) ('data', 'model')"):
+        if want not in resumed.stdout:
+            raise AssertionError(f"the world run did not print {want!r}:\n"
+                                 f"{resumed.stdout[-2000:]}")
+    restored = RESTORE_LINE.search(resumed.stdout)
+    if restored is None or int(restored.group(1)) != MESH_EVERY:
+        raise AssertionError(f"the rerun did not resume at step "
+                             f"{MESH_EVERY}: {resumed.stdout[-2000:]}")
+    step_dir = f"step_{MESH_STEPS:09d}"
+    manifest = json.loads((Path(ckpt) / step_dir / "manifest.json")
+                          .read_text())
+    sharded = sum(bool(m.get("sharded")) for m in manifest.values())
+    if not sharded:
+        raise AssertionError("the world run's checkpoint holds no sharded "
+                             "entry")
+    tw = state_leaves(restore_pytree(f"{ckpt}/{step_dir}", "cpu"))
+    tu = state_leaves(restore_pytree(f"{whole_world}/{step_dir}", "cpu"))
+    to = state_leaves(restore_pytree(f"{whole_dir}/{step_dir}", "cpu"))
+    if not leaves_equal(tw, tu):
+        raise AssertionError(f"the resumed world run's step-{MESH_STEPS} "
+                             "checkpoint differs from the uninterrupted "
+                             f"one's: {leaves_differing(tw, tu)[:12]}")
+    if not leaves_equal(tw, to):
+        raise AssertionError(f"the world run's step-{MESH_STEPS} checkpoint "
+                             "differs from the one-device launcher's: "
+                             f"{leaves_differing(tw, to)[:12]} of "
+                             f"{len(tw)} leaves")
+    snaps = [{"step": int(m.group(1)), "ms": float(m.group(2)),
+              "bytes": int(m.group(3))}
+             for r in (killed, resumed)
+             for m in SNAPSHOT_LINE.finditer(r.stdout)]
+    out = {"process_s": [ms1 / 1e3, ms2 / 1e3, ms0 / 1e3],
+           "snapshots": snaps, "restore_ms": float(restored.group(2)),
+           "leaves": len(tw), "sharded_entries": sharded,
+           "entries": len(manifest), "checkpoint": f"{ckpt}/{step_dir}",
+           "launches": {"uninterrupted": launcher_launches(
+                            whole, "the uninterrupted world run"),
+                        "resumed": launcher_launches(
+                            resumed, "the resumed world run")}}
+    log(f"  (a) torchrun, one NCCL rank, mesh (1, 1), reduced {TRAIN_ARCH} "
+        f"(f32): --inject-failure {MESH_FAIL} exited 42 ({ms1 / 1e3:.1f} s, "
+        f"beside an uninterrupted world run, {ms0 / 1e3:.1f} s), the rerun "
+        f"restored step {MESH_EVERY} in {out['restore_ms']:.1f} ms and ran "
+        f"on ({ms2 / 1e3:.1f} s); its step-{MESH_STEPS} checkpoint "
+        f"({sharded} of {len(manifest)} entries sharded) equals the "
+        f"uninterrupted world run's and the one-device launcher's bit for "
+        f"bit ({len(tw)} leaves); the launcher's kernel counts "
+        f"{json.dumps(out['launches'])}; host snapshots " + ", ".join(f"step {s['step']}: {s['ms']:.2f} ms "
+                                      f"/ {s['bytes']} bytes" for s in snaps)
+        + f" [{card}]")
+    return out
+
+
+def mesh_restores(world_ckpt: str, whole_dir: str, tmp: str, counts_fns,
+                  card) -> dict:
+    """(b) the world's checkpoint restored whole on the card and the
+    one-device checkpoint restored onto the (1, 1) mesh of a one-rank
+    NCCL world in this process, each equal to its source bit for bit;
+    then one train step from each (counted) held at the model bar."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_pytree
+    from repro_torch.configs import ShapeCfg, get_arch
+    from repro_torch.distributed import world
+    from repro_torch.distributed.elastic import make_mesh, plan_mesh
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import common, parallel
+
+    arch = get_arch(TRAIN_ARCH)
+    arch = dataclasses.replace(arch, model=arch.model.reduced(
+        dtype=torch.float32))
+    cfg = arch.model
+    shape = ShapeCfg("train", "train", 128, 8, microbatches=2)
+    whole_step = f"{whole_dir}/step_{MESH_STEPS:09d}"
+    src_world = state_leaves(restore_pytree(world_ckpt, "cpu"))
+    src_whole = state_leaves(restore_pytree(whole_step, "cpu"))
+    got, ms_whole = host_ms(lambda: restore_pytree(world_ckpt, "cuda"))
+    if not leaves_equal({k: v.cpu() for k, v in state_leaves(got).items()},
+                        src_world):
+        raise AssertionError("the world checkpoint restored whole differs")
+    world.init(0, 1, os.path.join(tmp, "store"), backend="nccl")
+    try:
+        mesh = make_mesh(plan_mesh(1, model_parallel=1))
+        layout = {"params": common.abstract_params(cfg, mesh),
+                  "opt": steps_mod.abstract_opt_state(arch, mesh)}
+        # the first restore onto a mesh pays the process's first DTensor
+        # construction; the second is timed warm
+        host_ms(lambda: restore_pytree(whole_step, "cuda", layout=layout,
+                                       mesh=mesh))
+        on_mesh, ms_mesh = host_ms(lambda: restore_pytree(
+            whole_step, "cuda", layout=layout, mesh=mesh))
+        local = {k: _local(v).cpu() for k, v in
+                 state_leaves(on_mesh).items()}
+        if not leaves_equal(local, src_whole) or not all(
+                parallel.is_dtensor(v)
+                for v in state_leaves(on_mesh).values()):
+            raise AssertionError("the one-device checkpoint restored onto "
+                                 "the (1, 1) mesh differs")
+        batch = train_mod.shaped_batch(cfg, SEED, MESH_STEPS, shape, "cpu")
+        plain = restore_pytree(whole_step, "cuda")
+        p0, _, m0 = steps_mod.make_train_step(arch, shape, device="cuda")(
+            plain["params"], plain["opt"],
+            {k: v.cuda() for k, v in batch.items()})
+        parallel.set_mesh(mesh)
+        step = steps_mod.make_train_step(arch, shape, mesh=mesh)
+        reset_counts(*counts_fns)
+        p1, _, m1 = step(on_mesh["params"], on_mesh["opt"],
+                         steps_mod.shard_train_batch(cfg, batch, mesh, shape,
+                                                     "cuda"))
+        torch.cuda.synchronize()
+        counts = read_counts(*counts_fns)
+        got = {k: _local(v) for k, v in p1.items()}
+        got["loss"] = _local(m1["loss"])
+        want = {**p0, "loss": m0["loss"]}
+        worst = model_bar_worst(got, want, "mesh step from the restored "
+                                "state")
+        bitwise = leaves_equal({k: v.cpu() for k, v in got.items()},
+                               {k: v.cpu() for k, v in want.items()})
+    finally:
+        parallel.set_mesh(None)
+        dist.destroy_process_group()
+    if any(counts.values()):
+        raise AssertionError(f"the mesh train step launched {counts}")
+    out = {"restore_whole_ms": ms_whole, "restore_mesh_ms": ms_mesh,
+           "launches": counts, "step_worst_rel": worst,
+           "step_bitwise": bitwise}
+    log(f"  (b) the world checkpoint restored whole on the card "
+        f"({ms_whole:.1f} ms) and the one-device one onto the (1, 1) mesh "
+        f"({ms_mesh:.1f} ms warm), each equal to its source bit for bit; one "
+        f"train step from each within the model bar (worst "
+        f"{worst:.2e} of a leaf's max; bit for bit: {bitwise}), the mesh "
+        f"step's launches "
+        f"{json.dumps({k: v for k, v in counts.items() if v})} [{card}]")
+    return out
+
+
+def full_width_launchers(card) -> dict:
+    """(c) Gemma-2-2B whole, TRAIN_BATCH x TRAIN_SEQ in TRAIN_MB
+    microbatches, MESH_FULL_STEPS steps, no checkpoint: the world
+    launcher and the one-device launcher, one process each; their losses
+    equal.  "Warm" is every step after the first, and their median."""
+    args = launcher_args("--full", "--steps", str(MESH_FULL_STEPS),
+                         "--global-batch", str(TRAIN_BATCH), "--seq",
+                         str(TRAIN_SEQ), "--microbatches", str(TRAIN_MB))
+    out = {}
+    for name, in_world in (("world", True), ("one_device", False)):
+        torch.cuda.empty_cache()
+        r, ms = run_launcher(in_world, args)
+        launcher_ok(r, f"the full-width {name} launcher")
+        steps = [(int(m.group(1)), m.group(2), float(m.group(3)))
+                 for m in STEP_LINE.finditer(r.stdout)]
+        if [s for s, _, _ in steps] != list(range(MESH_FULL_STEPS)):
+            raise AssertionError(f"{name}: steps {steps}")
+        if f"params={ATTN_PARAMS[TRAIN_ARCH] / 1e6:.2f}M" not in r.stdout:
+            raise AssertionError(f"{name}: not the whole model:\n"
+                                 f"{r.stdout[:500]}")
+        step_ms = [v for _, _, v in steps]
+        out[name] = {"process_s": ms / 1e3, "loss": [v for _, v, _ in steps],
+                     "step_ms": step_ms, "first_step_ms": step_ms[0],
+                     "warm_step_ms": step_ms[1:],
+                     "warm_median_ms": statistics.median(step_ms[1:]),
+                     "launches": launcher_launches(
+                         r, f"the full-width {name} launcher")}
+    if out["world"]["loss"] != out["one_device"]["loss"]:
+        raise AssertionError(f"full-width losses differ: world "
+                             f"{out['world']['loss']}, one device "
+                             f"{out['one_device']['loss']}")
+    if not all(math.isfinite(float(v)) for v in out["world"]["loss"]):
+        raise AssertionError(f"non-finite loss {out['world']['loss']}")
+    w, o = out["world"], out["one_device"]
+    ratios = [a / b for a in w["warm_step_ms"] for b in o["warm_step_ms"]]
+    out["warm_ratio_range"] = [min(ratios), max(ratios)]
+    log(f"  (c) {TRAIN_ARCH} whole ({ATTN_PARAMS[TRAIN_ARCH]} parameters), "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} microbatches, "
+        f"{MESH_FULL_STEPS} steps: losses equal ({', '.join(w['loss'])}); "
+        f"step ms, launcher in a one-rank NCCL world "
+        + ", ".join(f"{v:.1f}" for v in w["step_ms"])
+        + f" (first {w['first_step_ms']:.1f}, warm median "
+        f"{w['warm_median_ms']:.1f}); one-device launcher "
+        + ", ".join(f"{v:.1f}" for v in o["step_ms"])
+        + f" (first {o['first_step_ms']:.1f}, warm median "
+        f"{o['warm_median_ms']:.1f}); a world warm step over a one-device "
+        f"one {min(ratios):.2f}-{max(ratios):.2f}x; kernel counts, world "
+        f"{json.dumps(w['launches'])}, one device "
+        f"{json.dumps(o['launches'])}; processes {w['process_s']:.1f} / "
+        f"{o['process_s']:.1f} s [{card}]")
+    return out
+
+
+def phase_mesh_training(fs, fk, fp, fl, card, whole_dir: str) -> dict:
+    log(f"== phase 18: training over a mesh [{card}]")
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["resume"] = world_resume(whole_dir, tmp, card)
+        out["restores"] = mesh_restores(out["resume"]["checkpoint"],
+                                        whole_dir, tmp, (fs, fk, fp, fl),
+                                        card)
+    out["full"] = full_width_launchers(card)
+    # each launcher run's own counts, and 18b's counted mesh step
+    out["launches"] = {
+        "launcher_world_reduced_uninterrupted":
+            out["resume"]["launches"]["uninterrupted"],
+        "launcher_world_reduced_resumed":
+            out["resume"]["launches"]["resumed"],
+        "launcher_world_full": out["full"]["world"]["launches"],
+        "launcher_one_device_full": out["full"]["one_device"]["launches"],
+        "mesh_step": out["restores"]["launches"]}
+    for run, counts in out["launches"].items():
+        if any(counts.values()):
+            raise AssertionError(f"{run} launched {counts} in training")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 18 took {out['phase_s']:.1f} s")
+    return out
+
+
 def prefill_profile(checkout: Path) -> int:
     """Phase 8's prefill alone (full-width Falcon-Mamba-7B, seeded
     weights, batch ``SERVE_BATCH`` x ``SERVE_PROMPT``) with the port
@@ -5782,8 +6151,11 @@ def main(argv=None) -> int:
     families = phase_families(ops, fs, fk, fp, fl, card)
     fam_launches = {arch: m["launches"]
                     for arch, m in families["models"].items()}
-    training = phase_training(ops, fs, fk, fp, fl, card)
-    dryrun = phase_dryrun(fs, fk, fp, fl, card)
+    with tempfile.TemporaryDirectory() as whole_dir:
+        training = phase_training(ops, fs, fk, fp, fl, card, whole_dir)
+        dryrun = phase_dryrun(fs, fk, fp, fl, card)
+        mesh_training = phase_mesh_training(fs, fk, fp, fl, card,
+                                            whole_dir)
     train_launches = {"full": training["launches"],
                       **{arch: r["launches"]
                          for arch, r in training["reduced"].items()}}
@@ -5842,6 +6214,10 @@ def main(argv=None) -> int:
                     for k, c in (("kde_cell", dryrun["launches"]),
                                  ("fake_world",
                                   dryrun["fake_world_launches"]))},
+                # phase 18, as the other kernels' entries
+                "launches_mesh_training": {
+                    run: c["mamba_scan"] + c["selective_scan"]
+                    for run, c in mesh_training["launches"].items()},
                 "ptxas": scan_regs})
             continue
         tiers = timings["entries"][kname]
@@ -5914,6 +6290,11 @@ def main(argv=None) -> int:
         entry["launches_dryrun"] = {
             "kde_cell": dryrun["launches"][kname],
             "fake_world": dryrun["fake_world_launches"][kname]}
+        # phase 18, counts zeroed by each launcher run before its loop
+        # and printed after it (18a's world runs that reach their end,
+        # 18c's two), and before 18b's mesh step: none
+        entry["launches_mesh_training"] = {
+            run: c[kname] for run, c in mesh_training["launches"].items()}
         if kname == "flash_score":
             entry["rect"] = timings["entries"]["flash_score rect"]
         if kname == "flash_kde_pruned":
@@ -5942,6 +6323,7 @@ def main(argv=None) -> int:
     summary["families"] = families
     summary["training"] = training
     summary["dryrun"] = dryrun
+    summary["mesh_training"] = mesh_training
     if paper is not None:
         summary["paper_scale"] = paper
     log("main path: " + json.dumps(summary))

@@ -4,7 +4,12 @@ A batch is a pure function of (seed, step): the generator is seeded from
 both, so a restart or a re-dispatched batch is identical.  Token streams
 are Zipf-distributed (low ids far more frequent, like real text).  The
 ids differ from ``repro``'s for the same seed (``torch.Generator`` is not
-``jax.random``); tests hand both packages the same numpy ids.  VLM
+``jax.random``); tests hand both packages the same numpy ids.  They
+also differ between a CPU and a CUDA generator for the same (seed,
+step), so the train launcher (``launch.train.shaped_batch``) and
+``host_local_batch`` draw every global batch on the CPU, as ``repro``'s
+host callback does, and then move it to the card or cut it over a mesh:
+a world of any size, and one device, train on the same ids.  VLM
 patches and audio frames are Gaussian stub embeddings (the frontends are
 stubs, as in ``repro``), drawn in f32 after the tokens from the same
 generator and cast to the activation type.  ``PrefetchLoader`` makes

@@ -5,8 +5,10 @@ For every (architecture × shape) cell ``build_cell(arch, shape, mesh)``
 gives ``(step_fn, abstract_inputs, donate)``: ``abstract_inputs`` are
 trees of ``models.parallel.Abstract`` (shape, dtype, spec), which the dry
 run (``launch/dryrun.py``) turns into DTensors over fake shards and a
-real run into seeded DTensors (``materialize``).  Sharding, as
-``repro``'s:
+real run into seeded DTensors (``materialize``); the train launcher
+cuts a whole state and each whole batch onto its mesh by them
+(``shard_state``, ``shard_train_batch``, both over ``cut_tree``), and
+restores a checkpoint onto them.  Sharding, as ``repro``'s:
 
   * params        — Megatron TP over ``model``
                     (``common.param_shape_specs``);
@@ -212,6 +214,45 @@ def materialize(tree, make: Callable[[Abstract], torch.Tensor]):
     return tree
 
 
+def cut_tree(full: dict, abstract: dict, mesh,
+             device: "str | torch.device | None" = None) -> dict:
+    """``full``'s tensors (whole, the same on every rank) as DTensors cut
+    by the specs of the matching ``Abstract`` leaves, this rank's shards
+    on ``device`` (each tensor's own by default).  Each whole tensor is
+    taken out of ``full`` as it is cut, so it is freed once no caller
+    holds it."""
+    out = {}
+    for k in list(full):
+        v, a = full.pop(k), abstract[k]
+        out[k] = (cut_tree(v, a, mesh, device) if isinstance(a, dict)
+                  else parallel.shard_from_full(v, mesh, a.spec, device))
+        del v
+    return out
+
+
+def shard_state(arch: ArchSpec, params: dict, opt_state: dict, mesh):
+    """(params, optimizer state) given whole (the same values on every
+    rank) as DTensors laid out as ``abstract_params`` /
+    ``abstract_opt_state`` say for ``mesh``, this rank's shards on the
+    leaves' own device.  The two dicts are emptied as their leaves are
+    cut, so a state drawn whole on the card peaks at one leaf more than
+    the whole state, not at twice it."""
+    return (cut_tree(params, abstract_params(arch.model, mesh), mesh),
+            cut_tree(opt_state, abstract_opt_state(arch, mesh), mesh))
+
+
+def shard_train_batch(cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                      mesh, shape: ShapeCfg,
+                      device: "str | torch.device | None" = None
+                      ) -> Dict[str, torch.Tensor]:
+    """A whole batch laid out (microbatches, rows, ...) as DTensors cut
+    as ``abstract_train_batch`` specifies (rows over the batch axes on
+    dim 1), this rank's rows on ``device``; raises, naming the numbers,
+    when the data-parallel degree does not divide a microbatch."""
+    return cut_tree(dict(batch), abstract_train_batch(cfg, mesh, shape),
+                     mesh, device)
+
+
 # ---------------------------------------------------------------------------
 # Train step.
 # ---------------------------------------------------------------------------
@@ -414,6 +455,7 @@ def input_specs(arch_or_kde, shape: Optional[ShapeCfg], mesh):
 
 
 __all__ = ["OPTIMIZERS", "abstract_opt_state", "abstract_train_batch",
-           "cache_pspecs", "materialize", "make_train_step",
+           "cache_pspecs", "materialize", "cut_tree", "shard_state",
+           "shard_train_batch", "make_train_step",
            "make_prefill_step", "make_decode_step", "make_kde_step",
            "build_cell", "input_specs", "batch_pspecs"]

@@ -150,27 +150,34 @@ def resolve(mesh, shape: Sequence[int], entries: Sequence) -> Spec:
 
 def hint(x, *entries):
     """``x`` redistributed to the spec ``entries`` on the registered mesh
-    (``resolve``); ``x`` itself with no mesh registered or when ``x`` is
-    not a DTensor."""
+    (``resolve``); ``x`` itself with no mesh registered, when ``x`` is
+    not a DTensor, or on a mesh of one device.  There every placement
+    holds the whole tensor, so a redistribution would move nothing, but
+    its autograd node would regroup the sum of ``x``'s gradient
+    contributions (a residual stream feeds both the residual add and
+    the hinted norm), and a (1, 1) step would no longer equal the
+    mesh-less step bit for bit."""
     from torch.distributed.tensor import DTensor
 
     mesh = _MESH[0]
-    if mesh is None or not isinstance(x, DTensor):
+    if mesh is None or not isinstance(x, DTensor) or mesh.size() == 1:
         return x
     return relayout(x, placements(mesh, resolve(mesh, x.shape, entries)))
 
 
-def cut(shape: Sequence[int], mesh, pls: Sequence
+def cut(shape: Sequence[int], mesh, pls: Sequence,
+        coord: Optional[Sequence[int]] = None
         ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """This rank's shard of a tensor of global ``shape`` under the DTensor
-    placements ``pls``: (local shape, global offset of its first
-    element).  A dim is cut as DTensor cuts it, mesh dim by mesh dim in
-    order, each cut into ``torch.chunk`` pieces (ceil-sized, the last
-    ones short)."""
+    placements ``pls`` (the shard at mesh coordinate ``coord`` if given):
+    (local shape, global offset of its first element).  A dim is cut as
+    DTensor cuts it, mesh dim by mesh dim in order, each cut into
+    ``torch.chunk`` pieces (ceil-sized, the last ones short)."""
     from torch.distributed.tensor import Shard
 
     shp, off = list(shape), [0] * len(shape)
-    coord = mesh.get_coordinate()
+    if coord is None:
+        coord = mesh.get_coordinate()
     for i, p in enumerate(pls):
         if isinstance(p, Shard):
             d, n = p.dim, mesh.size(i)

@@ -450,3 +450,37 @@ def test_laplace_method_builds_and_ring_still_raises():
                     device="cpu")
     with pytest.raises(ValueError, match="method"):
         ServeConfig(method="bogus", device="cpu")
+
+
+# the launcher over a world and the sharded checkpoints (ROADMAP A, last
+# items 1-2)
+MESH_TRAINING_MODULES = ("repro_torch.checkpoint.manager",
+                         "repro_torch.launch.train",
+                         "repro_torch.launch.steps",
+                         "repro_torch.data.synthetic",
+                         "repro_torch.models.parallel")
+
+
+@pytest.mark.parametrize("module", MESH_TRAINING_MODULES)
+def test_mesh_training_modules_are_scanned_and_import(module):
+    """Each module this slice changed is among the files the AST scan
+    holds to "no jax, nothing of repro", imports without a card, and no
+    longer points ahead to the slice ("still to port")."""
+    path = ROOT / pathlib.Path("src", *module.split(".")).with_suffix(".py")
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+    assert "still to port" not in path.read_text()
+    importlib.import_module(module)
+
+
+def test_launcher_under_torchrun_asks_for_the_card(no_card, monkeypatch):
+    """Under ``torchrun`` the launcher joins an NCCL world on the card
+    unless asked for the CPU; without a card it raises before joining."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.join_world("cuda")
+    assert not dist.is_initialized()
