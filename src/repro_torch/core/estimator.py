@@ -26,6 +26,9 @@ The counterpart of ``repro.core.estimator``.  Backends:
 Estimators run on ``config.device`` ("cuda" by default; asking for the
 card where there is none raises).  ``SDKDE.append``/``evict`` update a
 fitted estimator through the streaming delta pass (``stream/delta.py``).
+While tracing is on (``repro_torch.obs``) ``fit`` and ``evaluate`` open
+``estimator.fit`` / ``estimator.evaluate`` spans, and the bandwidth's
+read to the host a ``sync.bandwidth`` span.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import obs
 from repro_torch.core import bandwidth as bw
 from repro_torch.core import kde as ref
 from repro_torch.distributed import ring
@@ -93,9 +97,12 @@ class KDE:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def fit(self, x) -> "KDE":
-        self.x_train = self._as_points(x)
-        if self.h is None:
-            self.h = float(bw.silverman_bandwidth(self.x_train))
+        with obs.span("estimator.fit", backend=self.config.backend) as sp:
+            self.x_train = self._as_points(x)
+            sp.set(rows=self.x_train.shape[0])
+            if self.h is None:
+                with obs.span("sync.bandwidth"):
+                    self.h = float(bw.silverman_bandwidth(self.x_train))
         return self
 
     def _train_points(self) -> torch.Tensor:
@@ -105,16 +112,18 @@ class KDE:
 
     def evaluate(self, y) -> torch.Tensor:
         x = self._train_points()
-        y = self._as_points(y)
         cfg = self.config
-        if cfg.backend == "flash":
-            return ops.flash_kde(x, y, self.h, precision=cfg.precision,
-                                 block_m=cfg.block_m, block_n=cfg.block_n,
-                                 prune=cfg.prune)
-        if cfg.backend == "ring":
-            return _on_ring(ring.ring_kde, x, y, h=self.h,
-                            n_true=x.shape[0])
-        return ref.kde_eval(x, y, self.h, block=cfg.block)
+        with obs.span("estimator.evaluate", backend=cfg.backend) as sp:
+            y = self._as_points(y)
+            sp.set(rows=y.shape[0])
+            if cfg.backend == "flash":
+                return ops.flash_kde(x, y, self.h, precision=cfg.precision,
+                                     block_m=cfg.block_m,
+                                     block_n=cfg.block_n, prune=cfg.prune)
+            if cfg.backend == "ring":
+                return _on_ring(ring.ring_kde, x, y, h=self.h,
+                                n_true=x.shape[0])
+            return ref.kde_eval(x, y, self.h, block=cfg.block)
 
     __call__ = evaluate
 
@@ -149,22 +158,26 @@ class SDKDE(KDE):
         self._s0 = self._s1 = None       # f64 score stats (lazy, streaming)
 
     def fit(self, x) -> "SDKDE":
-        self.x_train = self._as_points(x)
-        self._s0 = self._s1 = None       # a refit invalidates seeded stats
-        if self.h is None:
-            self.h = float(bw.sdkde_bandwidth(self.x_train))
         cfg = self.config
-        if cfg.backend == "flash":
-            self.x_sd = ops.flash_sdkde_shift(
-                self.x_train, self.h, score_h=cfg.score_h,
-                precision=cfg.precision, block_m=cfg.block_m,
-                block_n=cfg.block_n, prune=cfg.prune)
-        elif cfg.backend == "ring":
-            self.x_sd = _on_ring(ring.ring_sdkde_shift, self.x_train,
-                                 h=self.h, score_h=cfg.score_h)
-        else:
-            self.x_sd = ref.sdkde_shift(self.x_train, self.h,
-                                        score_h=cfg.score_h, block=cfg.block)
+        with obs.span("estimator.fit", backend=cfg.backend) as sp:
+            self.x_train = self._as_points(x)
+            sp.set(rows=self.x_train.shape[0])
+            self._s0 = self._s1 = None   # a refit invalidates seeded stats
+            if self.h is None:
+                with obs.span("sync.bandwidth"):
+                    self.h = float(bw.sdkde_bandwidth(self.x_train))
+            if cfg.backend == "flash":
+                self.x_sd = ops.flash_sdkde_shift(
+                    self.x_train, self.h, score_h=cfg.score_h,
+                    precision=cfg.precision, block_m=cfg.block_m,
+                    block_n=cfg.block_n, prune=cfg.prune)
+            elif cfg.backend == "ring":
+                self.x_sd = _on_ring(ring.ring_sdkde_shift, self.x_train,
+                                     h=self.h, score_h=cfg.score_h)
+            else:
+                self.x_sd = ref.sdkde_shift(self.x_train, self.h,
+                                            score_h=cfg.score_h,
+                                            block=cfg.block)
         return self
 
     def _train_points(self) -> torch.Tensor:
@@ -244,23 +257,26 @@ class LaplaceKDE(KDE):
 
     def evaluate(self, y) -> torch.Tensor:
         x = self._train_points()
-        y = self._as_points(y)
         cfg = self.config
-        if cfg.backend == "flash":
-            if self.fused:
-                return ops.flash_laplace_kde(
+        with obs.span("estimator.evaluate", backend=cfg.backend) as sp:
+            y = self._as_points(y)
+            sp.set(rows=y.shape[0])
+            if cfg.backend == "flash":
+                if self.fused:
+                    return ops.flash_laplace_kde(
+                        x, y, self.h, precision=cfg.precision,
+                        block_m=cfg.block_m, block_n=cfg.block_n,
+                        prune=cfg.prune)
+                return ops.laplace_kde_nonfused(
                     x, y, self.h, precision=cfg.precision,
-                    block_m=cfg.block_m, block_n=cfg.block_n,
-                    prune=cfg.prune)
-            return ops.laplace_kde_nonfused(
-                x, y, self.h, precision=cfg.precision, block_m=cfg.block_m,
-                block_n=cfg.block_n)
-        if cfg.backend == "ring":
-            return _on_ring(ring.ring_laplace_kde, x, y, h=self.h,
-                            n_true=x.shape[0])
-        if self.fused:
-            return ref.laplace_kde_eval(x, y, self.h, block=cfg.block)
-        return ref.laplace_kde_eval_nonfused(x, y, self.h, block=cfg.block)
+                    block_m=cfg.block_m, block_n=cfg.block_n)
+            if cfg.backend == "ring":
+                return _on_ring(ring.ring_laplace_kde, x, y, h=self.h,
+                                n_true=x.shape[0])
+            if self.fused:
+                return ref.laplace_kde_eval(x, y, self.h, block=cfg.block)
+            return ref.laplace_kde_eval_nonfused(x, y, self.h,
+                                                 block=cfg.block)
 
     __call__ = evaluate
 

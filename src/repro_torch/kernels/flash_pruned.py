@@ -28,9 +28,10 @@ Each pass keeps its counts, ``score_counts`` (B3), ``kde_counts`` (B4)
 and ``laplace_counts`` (B4 with ``laplace``): a launch adds one to
 ``launches``, the tiles it visits (``Σ counts``) to ``tiles_visited`` and
 the tiles a dense pass would visit (``mt × n/block_n``) to
-``tiles_total``; their ratio is the occupancy of the launches (``repro``'s
-``kernels.prune.visit_fraction``, until the metrics registry is
-ported).
+``tiles_total``; their ratio is the occupancy of the launches (the
+launch-side view beside the metrics registry's
+``kernels.prune.visit_fraction`` histogram, which ``kernels/ops.py`` feeds
+from the visit lists).
 """
 
 from __future__ import annotations

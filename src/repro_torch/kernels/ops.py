@@ -35,8 +35,22 @@ pruned path syncs once per pass to size its visit lists, and reads the
 pass's largest certified error for the ``kernels.prune.*`` telemetry in
 the same transfer; it also feeds the launch tuner's occupancy profile at
 the launch width and, until the regime has one, at
-``autotune.FINE_PROBE_BLOCK`` (``TrainColumns.meta_fine``).  Spans carry
-``repro``'s names (``kernels.pruned_score``, ``kernels.pruned_eval``).
+``autotune.FINE_PROBE_BLOCK`` (``TrainColumns.meta_fine``).
+
+Spans (``repro_torch.obs``, recorded only while tracing is on):
+``kernels.shift``, ``kernels.score_stats`` and ``kernels.eval`` around the
+wrappers; ``kernels.prepass`` (``kind`` score, columns, kde or laplace)
+around everything a pruned launch waits for on the host, with
+``kernels/spatial.py``'s spans inside; ``repro``'s
+``kernels.pruned_score`` / ``kernels.pruned_eval`` around the launches,
+whose ``tile_rows`` (block_m × the visits) and ``real_tile_rows`` (the
+non-sentinel rows among them, read in the visit lists' one transfer) are
+the rows a launch streams and the real ones; and a ``sync.<site>`` span
+around each call that waits for the card (``sync.inv2h2``,
+``sync.shift``, ``sync.normalize``, ``sync.occupancy``).  Outside these
+wrappers ``spatial``'s spans sit under their caller's: the streaming
+layer's re-cluster under ``stream.rebuild``, the shard partition and the
+RFF tier's pilot centroids under theirs.
 The streaming layer keeps its own layout and builds its columns with
 ``columns_from_layout`` / ``update_train_columns``.  Not ported:
 ``repro``'s fallback to dense under JAX tracing (PyTorch does not
@@ -158,7 +172,8 @@ def _tier_norms(hi: torch.Tensor, lo: Optional[torch.Tensor]) -> torch.Tensor:
 
 def _inv2h2(h, device: torch.device) -> torch.Tensor:
     """1/(2h²) as a (1, 1) f32 tensor on ``device``, computed in f32."""
-    h = torch.as_tensor(h, dtype=torch.float32).to(device)
+    with obs.span("sync.inv2h2"):
+        h = torch.as_tensor(h, dtype=torch.float32).to(device)
     return (1.0 / (2.0 * h * h)).reshape(1, 1)
 
 
@@ -168,7 +183,8 @@ def _t(x: torch.Tensor) -> torch.Tensor:
 
 
 def _normalize(sums: torch.Tensor, n: int, d: int, h) -> torch.Tensor:
-    h = torch.as_tensor(h, dtype=torch.float32).to(sums.device)
+    with obs.span("sync.normalize"):
+        h = torch.as_tensor(h, dtype=torch.float32).to(sums.device)
     return sums / (n * gaussian_norm_const(d, 1.0) * h**d)
 
 
@@ -186,8 +202,9 @@ def _cached_columns(x: torch.Tensor, *, block_n: int, precision: str,
         hit = _COLUMNS_CACHE.get(key)
         if hit is not None and hit[0]() is x:
             return hit[1]
-    cols = prepare_train_columns(x, block_n=block_n, precision=precision,
-                                 clustered=True, seed=seed)
+    with obs.span("kernels.prepass", kind="columns", rows=x.shape[0]):
+        cols = prepare_train_columns(x, block_n=block_n, precision=precision,
+                                     clustered=True, seed=seed)
     with _COLUMNS_LOCK:
         for k in [k for k, (r, _) in _COLUMNS_CACHE.items() if r() is None]:
             del _COLUMNS_CACHE[k]
@@ -218,8 +235,9 @@ def _score_operands(xp: torch.Tensor, precision: str):
 
 
 def _score_stats_pruned(x: torch.Tensor, h, epsilon: float,
-                        index: spatial.SpatialIndex, *, precision: str,
-                        block_m: int, block_n: int):
+                        index: Optional[spatial.SpatialIndex], *,
+                        precision: str, block_m: int, block_n: int,
+                        seed: int = 0):
     """Pruned score pass (B3); returns (S0, S1) in ``x``'s row order.
 
     The score pass is train×train, so the cluster-aligned layout serves
@@ -227,29 +245,36 @@ def _score_stats_pruned(x: torch.Tensor, h, epsilon: float,
     the output rows come back through the layout's slot map.  The
     certificate uses the score kind (per-point bound exp(-arg)·max(1,
     max|x|)) because the accumulator weights are the [X | 1] columns.
+    ``index=None`` clusters ``x`` here (k-means seeded by ``seed``).
     """
     n, d = x.shape
-    layout = spatial.cluster_layout(
-        x.to(torch.float32), index.labels, block_n,
-        total_multiple=math.lcm(block_m, block_n))
-    x_ops, xt_ops, xaug_ops, nrm, xrec = _score_operands(layout.points,
-                                                         precision)
-    inv = _inv2h2(h, x.device)
-    col_meta = spatial.tile_metadata(xrec, layout.real, block=block_n)
-    tm = spatial.tile_map(xrec, col_meta, inv, epsilon, block_m=block_m,
-                          kind="score")
-    vl = spatial.visit_lists(tm.keep, err_bound=_telemetry_err(tm))
-    fine = autotune.FINE_PROBE_BLOCK
-    fine_meta = None
-    if (block_n > fine and layout.points.shape[0] % fine == 0
-            and not autotune.has_occupancy(n, n, d, fine)):
-        fine_meta = spatial.tile_metadata(xrec, layout.real, block=fine)
-    _record_occupancy_profile(n, {n}, d, vl.occupancy, block_n, xrec,
-                              fine_meta, inv, epsilon, block_m, "score")
-    _note_pruned_launch("score", vl, epsilon)
+    with obs.span("kernels.prepass", kind="score", rows=n):
+        if index is None:
+            index = spatial.build_index(x, seed=seed)
+        layout = spatial.cluster_layout(
+            x.to(torch.float32), index.labels, block_n,
+            total_multiple=math.lcm(block_m, block_n))
+        x_ops, xt_ops, xaug_ops, nrm, xrec = _score_operands(layout.points,
+                                                             precision)
+        inv = _inv2h2(h, x.device)
+        col_meta = spatial.tile_metadata(xrec, layout.real, block=block_n)
+        tm = spatial.tile_map(xrec, col_meta, inv, epsilon, block_m=block_m,
+                              kind="score")
+        vl = spatial.visit_lists(tm.keep, err_bound=_telemetry_err(tm),
+                                 real_rows=_traced_real_rows(layout,
+                                                             block_m))
+        fine = autotune.FINE_PROBE_BLOCK
+        fine_meta = None
+        if (block_n > fine and layout.points.shape[0] % fine == 0
+                and not autotune.has_occupancy(n, n, d, fine)):
+            fine_meta = spatial.tile_metadata(xrec, layout.real, block=fine)
+        _record_occupancy_profile(n, {n}, d, vl.occupancy, block_n, xrec,
+                                  fine_meta, inv, epsilon, block_m, "score")
+        _note_pruned_launch("score", vl, epsilon)
     with obs.span("kernels.pruned_score", rows=n,
-                  occupancy=round(vl.occupancy, 4)), \
-            obs.annotate("flash_score_pruned"):
+                  occupancy=round(vl.occupancy, 4),
+                  tile_rows=block_m * vl.visits,
+                  real_tile_rows=vl.real_visit_rows):
         s1aug = flash_pruned.flash_score_pruned(
             vl.counts, vl.tile_map, x_ops[0], nrm, xt_ops[0], xaug_ops[0],
             inv, x_ops[1], xt_ops[1], xaug_ops[1], block_m=block_m,
@@ -277,7 +302,8 @@ def _record_occupancy_profile(rows, col_counts, d, launch_occ, block_n,
         return
     fine_tm = spatial.tile_map(yrec, meta_fine, inv2h2, epsilon,
                                block_m=block_m, kind=kind)
-    fine_occ = float(fine_tm.keep.float().mean())
+    with obs.span("sync.occupancy"):
+        fine_occ = float(fine_tm.keep.float().mean())
     for n_key in col_counts:
         autotune.record_occupancy(rows, n_key, d, fine_occ, block_n=fine)
 
@@ -286,6 +312,16 @@ def _telemetry_err(tm: spatial.TileMap) -> Optional[torch.Tensor]:
     """The certificate vector ``visit_lists`` reads back for telemetry,
     or None when metrics are off (nothing extra is read then)."""
     return tm.err_bound if obs.state.metrics_on else None
+
+
+def _traced_real_rows(layout: spatial.ClusterLayout,
+                      block_m: int) -> Optional[torch.Tensor]:
+    """Real rows of each ``block_m`` row tile of a layout, summed on the
+    device, for the pruned launch spans' ``real_tile_rows``; None while
+    tracing is off (nothing is computed or read then)."""
+    if not obs.state.trace_on:
+        return None
+    return layout.real.reshape(-1, block_m).sum(dim=1, dtype=torch.int64)
 
 
 def _note_pruned_launch(kind: str, vl: spatial.VisitLists,
@@ -317,27 +353,31 @@ def flash_score_stats(x: torch.Tensor, h, *, precision: str = "f32",
     when ``prune`` engages (``seed`` seeds the k-means index)."""
     prec.validate(precision)
     n, d = x.shape
-    block_m, block_n = _resolve(block_m, block_n, n, n, d, out_width=d + 1,
-                                precision=precision, device=x.device,
-                                pruned=prune != "off")
-    eps = resolve_prune(prune, n, block_n)
-    if eps is not None:
-        return _score_stats_pruned(
-            x, h, eps, spatial.build_index(x, seed=seed),
-            precision=precision, block_m=block_m, block_n=block_n)
-    xp = _pad_to(x, math.lcm(block_m, block_n))
-    x_ops, xt_ops, xaug_ops, nrm, _ = _score_operands(xp, precision)
-    s1aug = _score_kernel(
-        x_ops[0], nrm, xt_ops[0], xaug_ops[0], _inv2h2(h, x.device),
-        x_ops[1], xt_ops[1], xaug_ops[1], block_m=block_m, block_n=block_n,
-    )
-    return s1aug[:n, d], s1aug[:n, :d]
+    with obs.span("kernels.score_stats", rows=n, precision=precision):
+        block_m, block_n = _resolve(block_m, block_n, n, n, d,
+                                    out_width=d + 1, precision=precision,
+                                    device=x.device, pruned=prune != "off")
+        eps = resolve_prune(prune, n, block_n)
+        if eps is not None:
+            return _score_stats_pruned(
+                x, h, eps, None, precision=precision, block_m=block_m,
+                block_n=block_n, seed=seed)
+        xp = _pad_to(x, math.lcm(block_m, block_n))
+        x_ops, xt_ops, xaug_ops, nrm, _ = _score_operands(xp, precision)
+        s1aug = _score_kernel(
+            x_ops[0], nrm, xt_ops[0], xaug_ops[0], _inv2h2(h, x.device),
+            x_ops[1], xt_ops[1], xaug_ops[1], block_m=block_m,
+            block_n=block_n,
+        )
+        return s1aug[:n, d], s1aug[:n, :d]
 
 
 def _apply_score_shift(x32: torch.Tensor, s0, s1, h, sh) -> torch.Tensor:
     """x^SD = x + (h²/2)·ŝ(x) from the fused statistics (rows aligned)."""
-    sh = torch.as_tensor(sh, dtype=torch.float32).to(x32.device)
-    h = torch.as_tensor(h, dtype=torch.float32).to(x32.device)
+    with obs.span("sync.shift"):
+        sh = torch.as_tensor(sh, dtype=torch.float32).to(x32.device)
+    with obs.span("sync.shift"):
+        h = torch.as_tensor(h, dtype=torch.float32).to(x32.device)
     score = (s1 - x32 * s0[:, None]) / (sh * sh * s0[:, None])
     return x32 + 0.5 * h * h * score
 
@@ -349,9 +389,11 @@ def flash_sdkde_shift(x: torch.Tensor, h, *, score_h=None,
     """Debiased samples x^SD = x + (h²/2)·ŝ(x), score via kernel B1 (B3
     when ``prune`` engages)."""
     sh = h if score_h is None else score_h
-    s0, s1 = flash_score_stats(x, sh, precision=precision, block_m=block_m,
-                               block_n=block_n, prune=prune, seed=seed)
-    return _apply_score_shift(x.to(torch.float32), s0, s1, h, sh)
+    with obs.span("kernels.shift", rows=x.shape[0], precision=precision):
+        s0, s1 = flash_score_stats(x, sh, precision=precision,
+                                   block_m=block_m, block_n=block_n,
+                                   prune=prune, seed=seed)
+        return _apply_score_shift(x.to(torch.float32), s0, s1, h, sh)
 
 
 # ---------------------------------------------------------------------------
@@ -383,25 +425,26 @@ def _flash_eval(x, y, h, *, laplace, precision, block_m, block_n, prune,
     prec.validate(precision)
     n, d = x.shape
     m = y.shape[0]
-    block_m, block_n = _resolve(block_m, block_n, m, n, d, out_width=1,
-                                precision=precision, device=x.device,
-                                pruned=prune != "off")
-    eps = resolve_prune(prune, n, block_n)
-    if eps is not None:
-        cols = _cached_columns(x, block_n=block_n, precision=precision,
-                               seed=seed)
-        sums = _pruned_eval_sums(y, cols, h, eps, precision=precision,
-                                 block_m=block_m, block_n=block_n,
-                                 laplace=laplace, n_true=n)
-        return _normalize(sums, n, d, h)
-    y_ops, xt_ops, nrm_y, nrm_x = _prep_eval(x, y, block_m, block_n,
-                                             precision)
-    kernel = _laplace_kernel if laplace else _kde_kernel
-    sums = kernel(
-        y_ops[0], nrm_y, xt_ops[0], nrm_x, _inv2h2(h, y.device), y_ops[1],
-        xt_ops[1], block_m=block_m, block_n=block_n,
-    )
-    return _normalize(sums[:m, 0], n, d, h)
+    with obs.span("kernels.eval", rows=m, cols=n, laplace=laplace):
+        block_m, block_n = _resolve(block_m, block_n, m, n, d, out_width=1,
+                                    precision=precision, device=x.device,
+                                    pruned=prune != "off")
+        eps = resolve_prune(prune, n, block_n)
+        if eps is not None:
+            cols = _cached_columns(x, block_n=block_n, precision=precision,
+                                   seed=seed)
+            sums = _pruned_eval_sums(y, cols, h, eps, precision=precision,
+                                     block_m=block_m, block_n=block_n,
+                                     laplace=laplace, n_true=n)
+            return _normalize(sums, n, d, h)
+        y_ops, xt_ops, nrm_y, nrm_x = _prep_eval(x, y, block_m, block_n,
+                                                 precision)
+        kernel = _laplace_kernel if laplace else _kde_kernel
+        sums = kernel(
+            y_ops[0], nrm_y, xt_ops[0], nrm_x, _inv2h2(h, y.device),
+            y_ops[1], xt_ops[1], block_m=block_m, block_n=block_n,
+        )
+        return _normalize(sums[:m, 0], n, d, h)
 
 
 def flash_kde(x: torch.Tensor, y: torch.Tensor, h, *,
@@ -637,24 +680,27 @@ def _pruned_eval_sums(y: torch.Tensor, cols: TrainColumns, h,
             "the tile metadata and visit lists address tiles of that width")
     m_in = y.shape[0]
     nr = m_in if n_real is None else min(n_real, m_in)
-    yr = y[:nr].to(torch.float32)
-    qlayout = spatial.cluster_layout(yr, spatial.assign(yr, cols.index),
-                                     block_m, bucket_rows=True)
-    y_hi, y_lo, nrm_y, yrec = _cast_queries(qlayout.points, precision)
-    inv = _inv2h2(h, y.device)
     kind = "laplace" if laplace else "kde"
-    tm = spatial.tile_map(yrec, cols.meta, inv, epsilon, block_m=block_m,
-                          kind=kind)
-    vl = spatial.visit_lists(tm.keep, err_bound=_telemetry_err(tm))
-    keys = {cols.xt.shape[1]} | ({n_true} if n_true else set())
-    _record_occupancy_profile(m_in, keys, yr.shape[1], vl.occupancy, block_n,
-                              yrec, cols.meta_fine, inv, epsilon, block_m,
-                              kind)
-    _note_pruned_launch(kind, vl, epsilon)
+    with obs.span("kernels.prepass", kind=kind, rows=nr):
+        yr = y[:nr].to(torch.float32)
+        qlayout = spatial.cluster_layout(yr, spatial.assign(yr, cols.index),
+                                         block_m, bucket_rows=True)
+        y_hi, y_lo, nrm_y, yrec = _cast_queries(qlayout.points, precision)
+        inv = _inv2h2(h, y.device)
+        tm = spatial.tile_map(yrec, cols.meta, inv, epsilon, block_m=block_m,
+                              kind=kind)
+        vl = spatial.visit_lists(tm.keep, err_bound=_telemetry_err(tm),
+                                 real_rows=_traced_real_rows(qlayout,
+                                                             block_m))
+        keys = {cols.xt.shape[1]} | ({n_true} if n_true else set())
+        _record_occupancy_profile(m_in, keys, yr.shape[1], vl.occupancy,
+                                  block_n, yrec, cols.meta_fine, inv,
+                                  epsilon, block_m, kind)
+        _note_pruned_launch(kind, vl, epsilon)
     with obs.span("kernels.pruned_eval", rows=nr, kind=kind,
                   occupancy=round(vl.occupancy, 4),
-                  max_visits=vl.max_visits), \
-            obs.annotate("flash_kde_pruned"):
+                  max_visits=vl.max_visits, tile_rows=block_m * vl.visits,
+                  real_tile_rows=vl.real_visit_rows):
         sums = flash_pruned.flash_kde_pruned(
             vl.counts, vl.tile_map, y_hi, nrm_y, cols.xt, cols.nrm_x, inv,
             y_lo, cols.xt_lo, block_m=block_m, block_n=block_n,
@@ -693,25 +739,28 @@ def flash_kde_prepared(yp: torch.Tensor, xt: torch.Tensor,
     if prune != "off" and columns is not None and block_n == "auto":
         block_n = columns.block_n
     m, d = yp.shape
-    block_m, block_n = _resolve(block_m, block_n, m, xt.shape[1], d,
-                                out_width=1, precision=precision,
-                                device=yp.device, row_multiple=m,
-                                col_multiple=xt.shape[1],
-                                pruned=prune != "off")
-    eps = resolve_prune(prune, xt.shape[1], block_n)
-    if eps is not None:
-        if columns is None:
-            raise ValueError(
-                "flash_kde_prepared(prune=...) needs columns= (the "
-                "clustered TrainColumns) for the tile metadata")
-        return _pruned_eval_sums(yp, columns, h, eps, precision=precision,
-                                 block_m=block_m, block_n=block_n,
-                                 laplace=laplace, n_real=n_real)
-    y_hi, y_lo, nrm_y, _ = _cast_queries(yp, precision)
-    kernel = _laplace_kernel if laplace else _kde_kernel
-    sums = kernel(y_hi, nrm_y, xt, nrm_x, _inv2h2(h, yp.device), y_lo,
-                  xt_lo, block_m=block_m, block_n=block_n)
-    return sums[:, 0]
+    with obs.span("kernels.eval", rows=m, cols=xt.shape[1],
+                  laplace=laplace):
+        block_m, block_n = _resolve(block_m, block_n, m, xt.shape[1], d,
+                                    out_width=1, precision=precision,
+                                    device=yp.device, row_multiple=m,
+                                    col_multiple=xt.shape[1],
+                                    pruned=prune != "off")
+        eps = resolve_prune(prune, xt.shape[1], block_n)
+        if eps is not None:
+            if columns is None:
+                raise ValueError(
+                    "flash_kde_prepared(prune=...) needs columns= (the "
+                    "clustered TrainColumns) for the tile metadata")
+            return _pruned_eval_sums(yp, columns, h, eps,
+                                     precision=precision, block_m=block_m,
+                                     block_n=block_n, laplace=laplace,
+                                     n_real=n_real)
+        y_hi, y_lo, nrm_y, _ = _cast_queries(yp, precision)
+        kernel = _laplace_kernel if laplace else _kde_kernel
+        sums = kernel(y_hi, nrm_y, xt, nrm_x, _inv2h2(h, yp.device), y_lo,
+                      xt_lo, block_m=block_m, block_n=block_n)
+        return sums[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -804,28 +853,37 @@ def flash_sdkde(x: torch.Tensor, y: torch.Tensor, h, *, score_h=None,
     s_eps = resolve_prune(prune, n, s_bn)
     k_eps = resolve_prune(prune, n, k_bn)
     x32 = x.to(torch.float32)
-    index = None
-    if s_eps is not None or k_eps is not None:
-        index = spatial.build_index(x32, seed=seed)
-    if s_eps is None:
-        s0, s1 = flash_score_stats(x32, sh, precision=precision,
-                                   block_m=s_bm, block_n=s_bn, prune="off")
-    else:
-        s0, s1 = _score_stats_pruned(x32, sh, s_eps, index,
-                                     precision=precision, block_m=s_bm,
-                                     block_n=s_bn)
-    x_sd = _apply_score_shift(x32, s0, s1, h, sh)
-    cols = prepare_train_columns(x_sd, block_n=k_bn, precision=precision,
-                                 clustered=k_eps is not None,
-                                 index=index if k_eps is not None else None)
+    with obs.span("kernels.shift", rows=n, precision=precision):
+        index = None
+        if s_eps is not None or k_eps is not None:
+            with obs.span("kernels.prepass", rows=n,
+                          kind="columns" if s_eps is None else "score"):
+                index = spatial.build_index(x32, seed=seed)
+        if s_eps is None:
+            s0, s1 = flash_score_stats(x32, sh, precision=precision,
+                                       block_m=s_bm, block_n=s_bn,
+                                       prune="off")
+        else:
+            with obs.span("kernels.score_stats", rows=n,
+                          precision=precision):
+                s0, s1 = _score_stats_pruned(x32, sh, s_eps, index,
+                                             precision=precision,
+                                             block_m=s_bm, block_n=s_bn)
+        x_sd = _apply_score_shift(x32, s0, s1, h, sh)
     if k_eps is None:
+        cols = prepare_train_columns(x_sd, block_n=k_bn, precision=precision)
         sums = flash_kde_prepared(_pad_to(y, k_bm), cols.xt, cols.nrm_x,
                                   h, cols.xt_lo, precision=precision,
                                   block_m=k_bm, block_n=k_bn)[:m]
-    else:
+        return _normalize(sums, n, d, h)
+    with obs.span("kernels.eval", rows=m, cols=n, laplace=False):
+        with obs.span("kernels.prepass", kind="columns", rows=n):
+            cols = prepare_train_columns(x_sd, block_n=k_bn,
+                                         precision=precision, clustered=True,
+                                         index=index)
         sums = _pruned_eval_sums(y, cols, h, k_eps, precision=precision,
                                  block_m=k_bm, block_n=k_bn, n_true=n)
-    return _normalize(sums, n, d, h)
+        return _normalize(sums, n, d, h)
 
 
 __all__ = [

@@ -61,6 +61,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
+
 PAD_VALUE = 1.0e6   # matches ops.PAD_VALUE — kernel weight underflows to 0
 
 # f32 exp(-x) is exactly 0.0 for x > 150·ln2 ≈ 103.97 (subnormal rounding).
@@ -76,6 +78,12 @@ KINDS = ("kde", "laplace", "score")
 #: f32 elements of one chunk's (rows × tiles) distance block in ``tile_map``
 #: (2**28 floats = 1 GiB).
 TILE_MAP_CHUNK_ELEMS = 1 << 28
+
+#: Host reads inside one ``torch.bincount`` on the card (its input's min,
+#: then its max): the ``syncs`` a Lloyd iteration adds to ``sync.kmeans``.
+#: An assumption about the PyTorch build, which ``tools/sync_audit.py``
+#: checks on the card against the waits it sees.
+BINCOUNT_SYNCS = 2
 
 
 class SpatialIndex(NamedTuple):
@@ -125,12 +133,15 @@ class VisitLists(NamedTuple):
     max_visits: int          # visit-slot extent (pow2-bucketed)
     occupancy: float         # mean(counts) / n_tiles — the skip-rate stat
     max_err: float = 0.0     # largest err_bound passed to visit_lists
+    visits: int = 0          # Σ counts: the row tiles' column-tile visits
+    real_visit_rows: int = 0  # Σ real rows · counts (when asked, else 0)
 
 
 def _numpy(a) -> np.ndarray:
     """Host copy of labels given as a tensor (any device) or array."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        with obs.span("sync.labels"):
+            return a.detach().cpu().numpy()
     return np.asarray(a)
 
 
@@ -172,12 +183,15 @@ def _kmeans_fit(x: torch.Tensor, gen: torch.Generator, *, k: int,
         pick = torch.randint(0, n, (k,), generator=gen)
     else:
         pick = torch.randperm(n, generator=gen)[:k]
-    c = x[pick.to(x.device)]
-    for _ in range(iters):
-        lab = torch.argmin(_sqdist(x, c), dim=1)
-        cnt = torch.bincount(lab, minlength=k).to(torch.float32)[:, None]
-        sums = torch.zeros_like(c).index_add_(0, lab, x)
-        c = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1.0), c)
+    with obs.span("sync.kmeans"):
+        c = x[pick.to(x.device)]
+    # every iteration's bincount reads back twice; one span holds them all
+    with obs.span("sync.kmeans", syncs=BINCOUNT_SYNCS * iters):
+        for _ in range(iters):
+            lab = torch.argmin(_sqdist(x, c), dim=1)
+            cnt = torch.bincount(lab, minlength=k).to(torch.float32)[:, None]
+            sums = torch.zeros_like(c).index_add_(0, lab, x)
+            c = torch.where(cnt > 0, sums / torch.clamp(cnt, min=1.0), c)
     return c
 
 
@@ -220,29 +234,35 @@ def build_index(
     point in one pass.  Morton labels points by their interleaved-bit
     code bucketed into ~64-point groups.
     """
-    x32 = x.to(torch.float32)
-    n = x32.shape[0]
-    if method == "morton":
-        return SpatialIndex(_morton_labels(x32), None, "morton")
-    if method != "kmeans":
-        raise ValueError(f"unknown spatial ordering {method!r}")
-    k = n_clusters or default_n_clusters(n)
-    gen = torch.Generator().manual_seed(seed)
-    fit = x32 if n <= fit_sample else x32[
-        torch.randperm(n, generator=gen)[:fit_sample].to(x32.device)]
-    c = _kmeans_fit(fit, gen, k=k, iters=iters)
-    labels = torch.argmin(_sqdist(x32, c), dim=1).to(torch.int32)
-    return SpatialIndex(labels, c, "kmeans")
+    with obs.span("spatial.build_index", rows=x.shape[0], method=method):
+        x32 = x.to(torch.float32)
+        n = x32.shape[0]
+        if method == "morton":
+            return SpatialIndex(_morton_labels(x32), None, "morton")
+        if method != "kmeans":
+            raise ValueError(f"unknown spatial ordering {method!r}")
+        k = n_clusters or default_n_clusters(n)
+        gen = torch.Generator().manual_seed(seed)
+        if n <= fit_sample:
+            fit = x32
+        else:
+            with obs.span("sync.kmeans"):
+                fit = x32[torch.randperm(n, generator=gen)[:fit_sample].to(
+                    x32.device)]
+        c = _kmeans_fit(fit, gen, k=k, iters=iters)
+        labels = torch.argmin(_sqdist(x32, c), dim=1).to(torch.int32)
+        return SpatialIndex(labels, c, "kmeans")
 
 
 def assign(y: torch.Tensor, index: SpatialIndex) -> torch.Tensor:
     """Cluster labels for a NEW point set (queries) under a train index."""
-    y32 = y.to(torch.float32)
-    if index.centroids is not None:
-        return torch.argmin(_sqdist(y32, index.centroids),
-                            dim=1).to(torch.int32)
-    # morton / centroid-free indexes: group by the queries' own codes
-    return _morton_labels(y32)
+    with obs.span("spatial.assign", rows=y.shape[0]):
+        y32 = y.to(torch.float32)
+        if index.centroids is not None:
+            return torch.argmin(_sqdist(y32, index.centroids),
+                                dim=1).to(torch.int32)
+        # morton / centroid-free indexes: group by the queries' own codes
+        return _morton_labels(y32)
 
 
 # ---------------------------------------------------------------------------
@@ -327,22 +347,26 @@ def cluster_layout(x: torch.Tensor, labels, block: int, *,
     visited).  ``slack`` reserves per-cluster append headroom.
     """
     n, d = x.shape
-    lab = _numpy(labels)
-    slots = cluster_slots(lab, block, slack=slack)
-    _, caps = cluster_capacities(lab, block, slack=slack)
-    total = max(int(caps.sum()), block)
-    if bucket_rows:
-        tiles = -(-total // block)
-        total = block * (1 << max(0, math.ceil(math.log2(tiles))))
-    if total_multiple is not None:
-        total = -(-total // total_multiple) * total_multiple
-    slots_t = torch.as_tensor(slots.astype(np.int64), device=x.device)
-    points = torch.full((total, d), PAD_VALUE, dtype=x.dtype,
-                        device=x.device)
-    points[slots_t] = x
-    real = torch.zeros((total,), dtype=torch.bool, device=x.device)
-    real[slots_t] = True
-    return ClusterLayout(points, real, slots_t, block)
+    with obs.span("spatial.layout", rows=n, block=block):
+        lab = _numpy(labels)
+        slots = cluster_slots(lab, block, slack=slack)
+        _, caps = cluster_capacities(lab, block, slack=slack)
+        total = max(int(caps.sum()), block)
+        if bucket_rows:
+            tiles = -(-total // block)
+            total = block * (1 << max(0, math.ceil(math.log2(tiles))))
+        if total_multiple is not None:
+            total = -(-total // total_multiple) * total_multiple
+        with obs.span("sync.slots"):
+            slots_t = torch.as_tensor(slots.astype(np.int64),
+                                      device=x.device)
+        points = torch.full((total, d), PAD_VALUE, dtype=x.dtype,
+                            device=x.device)
+        points[slots_t] = x
+        real = torch.zeros((total,), dtype=torch.bool, device=x.device)
+        with obs.span("sync.mask"):             # the scalar's upload
+            real[slots_t] = True
+        return ClusterLayout(points, real, slots_t, block)
 
 
 # ---------------------------------------------------------------------------
@@ -375,8 +399,9 @@ def tile_metadata(xp: torch.Tensor, real: torch.Tensor, *,
     """
     npad, d = xp.shape
     t = npad // block
-    return tile_meta_from_rows(xp.to(torch.float32).reshape(t, block, d),
-                               real.reshape(t, block))
+    with obs.span("spatial.tile_metadata", tiles=t, block=block):
+        return tile_meta_from_rows(
+            xp.to(torch.float32).reshape(t, block, d), real.reshape(t, block))
 
 
 def merge_tile_meta(meta: TileMeta, tiles, sub: TileMeta) -> TileMeta:
@@ -457,30 +482,34 @@ def tile_map(
     m_pad, d = yp.shape
     mt = m_pad // block_m
     t = col_meta.centroids.shape[0]
-    y32 = yp.to(torch.float32)
-    chunk = block_m * max(1, TILE_MAP_CHUNK_ELEMS // max(1, t * block_m))
-    dmin_c = torch.empty((mt, t), dtype=torch.float32, device=yp.device)
-    for r0 in range(0, m_pad, chunk):
-        rows = y32[r0:r0 + chunk]
-        dist = torch.sqrt(_sqdist(rows, col_meta.centroids))
-        dmin_c[r0 // block_m:(r0 + rows.shape[0]) // block_m] = torch.amin(
-            dist.reshape(-1, block_m, t), dim=1)
-    dmin = torch.clamp(dmin_c - col_meta.radii[None, :], min=0.0)
-    arg = MARGIN * dmin * dmin * inv2h2.to(torch.float32).reshape(())
-    bound = _kind_weight(kind, arg, d, col_meta.max_abs) * torch.exp(-arg)
-    eps = torch.as_tensor(epsilon, dtype=torch.float32, device=yp.device)
-    skip = (arg >= UNDERFLOW_ARG) | (col_meta.counts == 0)[None, :]
-    skip = skip | ((eps > 0.0) & (bound <= eps))
-    err = torch.sum(
-        torch.where(skip,
-                    col_meta.counts[None, :].to(torch.float32) * bound,
-                    bound.new_zeros(())),
-        dim=1)
-    return TileMap(~skip, err)
+    with obs.span("spatial.tile_map", row_tiles=mt, tiles=t, kind=kind):
+        y32 = yp.to(torch.float32)
+        chunk = block_m * max(1, TILE_MAP_CHUNK_ELEMS // max(1, t * block_m))
+        dmin_c = torch.empty((mt, t), dtype=torch.float32, device=yp.device)
+        for r0 in range(0, m_pad, chunk):
+            rows = y32[r0:r0 + chunk]
+            dist = torch.sqrt(_sqdist(rows, col_meta.centroids))
+            dmin_c[r0 // block_m:(r0 + rows.shape[0]) // block_m] = \
+                torch.amin(dist.reshape(-1, block_m, t), dim=1)
+        dmin = torch.clamp(dmin_c - col_meta.radii[None, :], min=0.0)
+        arg = MARGIN * dmin * dmin * inv2h2.to(torch.float32).reshape(())
+        bound = _kind_weight(kind, arg, d, col_meta.max_abs) * torch.exp(-arg)
+        with obs.span("sync.epsilon"):
+            eps = torch.as_tensor(epsilon, dtype=torch.float32,
+                                  device=yp.device)
+        skip = (arg >= UNDERFLOW_ARG) | (col_meta.counts == 0)[None, :]
+        skip = skip | ((eps > 0.0) & (bound <= eps))
+        err = torch.sum(
+            torch.where(skip,
+                        col_meta.counts[None, :].to(torch.float32) * bound,
+                        bound.new_zeros(())),
+            dim=1)
+        return TileMap(~skip, err)
 
 
 def visit_lists(keep: torch.Tensor, *, bucket_visits: bool = True,
-                err_bound: Optional[torch.Tensor] = None) -> VisitLists:
+                err_bound: Optional[torch.Tensor] = None,
+                real_rows: Optional[torch.Tensor] = None) -> VisitLists:
     """Compact a keep matrix into the per-row-tile visit-list layout.
 
     Row ``i`` lists its kept column tiles in ascending order; slots past
@@ -489,32 +518,46 @@ def visit_lists(keep: torch.Tensor, *, bucket_visits: bool = True,
     rounded up to a power of two (capped at the tile count) when
     ``bucket_visits``.  Runs on ``keep``'s device; only the largest count
     and the visit total are read back, with the largest ``err_bound``
-    (``TileMap.err_bound``, telemetry) in the same transfer when given.
+    (``TileMap.err_bound``, telemetry) and ``Σ real_rows · counts``
+    (``real_rows``, (mt,) real rows of each row tile: the rows the visits
+    stream that are not sentinels) in the same transfer when given.
     """
     mt, t = keep.shape
-    counts = keep.sum(dim=1, dtype=torch.int32)
-    max_err = 0.0
-    if mt:
-        parts = [counts.max().double(), counts.sum().double()]
-        if err_bound is not None and err_bound.numel():
-            parts.append(err_bound.max().double())
-        got = torch.stack(parts).tolist()
-        cmax, total = int(got[0]), int(got[1])
-        max_err = got[2] if len(got) > 2 else 0.0
-    else:
-        cmax, total = 0, 0
-    kmax = max(cmax, 1)
-    if bucket_visits and kmax < t:
-        kmax = min(t, 1 << max(0, math.ceil(math.log2(kmax))))
-    rows, cols = torch.nonzero(keep, as_tuple=True)   # row-major: stable
-    pos = torch.cumsum(keep, dim=1, dtype=torch.int64)[rows, cols] - 1
-    first = torch.zeros((mt,), dtype=torch.int64, device=keep.device)
-    first[rows[pos == 0]] = cols[pos == 0]
-    tmap = first[:, None].expand(mt, kmax).contiguous()
-    tmap[rows, pos] = cols
-    occ = float(total / mt / t) if t and mt else 1.0
-    return VisitLists(counts, tmap.to(torch.int32), int(kmax), occ,
-                      float(max_err))
+    with obs.span("spatial.visit_lists", row_tiles=mt, tiles=t):
+        counts = keep.sum(dim=1, dtype=torch.int32)
+        max_err, real = 0.0, 0
+        if mt:
+            parts = [counts.max().double(), counts.sum().double()]
+            if err_bound is not None and err_bound.numel():
+                parts.append(err_bound.max().double())
+            if real_rows is not None:
+                parts.append(torch.dot(counts.double(), real_rows.double()))
+            with obs.span("sync.visit_lists"):
+                got = torch.stack(parts).tolist()
+            cmax, total = int(got[0]), int(got[1])
+            if real_rows is not None:
+                real = int(got.pop())
+            max_err = got[2] if len(got) > 2 else 0.0
+        else:
+            cmax, total = 0, 0
+        kmax = max(cmax, 1)
+        if bucket_visits and kmax < t:
+            kmax = min(t, 1 << max(0, math.ceil(math.log2(kmax))))
+        # three reads back, a span each: the nonzero's count, then the
+        # sizes of the two masked selections of each row's first kept tile
+        with obs.span("sync.compact"):
+            rows, cols = torch.nonzero(keep, as_tuple=True)  # row-major
+        pos = torch.cumsum(keep, dim=1, dtype=torch.int64)[rows, cols] - 1
+        first = torch.zeros((mt,), dtype=torch.int64, device=keep.device)
+        with obs.span("sync.compact"):
+            lead = cols[pos == 0]
+        with obs.span("sync.compact"):
+            first[rows[pos == 0]] = lead
+        tmap = first[:, None].expand(mt, kmax).contiguous()
+        tmap[rows, pos] = cols
+        occ = float(total / mt / t) if t and mt else 1.0
+        return VisitLists(counts, tmap.to(torch.int32), int(kmax), occ,
+                          float(max_err), total, real)
 
 
 def partition_clusters(labels, n_shards: int) -> np.ndarray:

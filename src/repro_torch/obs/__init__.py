@@ -24,12 +24,23 @@ Export surfaces:
   * ``obs.trace_events()`` / ``obs.span_tree()`` — buffered span events
     and their parent-id reconstruction.
 
-Instrumented layers: ``serve/engine.py`` (request → dispatch → bucket →
-compile spans, latency + staleness + pad-ratio + compile-seconds
-histograms), ``serve/batching.py`` (bucket-cache hit/miss/eviction
-counters), ``stream/estimator.py`` (append/evict/flush/rebuild spans,
-dirty-tile and slack-occupancy gauges) and ``kernels/ops.py`` (prune
-visit fraction, certificate budgets, pruned-pass spans).
+Instrumented layers: ``serve/frontend.py`` (batch, idle, straggler-wait
+and finish spans; admission counters, queue-depth and admit-rate gauges,
+queue-wait histogram), ``serve/engine.py`` (request → dispatch → bucket →
+compile spans, coalesce / split spans, latency + staleness + pad-ratio +
+compile-seconds histograms), ``serve/batching.py`` (bucket-cache
+hit/miss/eviction counters), ``stream/estimator.py``
+(append/evict/flush/rebuild spans, dirty-tile and slack-occupancy
+gauges), ``core/estimator.py`` (fit / evaluate spans),
+``kernels/ops.py`` (wrapper, prepass and pruned-launch spans, the
+launches' streamed and real row counts, prune visit fraction,
+certificate budgets), ``kernels/spatial.py`` (index, assignment,
+layout, tile-metadata, tile-map and visit-list spans).  A ``sync.<site>``
+span surrounds each call on these paths that waits for the card
+(``sync.bandwidth``, ``sync.inv2h2``, ``sync.engine``, ...); one that
+waits more than once carries ``syncs`` (only k-means' Lloyd loop, whose
+bincounts each read back twice).  ``tools/sync_audit.py`` checks on the
+card that every wait lies in one and that each span's count is right.
 """
 
 from repro_torch.obs import state

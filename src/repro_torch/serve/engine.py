@@ -46,7 +46,9 @@ The staleness gate (``_serve``) serves a snapshot at most
 
 Telemetry goes through ``repro_torch.obs`` with ``repro``'s names: spans
 ``serve.request`` → ``serve.dispatch`` → ``serve.bucket`` (→
-``serve.compile`` on a miss) and ``plan.prewarm``, counters
+``serve.compile`` on a miss) and ``plan.prewarm``; and the port's own:
+``serve.coalesce`` (fusing a ``query_many``'s members), ``sync.engine``
+(the wait for the card before an answer) and ``serve.split``; counters
 ``serve.requests`` / ``serve.queries`` / ``serve.deadline_exceeded`` /
 ``serve.pin_overrides_plan`` / ``plan.prewarms`` (and the cascade's,
 ``serve/cascade.py``), histograms ``serve.pad_ratio``,
@@ -155,7 +157,8 @@ class ServeEngine:
                       requests=1):
             t0 = time.perf_counter()
             ans, _ = self._serve(prep, y, [request], [int(y.shape[0])])
-            device_mod.synchronize(y.device)
+            with obs.span("sync.engine"):
+                device_mod.synchronize(y.device)
             dt = time.perf_counter() - t0
         self._check_deadline(request.key, deadline, phase="answer")
         self._note_served(dt, y.shape[0], 1)
@@ -178,7 +181,9 @@ class ServeEngine:
             raise BadRequest("fused query_many requests must share one key "
                              "and one precision pin")
         prep = self.registry.get(key)
-        fused, sizes = coalesce([self._points(prep, r.points) for r in reqs])
+        with obs.span("serve.coalesce", requests=len(reqs)):
+            fused, sizes = coalesce([self._points(prep, r.points)
+                                     for r in reqs])
         now = time.monotonic()
         member_dl = [now + r.deadline_s for r in reqs
                      if r.deadline_s is not None]
@@ -188,11 +193,13 @@ class ServeEngine:
                       requests=len(sizes)):
             t0 = time.perf_counter()
             ans, esc_rows = self._serve(prep, fused, reqs, sizes)
-            device_mod.synchronize(fused.device)
+            with obs.span("sync.engine"):
+                device_mod.synchronize(fused.device)
             dt = time.perf_counter() - t0
         self._check_deadline(key, deadline, phase="answer")
         self._note_served(dt, fused.shape[0], len(sizes))
-        return self._split_answer(ans, len(reqs), sizes, esc_rows, dt)
+        with obs.span("serve.split", requests=len(reqs)):
+            return self._split_answer(ans, len(reqs), sizes, esc_rows, dt)
 
     def _serve(self, prep: PreparedEstimator, y: torch.Tensor,
                reqs: Sequence[QueryRequest], sizes: Sequence[int]):

@@ -53,7 +53,10 @@ on the dispatch path requeues the batch (bounded by ``max_retries``).
 Instruments (``repro``'s names): ``frontend.queue_depth`` and
 ``frontend.admit_rate`` gauges, admitted / rejected / brownout / expired /
 retries / late-answer counters, the ``frontend.queue_wait_s`` histogram
-and ``frontend.batch`` spans.
+and ``frontend.batch`` spans; and the port's spans of a worker's other
+time: ``frontend.idle`` (waiting on an empty queue), ``frontend.wait``
+(the ``batch_wait_ms`` wait for stragglers) and ``frontend.finish``
+(resolving a batch's futures).
 
 Points are converted to tensors on the engine's device at admission, so a
 fused dispatch concatenates on the card.
@@ -492,7 +495,8 @@ class AsyncFrontend:
                     break
                 if not block:
                     return []
-                self._cv.wait(timeout=0.1)
+                with obs.span("frontend.idle"):
+                    self._cv.wait(timeout=0.1)
             first = self._pop_live()
             if first is None:
                 return []
@@ -508,7 +512,8 @@ class AsyncFrontend:
             slack = first.deadline - self._clock()
             wait_s = min(cfg.batch_wait_ms / 1e3, max(slack, 0.0))
             if block and len(batch) == 1 and not self._heap and wait_s > 0:
-                self._cv.wait(timeout=wait_s)
+                with obs.span("frontend.wait"):
+                    self._cv.wait(timeout=wait_s)
                 self._coalesce_into(batch)
             obs.gauge("frontend.queue_depth",
                       "admission queue depth").set(len(self._heap))
@@ -607,8 +612,9 @@ class AsyncFrontend:
                             labels={"type": type(e).__name__}).inc()
                 self._resolve_error(batch, e)
                 return
-            self._finish(batch, answers, browned, state,
-                         self._clock() - t0)
+            with obs.span("frontend.finish", requests=len(batch)):
+                self._finish(batch, answers, browned, state,
+                             self._clock() - t0)
         finally:
             with self._cv:
                 self._inflight -= 1

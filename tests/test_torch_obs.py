@@ -267,8 +267,10 @@ def test_span_nesting_and_ordering_under_query_many(data):
     assert order.index("serve.dispatch") < order.index("serve.request")
     assert req[0]["ts_us"] <= disp[0]["ts_us"] <= buck[0]["ts_us"]
     assert buck[0]["dur_us"] <= req[0]["dur_us"]
+    seen = len(obs.trace_events())
     eng.query_many(reqs)                           # reuses the callable
-    hit = [e for e in obs.trace_events()[-3:] if e["name"] == "serve.bucket"]
+    hit = [e for e in obs.trace_events()[seen:]
+           if e["name"] == "serve.bucket"]
     assert hit and hit[0]["attrs"]["cache"] == "hit"
     tree = obs.span_tree(obs.trace_events())
     assert any(c["name"] == "serve.dispatch" for c in tree[req[0]["id"]])
@@ -434,8 +436,10 @@ def test_streaming_soak_trace_reconstruction(data):
         assert b["bucket"] >= b["rows"] == req["attrs"]["rows"]
         assert b["pad_ratio"] == pytest.approx(b["bucket"] / b["rows"],
                                                rel=1e-3)
-        kern = [c for c in tree.get(buck[0]["id"], ())
-                if c["name"] == "kernels.pruned_eval"]
+        # the launch span sits under the wrapper's kernels.eval span
+        kern = [k for c in tree.get(buck[0]["id"], ())
+                for k in [c] + tree.get(c["id"], [])
+                if k["name"] == "kernels.pruned_eval"]
         assert kern and 0.0 < kern[0]["attrs"]["occupancy"] <= 1.0
     names = {e["name"] for e in ev}
     assert {"stream.append", "stream.flush", "stream.rebuild"} <= names
