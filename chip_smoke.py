@@ -21,7 +21,9 @@ Run from the repository root.  Phases, each printing its lines:
                   d <= 32 must not spill, nor a dense KDE-pass one, B2,
                   B5 or B6, at any d); the HMMA/HGMMA instructions in
                   the SASS of each B1-B6 instantiation (cuobjdump; the
-                  bf16 tiers must have them, f32 none); B7's
+                  bf16 tiers and the f32 score pass, B1 and B3, must
+                  have them, the f32 KDE pass none, and none may be
+                  TF32); B7's
                   registers, spills and warps an SM at N = 4 and 16,
                   both modes and input types;
   3. kernels      each kernel against its plain PyTorch version on the
@@ -733,7 +735,8 @@ _WEIGHTS = {None: "", "0": "", "1": ",laplace", "2": ",sq_moment"}
 _PTXAS_SCAN = re.compile(
     r"selective_scan_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E")
 # the tensor-core instructions counted in the SASS of each instantiation
-_TENSOR_OPS = re.compile(r"\b(HMMA|HGMMA)\b")
+# (their mnemonic with its shape and types, HMMA.16816.F32.BF16)
+_TENSOR_OPS = re.compile(r"\b(?:HMMA|HGMMA)\b[\w.]*")
 
 
 def kernel_key(fn: str) -> str:
@@ -773,9 +776,9 @@ def ptxas_summary(text: str) -> list:
 
 
 def tensor_op_counts(_build, name: str):
-    """{kernel<...>: HMMA/HGMMA instructions} in the SASS of library
-    ``name`` (cuobjdump -sass), or None where the toolkit has no
-    cuobjdump."""
+    """{kernel<...>: (HMMA/HGMMA instructions, those of them on BF16
+    operands, those on TF32 operands)} in the SASS of library ``name``
+    (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
     exe = Path(_build.nvcc()).with_name("cuobjdump")
     if not exe.exists():
         return None
@@ -787,9 +790,13 @@ def tensor_op_counts(_build, name: str):
         m = re.search(r"Function : (\w+)", ln)
         if m:
             fn = kernel_key(m.group(1))
-            counts[fn] = 0
+            counts[fn] = (0, 0, 0)
         elif fn is not None:
-            counts[fn] += len(_TENSOR_OPS.findall(ln))
+            ops = _TENSOR_OPS.findall(ln)
+            counts[fn] = tuple(
+                c + n for c, n in zip(counts[fn], (
+                    len(ops), sum(".BF16" in o for o in ops),
+                    sum(".TF32" in o for o in ops))))
     return counts
 
 
@@ -850,7 +857,9 @@ def phase_build(_build) -> dict:
                 raise AssertionError(f"{name}: score-pass instantiations "
                                      f"spill at d <= 32: {narrow}")
     log(f"  build wall time {time.perf_counter() - t0:.1f} s")
-    # B1-B6: the bf16 tiers' products run on the tensor cores, f32's not
+    # B1-B6: the bf16 tiers' products run on the tensor cores, and so do
+    # the f32 score pass's (B1, B3: three exact bf16 planes a side); the
+    # f32 KDE pass's (B2, B4, B5, B6) run on FP32 FMAs; none on TF32
     hmma = {}
     for name in ("flash_score", "flash_kde", "flash_pruned",
                  "flash_laplace"):
@@ -861,27 +870,35 @@ def phase_build(_build) -> dict:
             continue
         passes = {k: v for k, v in counts.items()
                   if k.startswith(("kde_pass<", "score_pass<"))}
-        log(f"  {name}: HMMA/HGMMA instructions per split-column "
-            "instantiation: " + ", ".join(f"{k} {v}"
-                                          for k, v in sorted(passes.items())))
-        wrong = [k for k, v in passes.items()
-                 if (v > 0) != ("<f32," not in k)]
+        log(f"  {name}: HMMA/HGMMA instructions (on BF16, on TF32) per "
+            "split-column instantiation: " + ", ".join(
+                f"{k} {v} ({b}, {t})"
+                for k, (v, b, t) in sorted(passes.items())))
+        wrong = [k for k, (v, b, t) in passes.items()
+                 if t or (v if k.startswith("kde_pass<f32,") else not b)]
         if not passes or wrong:
-            raise AssertionError(f"{name}: the bf16 tiers must use tensor "
-                                 f"cores and f32 none: {wrong or counts}")
-        hmma[name] = passes
+            raise AssertionError(
+                f"{name}: the bf16 tiers and the f32 score pass must use "
+                "BF16 tensor instructions, the f32 KDE pass none, and none "
+                f"TF32: {wrong or counts}")
+        hmma[name] = {k: v for k, (v, _, _) in passes.items()}
     return hmma, scan_regs
 
 
 def score_mass_args(args, i):
-    """B1's or B3's arguments with |[X|1]| for xaug (at ``args[i]``) and
-    its lo plane (the last argument): the plain pass then gives each
-    value's absolute mass, sum_j phi_ij |[x_j | 1]_k| (at bf16x2 an upper
-    bound, |hi| + |lo|).  S1 cancels between points on either side of
-    x_i, so the score pass's error is absolute, bar times this mass (as
-    the Laplace sums are held); for the ones column, S0, the mass is S0
+    """B1's or B3's arguments with |[X|1]| for xaug (at ``args[i]``; at
+    f32, where it is None, made from xt at ``args[i - 1]``) and its lo
+    plane (the last argument): the plain pass then gives each value's
+    absolute mass, sum_j phi_ij |[x_j | 1]_k| (at bf16x2 an upper bound,
+    |hi| + |lo|).  S1 cancels between points on either side of x_i, so
+    the score pass's error is absolute, bar times this mass (as the
+    Laplace sums are held); for the ones column, S0, the mass is S0
     itself."""
+    from repro_torch.kernels import flash_score as fs
+
     out = list(args)
+    if out[i] is None:
+        out[i] = fs.ones_augmented(out[i - 1])
     for k in (i, len(out) - 1):
         if out[k] is not None:
             out[k] = out[k].abs()
@@ -4153,10 +4170,12 @@ def fig5_utilization(mixture, gen, est_mod, paper, card) -> dict:
 
 def roofline_rows(timings, ssm, card) -> dict:
     """13d: roofline rows (``analysis.roofline.format_table``): B1 and B2
-    at the main shape from their per-pair FP32 operations and bytes
-    (``tuning.pair_operations``; their model FLOPs are that count, so
-    the MFU at the measured time is the FP32 peak's share the kernel
-    reached) beside their measured time, and the SSM prefill: 2·N·D
+    at the main shape from their per-pair operations and bytes
+    (``tuning.pair_operations``: B1's plane products at the tensor-core
+    peak, B2's FP32 operations at the FP32 peak) beside their measured
+    time.  B2's model FLOPs are that count; B1's are the function's own
+    products, 2d + 2(d+1) a pair, not the split's six plane products, so
+    its MFU counts no redundant work.  And the SSM prefill: 2·N·D
     model FLOPs over phase 8's warm prefill (its MFU at the bf16 peak)
     and the aten products' FLOPs FlopCounterMode counted there."""
     from repro_torch.analysis import flops as fl_mod
@@ -4169,10 +4188,13 @@ def roofline_rows(timings, ssm, card) -> dict:
                             ("B2 flash_kde", "kde", "flash_kde")):
         e = timings["entries"][key]["f32"]
         gemm, elem = tuning.pair_operations(kind, "f32", D)
-        work = e["pairs"] * (gemm + elem)
+        tensor = tuning.on_tensor_cores(kind, "f32")
+        work = e["pairs"] * (gemm if tensor else gemm + elem)
+        own = e["pairs"] * (4 * D + 2) if kind == "score" else work
         t = roofline.roofline_from_counts(
             arch=name, shape=f"{N_TRAIN}x{N_TRAIN}x{D} f32", flops=work,
-            bytes=e["moved"], model_flops=work, hw=roofline.HW_FP32)
+            bytes=e["moved"], model_flops=own,
+            hw=roofline.HW if tensor else roofline.HW_FP32)
         terms.append(t)
         measured[name] = e["ms"]
     cfg = serve_mod.build_config(SERVE_ARCH, layers=SERVE_LAYERS)

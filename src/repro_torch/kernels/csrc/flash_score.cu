@@ -8,24 +8,25 @@
 //     S1aug_i = sum_j phi_ij * [x_j | 1]                 (m, d+1), f32
 // i.e. the score numerator and denominator of SD-KDE in one pass.  The
 // Gram operands are x (rows, m x d, norms nrm_y) and xt (columns, d x n,
-// norms nrm_x); the second product's operand is xaug = [x_cols | 1]
-// (n x (d+1)).  The fit's pass over one train set is m = n with nrm_y ==
+// norms nrm_x); the second product's operand is [x_cols | 1]: xaug
+// (n x (d+1)) at the bf16 tiers, made in the kernel from xt at f32
+// (xaug null).  The fit's pass over one train set is m = n with nrm_y ==
 // nrm_x; the ring (distributed/ring.py, ring2d.py) pairs a rank's
 // resident rows with a visiting block of other points.
 //
 // Bound on this card: operations.  Per pair the kernel does 2d flops of
 // Gram, 2(d+1) of the weighted sum and one exp; the bytes it must move
-// are the operands once and S1aug once, a few MB at n = 32768.  The f32
-// tier's floor is the FP32 rate (67 TFLOP/s); the bf16 tiers' the SFU's
-// exp.
+// are the operands once and S1aug once, a few MB at n = 32768.  Every
+// tier runs both products on the tensor cores: the f32 tier as six bf16
+// products of three exact planes a side (its floor the tensor-core rate
+// on 24d + 6 flops a pair), the bf16 tiers' floor the SFU's exp.
 //
 // Design: flash_score_pass.cuh's split-column body over every column
 // tile (AllTiles): a grid of 64-row blocks x column splits (x output
-// coordinate groups at bf16x2, d > 16), 4 x 8 FP32 register tiles and a
-// phi tile in shared memory (f32) or mma.sync bf16 tiles for both
-// products (bf16, bf16x2), cp.async staging of the columns, their norms
-// and their [X|1] rows, and a second pass that adds each value's split
-// partials in order.  part is the (splits, m, d+1) f32 scratch the
+// coordinate groups at bf16x2, d > 16), wgmma on three exact bf16 planes
+// of both products (f32) or mma.sync bf16 tiles (bf16, bf16x2), cp.async
+// staging of the columns, their norms and (bf16 tiers) their [X|1] rows,
+// and a second pass that adds each value's split partials in order.  part is the (splits, m, d+1) f32 scratch the
 // wrapper allocates (none with one split, where the kernel writes out).
 
 #include "flash_score_pass.cuh"

@@ -12,11 +12,17 @@
 // m = n with one norm vector passed for both, as B3 always runs.
 //
 // Bound: the operations.  Per pair 2d flops of Gram, 2(d+1) of the
-// second product phi.[X|1] and one exp.  At the main shape (32768 x
-// 32768 x 16) that is 1.106 ms at the FP32 rate for the f32 tier; the
-// bf16 tiers run both products on the tensor cores and are bounded by
-// the SFU's exp (0.257 ms).  The bytes (operands once, S1aug once) are a
-// few MB.
+// second product phi.[X|1] and one exp.  Every tier runs both products
+// on the tensor cores.  The f32 tier runs them as six bf16 products of
+// three exact planes a side (below), 24d + 6 tensor flops a pair: 0.42
+// ms at the main shape (32768 x 32768 x 16) at 989 TFLOP/s, beside the
+// SFU's exp (0.257 ms, tuning.EXP_RATE).  What it takes is instruction
+// issue: its epilogue's ~21 instructions a pair (the norm sum, the
+// clamp, the scale, expf's 8, phi's split into three planes) alone
+// would take 0.7 ms; with the waits between the wgmma groups it runs at
+// ~45 issue slots a pair, ~1.5 ms (tuning.SPLIT_INSTR, fitted).  The
+// bf16 tiers are bounded by the SFU's exp (0.257 ms).  The bytes
+// (operands once, S1aug once) are a few MB.
 //
 // Design (the KDE pass's, flash_kde_pass.cuh, whose cursor, chunk loop,
 // staging and Gram it shares):
@@ -29,27 +35,58 @@
 //    the same bits.  The splits are planned from m, n, block_n, d and
 //    the visit width (kernels/flash_score.py, plan_score_splits), with
 //    the scratch capped.  A B3 block whose slots start past counts[i] writes
-//    zeros; it reads the next tile index one slot ahead.
+//    zeros; it reads the next tile index one slot ahead.  At bf16x2,
+//    grid axis g carries runs of kNTG n8 tiles of output coordinates
+//    where one block cannot hold them all; each run repeats the Gram.
 //  * Staging.  Each cp.async chunk of 128 columns (kCols) carries the
-//    columns of xt (the Gram's B operand, as in the KDE pass), their
-//    norms (nrm_x) and their [X|1] rows.  A chunk's rows of xaug, (n, d+1)
-//    row-major, are one contiguous run of 128 (d+1) values, copied as
-//    is (16-byte copies where aligned) into the stage.  A row of d+1
-//    values is not 16 bytes wide, so the bf16 tiers relay the rows kLa
-//    apart (d+1 padded to a multiple of 8) in a second buffer after the
-//    chunk lands, one row a thread, for ldmatrix; the f32 tier reads
-//    them where they lie.
-//  * f32 tier: IEEE FP32 FMAs, no TF32.  The Gram runs on the KDE pass's
-//    4 x 8 register tiles; the epilogue writes phi to shared memory
-//    (64 rows x 128 columns, 34 KB) and sums phi per row for the
-//    denominator, as B2 sums it: the ones column would be a 17th
-//    coordinate that the 4-wide register tiles of the second product do
-//    not divide, and summing phi costs one add a pair.  Then a second
-//    register-tile product, phi.X: each thread owns 4 rows x kC
-//    coordinates of one k-group (a run of the chunk's columns) for the
-//    whole walk, so the running sums stay within the register cap
-//    (4 rows x 17 values and their partials would be 136 registers).  The
-//    k-groups' sums are added in order at the end.
+//    columns of xt (the Gram's B operand, as in the KDE pass) and their
+//    norms (nrm_x); at the bf16 tiers also their [X|1] rows.  A chunk's
+//    rows of xaug, (n, d+1) row-major, are one contiguous run of 128 (d+1)
+//    values, copied as is (16-byte copies where aligned) into the stage.
+//    A row of d+1 values is not 16 bytes wide, so the bf16 tiers relay
+//    the rows kLa apart (d+1 padded to a multiple of 8) in a second
+//    buffer after the chunk lands, one row a thread, for ldmatrix.
+//  * f32 tier: three exact bf16 planes on wgmma, no TF32.  An f32 value
+//    v is h + m + l exactly, h = bf16(v), m = bf16(v - h),
+//    l = bf16(v - h - m) (round to nearest even; 24 bits of significand
+//    in three of 8, and bf16 has f32's exponent range;
+//    precision.split_three mirrors the split).
+//    - The block is one warpgroup: its 64 rows are the M of
+//      wgmma.mma_async m64nNk16, A from registers.  The rows split into
+//      A fragments once a block.  When a chunk of columns lands, thread c
+//      splits column c into the planes h, m, l, 8 x 8 core matrices as
+//      wgmma reads them without a swizzle: its d coordinates, the ones
+//      column of [X|1] at d (1 + 0 + 0, written into the stage's padding
+//      once a launch), zeros past it.  The planes serve both products:
+//      the Gram's B K-major (columns as n), the second product's B
+//      MN-major (columns as k).  So the f32 tier reads the columns once,
+//      from xt; its wrappers pass no xaug (null).
+//    - Gram, NC columns at a time (64 up to DMAX 16, else 32): six of
+//      the nine plane products, hl + mm + lh (weight 2^-16), hm + mh
+//      (2^-8) and hh, into one accumulator, smallest weight first, so
+//      the small terms are summed before the large ones reach it.  The
+//      three dropped products weigh 2^-24 or less, f32's own rounding.
+//      Every product of two bf16 values is exact in the f32 accumulator.
+//    - phi goes from the Gram's accumulators into A fragments in
+//      registers (two n8 tiles make one k16 step), split into its three
+//      planes there, and multiplies the three planes of [X|1] (N = the
+//      d coordinates and the ones column, padded to n8 tiles) with the
+//      same six products into three chains by weight.  The chains run
+//      over a column tile, its first product starting them from zero,
+//      and are added smallest first into the running sums at its end,
+//      compensated (Kahan; the compensations in shared memory).
+//      S1 feeds score = (S1 - x S0) / (h^2 S0), which cancels, so it
+//      keeps f32's relative accuracy; S0 is the ones column, summed like
+//      S1.  Plain f32 running sums lose each tile's low bits, an error
+//      that grows with the tiles (~7,500 a row in B3 at 1M) and leaves
+//      the shift ten times less accurate there than at 32k; compensated,
+//      it is as accurate at 1M as at 32k.
+//    - Overlap: the Gram of the next NC columns is issued before this
+//      NC columns' exp epilogue, and waited for after it, so the tensor
+//      cores work through the epilogue; three blocks an SM (two past
+//      DMAX 16) overlap each other's splits and waits.  Only wgmma
+//      writes its accumulators (no stores into a chain), so ptxas keeps
+//      the wgmmas in flight.
 //  * bf16 and bf16x2 tiers: both products on mma.sync m16n8k16 (bf16
 //    inputs, f32 accumulation).  The Gram is the KDE pass's; phi goes
 //    from its C fragments straight into the A fragments of the second
@@ -79,49 +116,50 @@ namespace flash {
 template <typename T, bool X2, int DMAX>
 struct ScoreSmem {
   using P = PassSmem<T, X2, DMAX>;  // the staged columns' planes, norms
-  static constexpr bool kTensor = P::kTensor;
+  static constexpr bool kTensor = P::kTensor;  // the bf16 tiers
   static constexpr int kPlanes = P::kPlanes;
   static constexpr int kW = DMAX + 1;  // the widest [X|1] row
   // chunks in the ring: three where they fit beside the other buffers
-  static constexpr int kStages = kTensor && DMAX <= 16 ? 3 : 2;
-  // a chunk's [X|1] rows as they lie in memory, d+1 apart, with DMAX
-  // values of slack that the f32 product reads past the last row
+  static constexpr int kStages = DMAX <= 16 ? 3 : 2;
+  // bf16 tiers: a chunk's [X|1] rows as they lie in memory, d+1 apart,
+  // with DMAX values of slack
   static constexpr size_t kRawPlane =
       (((size_t)kCols * kW + DMAX) * sizeof(T) + 15) / 16 * 16;
   static constexpr size_t kAugOff =
       kPlanes * P::kPlane + kCols * sizeof(float);
-  static constexpr size_t kStage = kAugOff + kPlanes * kRawPlane;
-  // bf16 tiers: the rows relaid kLa apart for ldmatrix.  kLa is an odd
-  // multiple of 8 elements (24, 40, 72), so the 8 rows of one 8x8
-  // matrix fall on distinct banks; kNT n8 tiles of output coordinates.
-  static constexpr int kLa = (kW + 7) / 8 * 8;
-  static constexpr int kNT = kLa / 8;
-  static constexpr size_t kPadPlane = (size_t)kCols * kLa * sizeof(T);
-  static constexpr size_t kPad = kTensor ? kPlanes * kPadPlane : 0;
-  // f32 tier: the block's rows [DMAX][kRows] and phi [kCols][kPhiLd]
-  // (4 rows past 64: a warp's float4 stores take the fewest wavefronts)
-  static constexpr int kPhiLd = kRows + 4;
-  static constexpr size_t kRowsBytes =
-      kTensor ? 0 : (size_t)DMAX * kRows * sizeof(float);
-  static constexpr size_t kPhi =
-      kTensor ? 0 : (size_t)kCols * kPhiLd * sizeof(float);
-  static constexpr size_t kBytes =
-      kStages * kStage + kPad + kRowsBytes + kPhi;
+  static constexpr size_t kStage =
+      kTensor ? kAugOff + kPlanes * kRawPlane : P::kStage;
+  static constexpr int kK = DMAX < 16 ? 16 : DMAX;  // the Gram's k
+  // bf16 tiers: kNT n8 tiles of output coordinates (d+1 padded), the
+  // [X|1] rows relaid kLa apart for ldmatrix, an odd multiple of 8
+  // elements (24, 40, 72), so the 8 rows of one 8x8 matrix fall on
+  // distinct banks.  f32: kNO n8 tiles of output coordinates (DMAX and
+  // the ones column), and kKG groups of 8 coordinates a split column,
+  // enough for the Gram's k and for the output tiles; a plane holds
+  // kCols x kLa bf16.
+  static constexpr int kNT = (kK + 8) / 8;
+  static constexpr int kNO = kTensor ? kNT : (DMAX + 8) / 8;
+  static constexpr int kKG = kTensor ? kNT : (kK / 8 > kNO ? kK / 8 : kNO);
+  static constexpr int kLa = 8 * kKG;
+  static constexpr size_t kPadPlane =
+      (size_t)kCols * kLa * sizeof(__nv_bfloat16);
+  static constexpr size_t kPad = (kTensor ? kPlanes : 3) * kPadPlane;
+  // f32: each thread's compensations of its running sums (kNO n8 tiles,
+  // four values a thread each), one value apart for each thread
+  static constexpr size_t kComp =
+      kTensor ? 0 : (size_t)kThreads * 4 * kNO * sizeof(float);
+  static constexpr size_t kBytes = kStages * kStage + kPad + kComp;
   // blocks per SM the shared memory allows (228 KB an SM, 1 KB reserved
-  // a block), at most 4 at the bf16 tiers and 3 at f32 (whose two
-  // register tiles spill under 4 blocks' 128 registers); ptxas sizes
-  // the registers for them
+  // a block), at most 4 at the bf16 tiers and 3 (2 past DMAX 16) at f32,
+  // whose three chains, two Grams in flight, phi's planes and three
+  // planes of row fragments spill under 4 blocks' 128 registers; ptxas
+  // sizes the registers for them
   static constexpr int kBySmem = (int)(233472 / (kBytes + 1024));
-  static constexpr int kMaxBlocks = kTensor ? 4 : 3;
+  static constexpr int kMaxBlocks = kTensor ? 4 : (DMAX <= 16 ? 3 : 2);
   static constexpr int kMinBlocks =
       kBySmem < 1 ? 1 : (kBySmem > kMaxBlocks ? kMaxBlocks : kBySmem);
-  // bf16 tiers: the n8 output tiles one block carries
-  static constexpr int kNTG = X2 && kNT > 3 ? 3 : kNT;
-  // f32 second product: 4 rows x kC coordinates a thread, 16 row groups
-  // x kCG coordinate groups x kKG k-groups = 128 threads
-  static constexpr int kC = DMAX <= 32 ? 4 : 8;
-  static constexpr int kCG = DMAX < kC ? 1 : DMAX / kC;
-  static constexpr int kKG = kThreads / (16 * kCG);
+  // the n8 output tiles one block carries
+  static constexpr int kNTG = X2 && kNT > 3 ? 3 : (kTensor ? kNT : kNO);
 };
 
 // Copy a chunk's [X|1] rows, len = cols (d+1) contiguous values from
@@ -184,6 +222,292 @@ __device__ __forceinline__ void relayout_aug(const unsigned char* raw_base,
   }
 }
 
+// Two f32 values as packed bf16, lo in the lower half, each rounded to
+// nearest even (one cvt), and each half back as f32 (exact).
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ float lo_f32(uint32_t p) {
+  return __uint_as_float(p << 16);
+}
+
+__device__ __forceinline__ float hi_f32(uint32_t p) {
+  return __uint_as_float(p & 0xffff0000u);
+}
+
+// f32 tier: v0 and v1 (the lower and upper half of each word) as three
+// packed bf16 planes, v = h + m + l exactly: h = bf16(v), m = bf16(v - h),
+// l = bf16(v - h - m), each rounded to nearest even.  Both differences
+// are exact in f32, and the last has at most 8 significant bits.
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& h,
+                                       uint32_t& m, uint32_t& l) {
+  h = pack_rn(v0, v1);
+  const float r0 = v0 - lo_f32(h);
+  const float r1 = v1 - hi_f32(h);
+  m = pack_rn(r0, r1);
+  l = pack_rn(r0 - lo_f32(m), r1 - hi_f32(m));
+}
+
+// f32 tier: the three planes of the A fragments of a warp's 16 rows
+// (rbase ..), KS k-steps of 16 coordinates, zero past d and past row_end.
+template <int KS>
+__device__ __forceinline__ void load_rows_split(uint32_t (&a)[3][KS][4],
+                                                const float* __restrict__ y,
+                                                int rbase, int row_end,
+                                                int d, int lane) {
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  auto y_at = [&](int r, int k) {
+    const int row = rbase + r;
+    return (row < row_end && k < d) ? y[(size_t)row * d + k] : 0.f;
+  };
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int r = gid + (f & 1) * 8;
+      const int k = ks * 16 + 2 * tig + (f >> 1) * 8;
+      split3(y_at(r, k), y_at(r, k + 1), a[0][ks][f], a[1][ks][f],
+             a[2][ks][f]);
+    }
+  }
+}
+
+// f32 tier: coordinates d .. DMAX of every ring buffer's column plane,
+// for the launch: the ones column of [X|1] at d, zeros past it (the copies
+// write coordinates below d only).
+template <typename P>
+__device__ __forceinline__ void pad_columns_ones(unsigned char* smem,
+                                                 size_t stage, int stages,
+                                                 int d, int tid) {
+  for (int buf = 0; buf < stages; ++buf) {
+    float* c = reinterpret_cast<float*>(smem + (size_t)buf * stage) +
+               (size_t)d * P::kLd;
+    for (int e = tid; e < (P::kK - d) * P::kLd; e += kThreads)
+      c[e] = e < P::kLd ? 1.f : 0.f;
+  }
+}
+
+// f32 tier: split the landed chunk's columns (coordinate-major in the
+// stage at `base`: the coordinates, 1 at d, zeros past it) into the three
+// planes h, m, l at `planes`, zeros for a partial chunk's dead columns.
+// A plane holds 8 x 8 core matrices of 128 contiguous bytes, as wgmma
+// reads shared memory without a swizzle: core matrix (g, q) holds
+// coordinates 8q .. 8q + 7 of columns 8g .. 8g + 7, a column's eight
+// values 16 bytes apart, at (g * kKG + q) * 128 bytes.  It is the Gram's
+// B operand K-major (columns as n) and the second product's MN-major
+// (columns as k).  Thread c splits column c.
+template <typename S, int DMAX>
+__device__ __forceinline__ void split_columns(const unsigned char* base,
+                                              unsigned char* planes, int d,
+                                              int cols, int tid) {
+  static_assert(kCols == kThreads, "one column a thread");
+  const float* col = reinterpret_cast<const float*>(base) + tid;
+  uint4* dst = reinterpret_cast<uint4*>(
+      planes + (size_t)((tid >> 3) * S::kKG * 8 + (tid & 7)) * 16);
+  constexpr int kPlane = (int)(S::kPadPlane / 16);
+  if (tid >= cols) {
+#pragma unroll
+    for (int q = 0; q < S::kKG; ++q)
+      dst[8 * q] = dst[kPlane + 8 * q] = dst[2 * kPlane + 8 * q] =
+          make_uint4(0, 0, 0, 0);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < S::kKG; ++q) {
+    uint32_t h[4], m[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = q * 8 + 2 * e;
+      if (k < DMAX) {  // (k + 1 < DMAX too: DMAX is even)
+        split3(col[k * S::P::kLd], col[(k + 1) * S::P::kLd], h[e], m[e],
+               l[e]);
+      } else {  // past DMAX: the ones column where d == DMAX, exact in h
+        h[e] = k == d ? 0x3f80u : 0u;
+        m[e] = l[e] = 0u;
+      }
+    }
+    dst[8 * q] = make_uint4(h[0], h[1], h[2], h[3]);
+    dst[kPlane + 8 * q] = make_uint4(m[0], m[1], m[2], m[3]);
+    dst[2 * kPlane + 8 * q] = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// A wgmma shared-memory descriptor without a swizzle: the start address,
+// the byte offsets between core matrices along K (lbo) and along M or N
+// (sbo), all multiples of 16.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Registers a wgmma in flight reads or writes: held where they are until
+// here (after its wait), so the compiler neither reads an accumulator
+// early nor gives an operand's register to another value.
+template <int K>
+__device__ __forceinline__ void hold(float (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i]));
+}
+
+template <int K>
+__device__ __forceinline__ void hold(uint32_t (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(r[i]));
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 (A from registers, the rows
+// of this warp as mma.sync's m16n8k16 A fragment; B from shared memory
+// through `desc`): d holds the warp's N/2 accumulators, four per n8 tile
+// as mma.sync's C fragment.  scale_d 0 starts from zero.  TB: B is
+// MN-major (1) or K-major (0).
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32, 0>(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64, 0>(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<8, 1>(
+    float (&d)[4], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16, 1>(
+    float (&d)[8], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<24, 1>(
+    float (&d)[12], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<40, 1>(
+    float (&d)[20], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<72, 1>(
+    float (&d)[36], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 template <typename T, bool X2, int DMAX, typename Tiles>
 __global__ void __launch_bounds__(kThreads, ScoreSmem<T, X2, DMAX>::kMinBlocks)
 score_pass_kernel(const T* __restrict__ x, const T* __restrict__ x_lo,
@@ -213,8 +537,8 @@ score_pass_kernel(const T* __restrict__ x, const T* __restrict__ x_lo,
   const int cpt = (block_n + kCols - 1) / kCols;
   const int nq = nv * cpt;
   if (nq == 0) {  // past the visit list's count: zero partials
-    const int k0 = S::kTensor ? blockIdx.z * S::kNTG * 8 : 0;
-    const int kw = (S::kTensor ? min(w, k0 + S::kNTG * 8) : w) - k0;
+    const int k0 = blockIdx.z * S::kNTG * 8;
+    const int kw = min(w, k0 + S::kNTG * 8) - k0;
     for (int e = tid; e < (row_end - row0) * kw; e += kThreads) {
       const int r = e / kw;
       out[(size_t)(row0 + r) * w + k0 + (e - r * kw)] = 0.f;
@@ -232,155 +556,209 @@ score_pass_kernel(const T* __restrict__ x, const T* __restrict__ x_lo,
     const int cols = chunk_cols(cur.c);
     stage_columns<P, T, X2, DMAX>(base, xt, xt_lo, nrm_x, n, d, j, cols,
                                   vector, tid);
-    stage_aug<S, T, X2>(base + S::kAugOff, xaug + (size_t)j * w,
-                        X2 ? xaug_lo + (size_t)j * w : nullptr, cols * w,
-                        kCols * w, vector, tid);
+    if constexpr (S::kTensor)
+      stage_aug<S, T, X2>(base + S::kAugOff, xaug + (size_t)j * w,
+                          X2 ? xaug_lo + (size_t)j * w : nullptr, cols * w,
+                          kCols * w, vector, tid);
     cur.template advance<Stages>();
   };
-  zero_pad_columns<P, T>(smem, S::kStage, Stages, d, tid);
+  if constexpr (S::kTensor)
+    zero_pad_columns<P, T>(smem, S::kStage, Stages, d, tid);
+  else
+    pad_columns_ones<P>(smem, S::kStage, Stages, d, tid);
   // the raw planes' slack past kCols rows stays zero for the launch
-  for (int buf = 0; buf < Stages; ++buf) {
-    for (int p = 0; p < S::kPlanes; ++p) {
-      T* raw = reinterpret_cast<T*>(stage_ptr(buf) + S::kAugOff +
-                                    p * S::kRawPlane);
-      for (int e = kCols * w + tid; e < kCols * S::kW + DMAX; e += kThreads)
-        raw[e] = T(0.f);
+  if constexpr (S::kTensor) {
+    for (int buf = 0; buf < Stages; ++buf) {
+      for (int p = 0; p < S::kPlanes; ++p) {
+        T* raw = reinterpret_cast<T*>(stage_ptr(buf) + S::kAugOff +
+                                      p * S::kRawPlane);
+        for (int e = kCols * w + tid; e < kCols * S::kW + DMAX;
+             e += kThreads)
+          raw[e] = T(0.f);
+      }
     }
   }
 
   const float inv2h2 = *inv2h2_ptr;
 
   if constexpr (!S::kTensor) {
-    // ---- f32 tier: FP32 FMAs on register tiles, phi through shared ----
-    float* s_rows = reinterpret_cast<float*>(smem + Stages * S::kStage);
-    float* s_phi = s_rows + DMAX * kRows;  // [kCols][kPhiLd]
-    load_rows_f32<DMAX>(s_rows, x, row0, row_end, d, tid);
-    // Gram and epilogue: rows 4 tr .., columns 4 tc .. and 32 + 4 tc ..
-    // of each 64-column half
-    const int tr = tid >> 3;
-    const int tc = tid & 7;
-    float nrm_r[4];
+    // ---- f32 tier: three exact bf16 planes on wgmma -------------------
+    constexpr int KS = S::kK / 16;   // Gram k-steps of 16
+    constexpr int NC = DMAX <= 16 ? 64 : 32;  // columns a Gram
+    constexpr int NH = kCols / NC;   // Grams a chunk
+    constexpr int KH = NC / 16;      // second-product k-steps a Gram
+    constexpr int NO = 8 * S::kNO;   // output coordinates, the ones column's
+    constexpr uint32_t kCM = 128;    // bytes of an 8 x 8 core matrix
+    constexpr uint32_t kGroup = S::kKG * kCM;  // bytes of 8 split columns
+    constexpr uint32_t kPlane = (uint32_t)S::kPadPlane;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int gid = lane >> 2;  // fragment row (and row + 8)
+    const int tig = lane & 3;   // fragment column pair
+    const int rbase = row0 + warp * 16;
+    uint32_t a[3][KS][4];
+    load_rows_split<KS>(a, x, rbase, row_end, d, lane);
+    float nrm_r[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + 4 * tr + i;
-      nrm_r[i] = row < row_end ? nrm_y[row] : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int row = rbase + gid + 8 * h;
+      nrm_r[h] = row < row_end ? nrm_y[row] : 0.f;
     }
-    float den[4] = {0.f, 0.f, 0.f, 0.f};
-    float tile_den[4] = {0.f, 0.f, 0.f, 0.f};
-    // second product: rows 4 rg .., coordinates cg kC .., and the
-    // chunk's columns kg KW .. KW - 1 (KW = kCols / kKG)
-    constexpr int C = S::kC;
-    constexpr int KW = kCols / S::kKG;
-    const int rg = tid & 15;
-    const int cg = (tid >> 4) % S::kCG;
-    const int kg = tid / (16 * S::kCG);
-    float acc[4][C] = {};
-    float part[4][C] = {};
+    // running sums, and the column tile's chains by weight: hh, then
+    // hm + mh, then hl + mm + lh
+    float acc[NO / 2] = {};
+    float ch[3][NO / 2] = {};
+    unsigned char* planes = smem + Stages * S::kStage;
+    const uint32_t planes_addr = smem_addr(planes);
+    // the running sums' compensations (Kahan), in shared memory: in
+    // registers they would spill the body at DMAX 16
+    float* comp = reinterpret_cast<float*>(planes + S::kPad);
+#pragma unroll
+    for (int i = 0; i < NO / 2; ++i) comp[i * kThreads + tid] = 0.f;
+
+    // The Gram of the block's rows and split columns c * NC .. + NC - 1:
+    // six products a k-step into g, smallest weight first.  B K-major:
+    // the next 8 coordinates kCM on, the next 8 columns kGroup on.
+    auto gram = [&](float (&g)[NC / 2], int c) {
+      const uint32_t at = planes_addr + (uint32_t)(c * NC / 8) * kGroup;
+      auto b = [&](int p, int ks) {
+        return wgmma_desc(at + p * kPlane + 2 * ks * kCM, kCM, kGroup);
+      };
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        wgmma_rs<NC, 0>(g, a[0][ks], b(2, ks), ks > 0);
+        wgmma_rs<NC, 0>(g, a[1][ks], b(1, ks), 1);
+        wgmma_rs<NC, 0>(g, a[2][ks], b(0, ks), 1);
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        wgmma_rs<NC, 0>(g, a[0][ks], b(1, ks), 1);
+        wgmma_rs<NC, 0>(g, a[1][ks], b(0, ks), 1);
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_rs<NC, 0>(g, a[0][ks], b(0, ks), 1);
+    };
+    // phi's planes pa (KH k-steps of 16 columns) times the three planes of
+    // the same columns' [X|1]: six products a k-step into the chains,
+    // which a column tile's first product starts from zero (`fresh`): only
+    // wgmma writes them, so ptxas keeps the wgmmas in flight.  B MN-major:
+    // the next 8 coordinates kCM on, the next 8 columns kGroup on.
+    auto second = [&](const uint32_t (&pa)[KH][3][4], int c, bool fresh) {
+#pragma unroll
+      for (int s = 0; s < KH; ++s) {
+        const uint32_t at =
+            planes_addr + (uint32_t)((c * NC + 16 * s) / 8) * kGroup;
+        auto b = [&](int p) {
+          return wgmma_desc(at + p * kPlane, kGroup, kCM);
+        };
+        const int keep = s > 0 || !fresh;
+        wgmma_rs<NO, 1>(ch[2], pa[s][0], b(2), keep);
+        wgmma_rs<NO, 1>(ch[2], pa[s][1], b(1), 1);
+        wgmma_rs<NO, 1>(ch[2], pa[s][2], b(0), 1);
+        wgmma_rs<NO, 1>(ch[1], pa[s][0], b(1), keep);
+        wgmma_rs<NO, 1>(ch[1], pa[s][1], b(0), 1);
+        wgmma_rs<NO, 1>(ch[0], pa[s][0], b(0), keep);
+      }
+    };
 
     auto compute = [&](int buf, int chunk) {
       const unsigned char* base = stage_ptr(buf);
       const int cols = chunk_cols(chunk);
+      split_columns<S, DMAX>(base, planes, d, cols, tid);
+      fence_proxy_async();
+      __syncthreads();  // split planes complete
       const float* s_nrm =
           reinterpret_cast<const float*>(base + P::kPlanes * P::kPlane);
+      auto run = [&](auto masked) {
+        // Grams in flight one ahead of the exp epilogue: the Gram of
+        // columns c + 1 runs on the tensor cores while phi of columns c
+        // is made, split and sent to the second product
+        float g[2][NC / 2];
+        uint32_t pa[KH][3][4];
+        wgmma_fence();
+        gram(g[0], 0);
+        wgmma_commit();
 #pragma unroll
-      for (int half = 0; half < kCols / 64; ++half) {
-        float g[4][8];
-        gram_4x8<DMAX, P::kLd>(
-            g, s_rows, reinterpret_cast<const float*>(base) + half * 64, tr,
-            tc);
-        const float4* n4 = reinterpret_cast<const float4*>(s_nrm + half * 64);
-        const float4 na = n4[tc];
-        const float4 nb = n4[8 + tc];
-        const float nc[8] = {na.x, na.y, na.z, na.w, nb.x, nb.y, nb.z, nb.w};
-        auto epilogue = [&](auto masked) {
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const int col = half * 64 + (c < 4 ? 4 * tc + c : 28 + 4 * tc + c);
-            const bool live = !decltype(masked)::value || col < cols;
-            float ph[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float sq =
-                  fmaxf(fmaf(-2.f, g[i][c], nrm_r[i] + nc[c]), 0.f);
-              const float p = expf(-sq * inv2h2);
-              ph[i] = live ? p : 0.f;
-              tile_den[i] += ph[i];
-            }
-            *reinterpret_cast<float4*>(s_phi + col * S::kPhiLd + 4 * tr) =
-                make_float4(ph[0], ph[1], ph[2], ph[3]);
+        for (int c = 0; c < NH; ++c) {
+          float(&gc)[NC / 2] = g[c & 1];
+          if (c + 1 < NH) {
+            wgmma_fence();
+            gram(g[(c + 1) & 1], c + 1);
+            wgmma_commit();
+            wgmma_wait<1>();  // Gram c and the second product of c - 1
+          } else {
+            wgmma_wait<0>();
           }
-        };
-        if (cols == kCols)
-          epilogue(std::false_type{});
-        else
-          epilogue(std::true_type{});
-      }
-      __syncthreads();  // phi complete
-      // phi.X over the k-group's columns; a dead column's phi and row
-      // are zero
-      const float* raw =
-          reinterpret_cast<const float*>(base + S::kAugOff) + cg * C +
-          (size_t)kg * KW * w;
-      const float* phi = s_phi + kg * KW * S::kPhiLd + 4 * rg;
-#pragma unroll 4
-      for (int k = 0; k < KW; ++k) {
-        const float4 p4 =
-            *reinterpret_cast<const float4*>(phi + k * S::kPhiLd);
-        const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-        float av[C];
+          hold(gc);
 #pragma unroll
-        for (int j = 0; j < C; ++j) av[j] = raw[(size_t)k * w + j];
+          for (int s = 0; s < KH; ++s)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+            for (int p = 0; p < 3; ++p) hold(pa[s][p]);
 #pragma unroll
-          for (int j = 0; j < C; ++j)
-            part[i][j] = fmaf(pv[i], av[j], part[i][j]);
-      }
+          for (int j = 0; j < NC / 8; ++j) {
+            const int c0 = c * NC + 8 * j + 2 * tig;
+            const float2 nc = *reinterpret_cast<const float2*>(s_nrm + c0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float sq = fmaxf(
+                  fmaf(-2.f, gc[4 * j + e],
+                       nrm_r[e >> 1] + ((e & 1) ? nc.y : nc.x)),
+                  0.f);
+              const float p = expf(-sq * inv2h2);
+              gc[4 * j + e] =
+                  (!decltype(masked)::value || c0 + (e & 1) < cols) ? p
+                                                                    : 0.f;
+            }
+          }
+          // phi's planes as the A fragments of 16-column k-steps: n8
+          // tile 2 s gives columns 0 .. 7 of k-step s, tile 2 s + 1 the
+          // rest
+#pragma unroll
+          for (int s = 0; s < KH; ++s)
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              const int i = 4 * (2 * s + (f >> 1)) + (f & 1) * 2;
+              split3(gc[i], gc[i + 1], pa[s][0][f], pa[s][1][f],
+                     pa[s][2][f]);
+            }
+          wgmma_fence();
+          second(pa, c, c == 0 && chunk == 0);
+          wgmma_commit();
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int s = 0; s < KH; ++s)
+#pragma unroll
+          for (int p = 0; p < 3; ++p) hold(pa[s][p]);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) hold(ch[q]);
+      };
+      if (cols == kCols)
+        run(std::false_type{});
+      else
+        run(std::true_type{});
     };
+    // the end of a column tile: its chains, smallest first, into the
+    // running sums, compensated (Kahan): B3 at 1M adds ~7,500 tiles a
+    // row, and plain f32 sums lose each tile's low bits, an error that
+    // grows with the tiles and does not average out
     auto flush = [&]() {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p = tile_den[i];
-        p += __shfl_xor_sync(0xffffffffu, p, 1);
-        p += __shfl_xor_sync(0xffffffffu, p, 2);
-        p += __shfl_xor_sync(0xffffffffu, p, 4);
-        den[i] += p;
-        tile_den[i] = 0.f;
-#pragma unroll
-        for (int j = 0; j < C; ++j) {
-          acc[i][j] += part[i][j];
-          part[i][j] = 0.f;
-        }
+      for (int i = 0; i < NO / 2; ++i) {
+        float& c = comp[i * kThreads + tid];
+        const float y = ((ch[2][i] + ch[1][i]) + ch[0][i]) - c;
+        const float t = acc[i] + y;
+        c = (t - acc[i]) - y;
+        acc[i] = t;
       }
     };
     walk<Stages>(nq, cpt, stage_next, compute, flush);
-    if (tc == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = row0 + 4 * tr + i;
-        if (row < row_end) out[(size_t)row * w + d] = den[i];
-      }
-    }
-    // the k-groups' sums, added in k-group order through shared memory
-    __syncthreads();
-    float* red = s_phi;  // [kKG][kRows][DMAX]
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < C; ++j)
-        red[((size_t)kg * kRows + 4 * rg + i) * DMAX + cg * C + j] =
-            acc[i][j];
-    __syncthreads();
-    for (int e = tid; e < kRows * DMAX; e += kThreads) {
-      const int r = e / DMAX;
-      const int k = e - r * DMAX;
-      const int row = row0 + r;
-      if (row < row_end && k < d) {
-        float s = red[e];
-#pragma unroll
-        for (int q = 1; q < S::kKG; ++q) s += red[q * kRows * DMAX + e];
-        out[(size_t)row * w + k] = s;
-      }
+    for (int i = 0; i < NO / 2; ++i) {
+      const int row = rbase + gid + 8 * ((i & 3) >> 1);
+      const int k = 8 * (i >> 2) + 2 * tig + (i & 1);
+      if (row < row_end && k < w) out[(size_t)row * w + k] = acc[i];
     }
   } else {
     // ---- bf16 tiers: both products on the tensor cores ----------------
@@ -549,9 +927,8 @@ cudaError_t score_pass_launch(const void* x, const void* x_lo,
                      aligned(xt_lo) && aligned(nrm_x) && aligned(xaug) &&
                      aligned(xaug_lo);
   const int subs = (block_m + kRows - 1) / kRows;
-  // bf16 tiers: runs of kNTG n8 tiles of the d+1 output coordinates
-  const int groups =
-      S::kTensor ? ((d + 1 + 7) / 8 + S::kNTG - 1) / S::kNTG : 1;
+  // runs of kNTG n8 tiles of the d+1 output coordinates
+  const int groups = ((d + 1 + 7) / 8 + S::kNTG - 1) / S::kNTG;
   const dim3 grid((unsigned)((m / block_m) * subs), (unsigned)splits,
                   (unsigned)groups);
   float* dst = static_cast<float*>(splits > 1 ? part : out);

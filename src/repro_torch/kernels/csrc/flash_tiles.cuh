@@ -16,7 +16,9 @@
 //              nothing still writes its (zero) sums.
 //
 // Tiers, chosen by the operand type and whether the lo planes are given:
-//   f32     Gram and phi.[X|1] in f32.
+//   f32     Gram and phi.[X|1] in f32: the KDE pass on FP32 FMAs, the
+//           score pass on the tensor cores as six bf16 products of three
+//           exact planes a side (no TF32).
 //   bf16    bf16 operands, products summed in f32; the score pass rounds
 //           phi to bf16 (round to nearest even) BEFORE it multiplies [X|1].
 //   bf16x2  Gram: hi.hi + hi.lo + lo.hi + lo.lo as four f32 partial sums

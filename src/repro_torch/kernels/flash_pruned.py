@@ -255,7 +255,7 @@ def flash_score_pruned_plain(
     x: torch.Tensor,
     nrm: torch.Tensor,
     xt: torch.Tensor,
-    xaug: torch.Tensor,
+    xaug: Optional[torch.Tensor],
     inv2h2: torch.Tensor,
     x_lo: Optional[torch.Tensor] = None,
     xt_lo: Optional[torch.Tensor] = None,
@@ -264,8 +264,11 @@ def flash_score_pruned_plain(
     block_m: int = 128,
     block_n: int = 128,
 ) -> torch.Tensor:
-    """Plain PyTorch B3: (n, d+1) f32 S1aug, one visit slot at a time."""
+    """Plain PyTorch B3: (n, d+1) f32 S1aug, one visit slot at a time;
+    ``xaug=None`` is ``[xt^T | 1]``."""
     n, d = x.shape
+    if xaug is None:
+        xaug = _dense_score.ones_augmented(xt)
     mt = n // block_m
     rows = x.reshape(mt, block_m, d)
     rows_lo = None if x_lo is None else x_lo.reshape(mt, block_m, d)
@@ -298,7 +301,7 @@ def flash_score_pruned_cuda(
     x: torch.Tensor,
     nrm: torch.Tensor,
     xt: torch.Tensor,
-    xaug: torch.Tensor,
+    xaug: Optional[torch.Tensor],
     inv2h2: torch.Tensor,
     x_lo: Optional[torch.Tensor] = None,
     xt_lo: Optional[torch.Tensor] = None,
@@ -316,6 +319,9 @@ def flash_score_pruned_cuda(
     mt, t = _check_visits(counts, tile_map, n, n, block_m, block_n)
     los = (x_lo, xt_lo, xaug_lo)
     tier = prec.tier_of(x, x_lo)
+    if tier == "f32" and xaug is not None:
+        raise ValueError("flash_score_pruned_cuda: the f32 kernel makes "
+                         "[xt^T | 1] from xt; pass xaug=None")
     dev = check_cuda("flash_score_pruned_cuda", tier, (x, xt, xaug) + los,
                      (nrm, inv2h2), d, block_m, ints=(counts, tile_map))
     plan = _dense_score.plan_score_splits(n, block_n, d, tile_map.shape[1])
@@ -348,7 +354,7 @@ def flash_score_pruned(
     x: torch.Tensor,
     nrm: torch.Tensor,
     xt: torch.Tensor,
-    xaug: torch.Tensor,
+    xaug: Optional[torch.Tensor],
     inv2h2: torch.Tensor,
     x_lo: Optional[torch.Tensor] = None,
     xt_lo: Optional[torch.Tensor] = None,

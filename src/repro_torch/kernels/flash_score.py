@@ -18,10 +18,16 @@ The rows and the columns may be two point sets (the ring pairs a rank's
 resident rows with a visiting block): ``nrm_x`` then holds the columns'
 n norms.  Without it the call is the fit's square pass over one train
 set (m = n, ``nrm`` for both sides), the only form ``repro`` has.
-xaug's last column is the ones of ``[X | 1]``, as ``ops._score_operands``
-makes it: the f32 kernel sums φ for that column instead of reading it.
-At the bf16 tiers φ is rounded (bf16) or split (bf16x2) before it
-multiplies ``[X|1]``, as ``precision.weighted_accum`` does.
+At the bf16 tiers xaug is ``[xt^T | 1]`` cast to the tier, as
+``ops._score_operands`` makes it.  At f32 the kernel reads the columns
+once, from xt, and makes the ones column itself, so it takes
+``xaug=None`` and refuses any other; the plain version takes None as
+``[xt^T | 1]`` (``ones_augmented``) and multiplies by a given xaug, as
+the absolute-mass checks use it.  The f32 kernel runs both products on
+the tensor cores as six bf16 products of three exact planes a side
+(``precision.split_three``), f32-accurate and without TF32.  At the
+bf16 tiers φ is rounded (bf16) or split (bf16x2) before it multiplies
+``[X|1]``, as ``precision.weighted_accum`` does.
 
 The kernel splits the columns, as the KDE pass does: each block sums 64
 rows over one split of ``plan_score_splits(n, block_n, d, rows=m)
@@ -99,17 +105,29 @@ def plan_score_splits(n: int, block_n: int, d: int,
     return ScorePlan(per_split, -(-slots // per_split), slots, width)
 
 
+def ones_augmented(xt: torch.Tensor) -> torch.Tensor:
+    """``[xt^T | 1]`` (n, d+1): the second product's operand that the f32
+    kernel makes from xt itself."""
+    return torch.cat([xt.T, xt.new_ones((xt.shape[-1], 1))], dim=1)
+
+
 def _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo, block_m,
            block_n, nrm_x=None):
     """(m, n, d) of a launch: m rows of x against the n columns of xt;
-    without ``nrm_x`` the square pass (n = m)."""
+    without ``nrm_x`` the square pass (n = m).  ``xaug`` may be None at
+    f32 alone (``[xt^T | 1]``)."""
     m, d = x.shape
     n = m if nrm_x is None else xt.shape[-1]
     if m % block_m or n % block_n:
         raise ValueError(f"rows m={m} must be a multiple of block_m="
                          f"{block_m} and columns n={n} of block_n={block_n}")
-    if tuple(xt.shape) != (d, n) or tuple(xaug.shape) != (n, d + 1):
-        raise ValueError(f"xt {tuple(xt.shape)} / xaug {tuple(xaug.shape)} "
+    if xaug is None and x.dtype != torch.float32:
+        raise ValueError("the bf16 tiers need xaug, [xt^T | 1] cast to the "
+                         "tier")
+    if tuple(xt.shape) != (d, n) or (xaug is not None and
+                                     tuple(xaug.shape) != (n, d + 1)):
+        raise ValueError(f"xt {tuple(xt.shape)} / xaug "
+                         f"{None if xaug is None else tuple(xaug.shape)} "
                          f"do not match x {tuple(x.shape)} and n={n}")
     if tuple(nrm.shape) != (m, 1) or inv2h2.numel() != 1:
         raise ValueError("nrm must be (m, 1) and inv2h2 hold one value")
@@ -127,7 +145,7 @@ def flash_score_plain(
     x: torch.Tensor,
     nrm: torch.Tensor,
     xt: torch.Tensor,
-    xaug: torch.Tensor,
+    xaug: Optional[torch.Tensor],
     inv2h2: torch.Tensor,
     x_lo: Optional[torch.Tensor] = None,
     xt_lo: Optional[torch.Tensor] = None,
@@ -138,9 +156,11 @@ def flash_score_plain(
 ) -> torch.Tensor:
     """Plain PyTorch B1, one column block of ``block_n`` at a time: m rows
     against the n columns of ``xt`` (norms ``nrm_x``, or ``nrm`` for the
-    square pass)."""
+    square pass); ``xaug=None`` is ``[xt^T | 1]``."""
     m, d = x.shape
     n = xt.shape[-1]
+    if xaug is None:
+        xaug = ones_augmented(xt)
     out = torch.zeros((m, d + 1), dtype=torch.float32, device=x.device)
     nrm_col = (nrm if nrm_x is None else nrm_x).reshape(1, -1)
     for j0 in range(0, n, block_n):
@@ -160,7 +180,7 @@ def flash_score_cuda(
     x: torch.Tensor,
     nrm: torch.Tensor,
     xt: torch.Tensor,
-    xaug: torch.Tensor,
+    xaug: Optional[torch.Tensor],
     inv2h2: torch.Tensor,
     x_lo: Optional[torch.Tensor] = None,
     xt_lo: Optional[torch.Tensor] = None,
@@ -178,6 +198,9 @@ def flash_score_cuda(
     m, n, d = _check(x, nrm, xt, xaug, inv2h2, x_lo, xt_lo, xaug_lo,
                      block_m, block_n, nrm_x)
     tier = prec.tier_of(x, x_lo)
+    if tier == "f32" and xaug is not None:
+        raise ValueError("flash_score_cuda: the f32 kernel makes [xt^T | 1] "
+                         "from xt; pass xaug=None")
     nrm_col = nrm if nrm_x is None else nrm_x
     dev = check_cuda("flash_score_cuda", tier,
                      (x, xt, xaug, x_lo, xt_lo, xaug_lo),
@@ -211,7 +234,7 @@ def flash_score(
     x: torch.Tensor,
     nrm: torch.Tensor,
     xt: torch.Tensor,
-    xaug: torch.Tensor,
+    xaug: Optional[torch.Tensor],
     inv2h2: torch.Tensor,
     x_lo: Optional[torch.Tensor] = None,
     xt_lo: Optional[torch.Tensor] = None,
@@ -234,5 +257,5 @@ def flash_score(
 
 
 __all__ = ["SCORE_ROWS", "SCORE_TARGET_BLOCKS", "SCORE_SCRATCH_BYTES",
-           "ScorePlan", "plan_score_splits", "flash_score",
+           "ScorePlan", "plan_score_splits", "ones_augmented", "flash_score",
            "flash_score_cuda", "flash_score_plain"]

@@ -218,15 +218,15 @@ def _cached_columns(x: torch.Tensor, *, block_n: int, precision: str,
 
 
 def _score_operands(xp: torch.Tensor, precision: str):
-    """(x_ops, xt_ops, xaug_ops, nrm, xrec) for a padded train set."""
-    npad = xp.shape[0]
-    xaug = torch.cat([xp, xp.new_ones((npad, 1))], dim=1)
+    """(x_ops, xt_ops, xaug_ops, nrm, xrec) for a padded train set; at
+    f32 xaug_ops is (None, None): the kernel makes [X | 1] from xt."""
     if precision == "f32":
         x_ops = (xp.contiguous(), None)
         xt_ops = (_t(xp), None)
-        xaug_ops = (xaug, None)
+        xaug_ops = (None, None)
         xrec = xp.to(torch.float32)
     else:
+        xaug = torch.cat([xp, xp.new_ones((xp.shape[0], 1))], dim=1)
         x_ops = prec.cast_operand(xp.to(torch.float32), precision)
         xt_ops = (_t(x_ops[0]), None if x_ops[1] is None else _t(x_ops[1]))
         xaug_ops = prec.cast_operand(xaug.to(torch.float32), precision)
@@ -803,8 +803,7 @@ def score_block(rows: RingRows, cols: torch.Tensor, inv2h2: torch.Tensor, *,
     ``inv2h2`` is ``_inv2h2(h, device)``, made once a ring (each upload
     of h is a host-to-device copy); column d holds the S0 part."""
     cp = pad_block(cols, block_n)
-    xaug = torch.cat([cp, cp.new_ones((cp.shape[0], 1))], dim=1)
-    s1aug = _score_kernel(rows.x, rows.nrm, _t(cp), xaug, inv2h2,
+    s1aug = _score_kernel(rows.x, rows.nrm, _t(cp), None, inv2h2,
                           nrm_x=_norms(cp).reshape(1, -1),
                           block_m=rows.block_m, block_n=block_n)
     return s1aug[:rows.m]

@@ -60,6 +60,27 @@ def split_hi_lo(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def split_three(
+    x: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact three-plane split: f32 ``x`` → bf16 (h, m, l) with
+    h + m + l == x: h = bf16(x), m = bf16(x − h), l = bf16(x − h − m),
+    each rounded to nearest even.  Both differences are exact in f32 and
+    the last has at most 8 significant bits, so the sum is exact wherever
+    l is a normal bf16 (|x| ≥ 2^-110; bf16 has f32's exponent range).
+
+    The f32 score pass splits its operands and φ so on the card
+    (``csrc/flash_score_pass.cuh``, ``split3``) and runs each product as
+    six bf16 products of the planes; this is its mirror for the tests.
+    """
+    x32 = x.to(torch.float32)
+    h = x32.to(torch.bfloat16)
+    r = x32 - h.to(torch.float32)
+    m = r.to(torch.bfloat16)
+    l = (r - m.to(torch.float32)).to(torch.bfloat16)
+    return h, m, l
+
+
 def cast_operand(
     x: torch.Tensor, precision: Precision
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -126,6 +147,6 @@ def weighted_accum(phi: torch.Tensor, w_hi: torch.Tensor,
 
 __all__ = [
     "PRECISIONS", "Precision", "validate", "operand_bytes", "gram_products",
-    "split_hi_lo", "cast_operand", "tier_of", "reconstruct", "dot_f32",
+    "split_hi_lo", "split_three", "cast_operand", "tier_of", "reconstruct", "dot_f32",
     "gram_compensated", "weighted_accum",
 ]

@@ -11,8 +11,8 @@ problem and the launch geometry:
     tile over one column split, so a ``block_m`` that is not a multiple
     of 64 leaves rows idle; the splits come from the kernels' own plans,
     ``flash_kde.plan_splits`` and ``flash_score.plan_score_splits``
-    (bf16 score tiers also spread the output's n8 tiles over the grid's
-    z axis);
+    (bf16x2 score passes also spread the output's n8 tiles over the
+    grid's z axis);
   * waves of blocks over 132 SMs, as many a block an SM as the
     instantiation's shared memory and register cap allow (``PassSmem``
     and ``ScoreSmem`` of ``csrc/``, mirrored below);
@@ -22,16 +22,19 @@ problem and the launch geometry:
 Resources, each a time over the pass (the slowest one bounds it):
 
     t_hbm    = bytes / 3.35 TB/s      (operands, split scratch, sums)
-    t_fp32   = f32 Gram flops / 67 TFLOP/s
-    t_tensor = mma.sync flops × gram_products / 989 TFLOP/s (bf16 tiers)
+    t_fp32   = f32 Gram flops / 67 TFLOP/s (the f32 KDE passes)
+    t_tensor = tensor-core flops × products / 989 TFLOP/s (the bf16
+               tiers, and the f32 score pass: six products of three exact
+               bf16 planes a side, ``SPLIT_PRODUCTS``)
     t_sfu    = exps / (16 a clock an SM × 132 × 1.98 GHz)
     t_issue  = instructions / (128 a clock an SM × 132 × 1.98 GHz)
 
 The issue term counts the epilogue's ~14 instructions a pair (norm sum,
-clamp, scale, expf's 8, the add) and, at f32, the Gram's d FMAs and
-their shared-memory loads: B1-B6 are bound by instruction issue there
-(PERF.md §6).  Wave quantisation, a fixed cost a block and a launch's
-cost come on top, and no pass is priced below its bound
+clamp, scale, expf's 8, the add), at the f32 KDE passes the Gram's d
+FMAs and their shared-memory loads, and at the f32 score pass the
+split's instructions (``SPLIT_INSTR``): B1-B6 are bound by instruction
+issue there (PERF.md §6).  Wave quantisation, a fixed cost a block and a
+launch's cost come on top, and no pass is priced below its bound
 (:func:`pair_bound`): the least time the card could take for the work,
 the same definition ``chip_smoke.py`` reports beside each kernel.
 """
@@ -68,6 +71,19 @@ STAGES = 3                        # chunks in the KDE pass's ring
 # Epilogue instructions a pair, by weight (PERF.md §6: expf lowers to 8
 # of ~14): the Laplace factor adds two, the square moment's multiply one.
 EPILOGUE_INSTR = {"kde": 14, "laplace": 16, "sq_moment": 15, "score": 14}
+# The f32 score pass (csrc/flash_score_pass.cuh): each operand and phi
+# split into three exact bf16 planes, six of the nine plane products a
+# GEMM on wgmma (three for the ones column, exact in its h plane).  Its
+# issue slots a pair beyond the epilogue's: SPLIT_INSTR, plus
+# SPLIT_INSTR_PER_COORD for each coordinate of the Gram's k (padded to
+# 16) and of the output tiles (d and the ones column in n8 tiles).  Both
+# are fitted, least squares, to B1's CUDA-graph times at 32768 x 32768
+# and d = 1, 4, 8, 16, 24 on one H100 80GB HBM3 at 700 W (1.243, 1.224,
+# 1.333, 1.475, 2.101 ms): the model lands within 2.5% of each.  At
+# d = 64 (DMAX 64, whose build spills) it gives 3.26 ms against 5.24.
+SPLIT_PRODUCTS = 6
+SPLIT_INSTR = 9.1
+SPLIT_INSTR_PER_COORD = 0.55
 # Fixed costs: a block's prologue, zero fill and partial write, and one
 # kernel launch on the stream.
 BLOCK_OVERHEAD_S = 1.5e-6
@@ -80,16 +96,28 @@ def _round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
+def on_tensor_cores(kind: str, precision: str) -> bool:
+    """Whether a pass's products run on the tensor cores: the bf16 tiers
+    of every pass, and the f32 score pass (three exact bf16 planes)."""
+    return precision != "f32" or kind == "score"
+
+
 def pair_operations(kind: str, precision: str, d: int) -> Tuple[int, int]:
     """(Gram flops, elementwise FP32 flops) of one (row, column) pair:
     the Gram's 2d (and the score pass's φ·[X|1], 2(d+1)), four products
     at bf16x2, and the elementwise work (score 3, kde 4, laplace 6,
-    sq_moment 5); one exp a pair comes on top, on the SFU."""
+    sq_moment 5); one exp a pair comes on top, on the SFU.  The f32
+    score pass runs its products as ``SPLIT_PRODUCTS`` products of bf16
+    planes (the ones column, exact in one plane, as three) on the tensor
+    cores, 24d + 6 flops, and its elementwise work adds φ's split, two
+    subtractions."""
     if kind not in KINDS:
         raise ValueError(f"unknown pass kind {kind!r} (choose from {KINDS})")
     prec.validate(precision)
-    gemm = 2 * d + (2 * (d + 1) if kind == "score" else 0)
     elementwise = {"score": 3, "kde": 4, "laplace": 6, "sq_moment": 5}[kind]
+    if kind == "score" and precision == "f32":
+        return SPLIT_PRODUCTS * 4 * d + 3 * 2, elementwise + 2
+    gemm = 2 * d + (2 * (d + 1) if kind == "score" else 0)
     return gemm * prec.gram_products(precision), elementwise
 
 
@@ -99,17 +127,18 @@ def pair_bound(kind: str, precision: str, pairs: float, d: int,
     take for a pass over ``pairs`` (row, column) pairs that must move
     ``moved`` bytes (each input read once, each output written once).
 
-    Operations (:func:`pair_operations`): the Gram's as FP32 flops at
-    f32 or as tensor-core flops at the bf16 tiers, the elementwise work
-    as FP32 flops, and one exp a pair on the SFU; the larger of the
-    operations and the bytes over their peak rates.  ``chip_smoke.py``'s bounds and the tuner's floor are this
-    function."""
+    Operations (:func:`pair_operations`): the products as tensor-core
+    flops where they run there (:func:`on_tensor_cores`: the bf16 tiers
+    and the f32 score pass), else as FP32 flops, the elementwise work as
+    FP32 flops, and one exp a pair on the SFU; the larger of the
+    operations and the bytes over their peak rates.  ``chip_smoke.py``'s
+    bounds and the tuner's floor are this function."""
     gemm, elementwise = pair_operations(kind, precision, d)
-    if precision == "f32":
-        ops_s = pairs * (gemm + elementwise) / FP32_FLOPS
-    else:
+    if on_tensor_cores(kind, precision):
         ops_s = max(pairs * gemm / BF16_FLOPS,
                     pairs * elementwise / FP32_FLOPS)
+    else:
+        ops_s = pairs * (gemm + elementwise) / FP32_FLOPS
     ops_s = max(ops_s, pairs / EXP_RATE)
     bytes_s = moved / HBM_BW
     return (max(ops_s, bytes_s),
@@ -142,7 +171,12 @@ def kde_pass_smem(d: int, precision: str) -> Tuple[int, int]:
 
 
 def score_pass_smem(d: int, precision: str) -> Tuple[int, int]:
-    """(bytes, blocks an SM) of the score pass at d (``ScoreSmem``)."""
+    """(bytes, blocks an SM) of the score pass at d (``ScoreSmem``): the
+    ring of staged chunks (the bf16 tiers' with their [X|1] rows) and the
+    planes the products read (the bf16 tiers' [X|1] rows relaid for
+    ldmatrix, the f32 tier's three split planes of the columns), and at
+    f32 the running sums' compensations, four values a thread for each
+    n8 output tile."""
     tensor = precision != "f32"
     size = 4 if precision == "f32" else 2
     dm = _dmax(d, precision)
@@ -150,22 +184,26 @@ def score_pass_smem(d: int, precision: str) -> Tuple[int, int]:
     ld = CHUNK + 16 // size
     planes = 2 if precision == "bf16x2" else 1
     w = dm + 1
-    stages = 3 if tensor and dm <= 16 else 2
-    raw = ((CHUNK * w + dm) * size + 15) // 16 * 16
-    stage = planes * k * ld * size + CHUNK * 4 + planes * raw
-    la = (w + 7) // 8 * 8
-    pad = planes * CHUNK * la * size if tensor else 0
-    rows = 0 if tensor else dm * ROWS * 4
-    phi = 0 if tensor else CHUNK * (ROWS + 4) * 4
-    nbytes = stages * stage + pad + rows + phi
+    stages = 3 if dm <= 16 else 2
+    stage = planes * k * ld * size + CHUNK * 4
+    if tensor:
+        stage += planes * (((CHUNK * w + dm) * size + 15) // 16 * 16)
+    k16 = max(16, dm)
+    # the bf16 tiers' relaid [X|1] rows, the f32 tier's split planes: the
+    # Gram's k and the output tiles (the ones column's too) in groups of 8
+    groups = (k16 + 8) // 8 if tensor else max(k16 // 8, (dm + 8) // 8)
+    pad = (planes if tensor else 3) * CHUNK * 8 * groups * 2
+    # 128 threads a block, four f32 values a thread an n8 tile
+    comp = 0 if tensor else 128 * 4 * ((dm + 8) // 8) * 4
+    nbytes = stages * stage + pad + comp
     by_smem = SMEM_SM // (nbytes + SMEM_RESERVED)
-    cap = 4 if tensor else 3
+    cap = 4 if tensor else (3 if dm <= 16 else 2)
     return nbytes, max(1, min(by_smem, cap))
 
 
 def score_groups(d: int, precision: str) -> int:
-    """Blocks on the grid's z axis: the bf16 tiers' runs of n8 output
-    tiles (three at most at bf16x2)."""
+    """Blocks on the grid's z axis: runs of n8 output tiles (three at
+    most at bf16x2), each repeating the Gram."""
     if precision == "f32":
         return 1
     nt = (_dmax(d, precision) + 1 + 7) // 8
@@ -304,7 +342,18 @@ def pair_pass_cost(rows: int, cols: int, d: int, *, block_m: int,
     scratch = 2 * plan.splits * rows_p * ow * 4 if plan.splits > 1 else 0
 
     products = prec.gram_products(precision)
-    if precision == "f32":
+    if score and precision == "f32":
+        # six products of the planes on wgmma: the Gram over k, padded to
+        # the MMA's 16, and phi.[X|1] over the n8 tiles of the
+        # coordinates and the ones column; a wgmma covers 64 rows, so its
+        # issue is the split's and the epilogue's alone
+        dm = _dmax(d, precision)
+        fp32 = 0.0
+        tensor = pairs * SPLIT_PRODUCTS * 2 * (max(16, dm)
+                                               + 8 * ((dm + 8) // 8))
+        gram_instr = SPLIT_INSTR + SPLIT_INSTR_PER_COORD * (
+            max(16, dm) + 8 * ((dm + 8) // 8))
+    elif precision == "f32":
         fp32 = pairs * 2 * d + (pairs * 2 * (d + 1) if score else 0.0)
         tensor = 0.0
         # d FMAs a pair plus 3 shared-memory loads per 32 of them, for the
@@ -405,7 +454,9 @@ def rff_eval_cost(rows: int, d: int, *, n_features: int, n_pilot: int = 0,
 __all__ = [
     "HBM_BW", "FP32_FLOPS", "BF16_FLOPS", "SMS", "CLOCK_HZ", "EXP_RATE",
     "ISSUE_RATE", "SMEM_BLOCK", "ROWS", "EPILOGUE_INSTR", "KINDS",
-    "KernelCost", "pair_operations", "pair_bound", "kde_pass_smem", "score_pass_smem",
+    "SPLIT_PRODUCTS", "SPLIT_INSTR", "SPLIT_INSTR_PER_COORD", "KernelCost",
+    "on_tensor_cores",
+    "pair_operations", "pair_bound", "kde_pass_smem", "score_pass_smem",
     "score_groups", "infeasible", "pair_pass_cost", "sdkde_device_cost",
     "selective_scan_bytes", "sweep_blocks", "best_blocks", "rff_eval_cost",
 ]

@@ -12,3 +12,5 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA device; skips on the CPU")

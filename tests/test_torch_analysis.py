@@ -146,19 +146,26 @@ def test_h100_roofline_reads_the_tuning_peaks():
 
 @pytest.mark.parametrize("kind", tuning.KINDS)
 def test_f32_pass_roofline_is_the_kernels_bound(kind):
-    """At f32 and d 16 a pair pass is bound by its FP32 operations: the
-    roofline over ``pair_operations``' count at the FP32 peak is
-    ``pair_bound``, the bound chip_smoke prints beside each kernel."""
+    """At f32 and d 16 a pair pass is bound by its operations: the
+    roofline over ``pair_operations``' count is ``pair_bound``, the bound
+    chip_smoke prints beside each kernel.  The KDE passes' count runs at
+    the FP32 peak; the score pass's products (six products of three
+    exact bf16 planes) at the tensor-core peak, which bounds it."""
     pairs, moved, d = 32768 * 32768, 6.0e6, 16
     gemm, elem = tuning.pair_operations(kind, "f32", d)
-    t = roofline.roofline_from_counts(arch=kind, shape="main",
-                                      flops=pairs * (gemm + elem),
-                                      bytes=moved, hw=roofline.HW_FP32)
+    if tuning.on_tensor_cores(kind, "f32"):
+        flops, hw, peak = pairs * gemm, roofline.HW, tuning.BF16_FLOPS
+    else:
+        flops, hw, peak = (pairs * (gemm + elem), roofline.HW_FP32,
+                           tuning.FP32_FLOPS)
+    assert tuning.on_tensor_cores(kind, "f32") == (kind == "score")
+    t = roofline.roofline_from_counts(arch=kind, shape="main", flops=flops,
+                                      bytes=moved, hw=hw)
     s, by = tuning.pair_bound(kind, "f32", pairs, d, moved)
     assert t.bound == "compute" and by == "operations"
     assert t.step_time == pytest.approx(s, rel=1e-12)
     assert t.mfu_at(2 * t.step_time) == pytest.approx(
-        t.model_flops / (2 * t.step_time * tuning.FP32_FLOPS))
+        t.model_flops / (2 * t.step_time * peak))
 
 
 def test_mfu_at_a_measured_time():

@@ -100,6 +100,47 @@ def test_score_plain_matches_pallas(n, m, d, precision):
     assert_close(got[:n], np.asarray(want)[:n], bar(precision, x, h))
 
 
+def test_f32_score_pass_makes_the_ones_column_itself():
+    """At f32 the wrappers pass no xaug: ``_score_operands`` builds none,
+    the plain B1 and B3 take None as [xt^T | 1] with the same bits as the
+    tensor given, the CUDA wrappers refuse a given xaug (the kernel would
+    not read it) and the bf16 tiers still need theirs."""
+    x, _ = _data(256, 16, 8)
+    xp = tops._pad_to(torch.from_numpy(x), BN)
+    x_ops, xt_ops, xaug_ops, nrm, _ = tops._score_operands(xp, "f32")
+    assert xaug_ops == (None, None)
+    inv = tops._inv2h2(0.7, xp.device)
+    aug = flash_score.ones_augmented(xt_ops[0])
+    assert torch.equal(aug, torch.cat([xp, torch.ones(xp.shape[0], 1)], 1))
+    got = flash_score.flash_score(x_ops[0], nrm, xt_ops[0], None, inv,
+                                  block_m=BM, block_n=BN)
+    want = flash_score.flash_score_plain(x_ops[0], nrm, xt_ops[0], aug, inv,
+                                         block_n=BN)
+    assert torch.equal(got, want)
+    mt, tn = xp.shape[0] // BM, xp.shape[0] // BN
+    counts = torch.full((mt,), tn, dtype=torch.int32)
+    tmap = torch.arange(tn, dtype=torch.int32).repeat(mt, 1)
+    got = flash_pruned.flash_score_pruned(counts, tmap, x_ops[0], nrm,
+                                          xt_ops[0], None, inv, block_m=BM,
+                                          block_n=BN)
+    want = flash_pruned.flash_score_pruned_plain(
+        counts, tmap, x_ops[0], nrm, xt_ops[0], aug, inv, block_m=BM,
+        block_n=BN)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="xaug=None"):
+        flash_score.flash_score_cuda(x_ops[0], nrm, xt_ops[0], aug, inv,
+                                     block_m=BM, block_n=BN)
+    with pytest.raises(ValueError, match="xaug=None"):
+        flash_pruned.flash_score_pruned_cuda(
+            counts, tmap, x_ops[0], nrm, xt_ops[0], aug, inv, block_m=BM,
+            block_n=BN)
+    b_ops, bt_ops, baug_ops, bnrm, _ = tops._score_operands(xp, "bf16")
+    assert baug_ops[0] is not None
+    with pytest.raises(ValueError, match="bf16 tiers need xaug"):
+        flash_score.flash_score(b_ops[0], bnrm, bt_ops[0], None, inv,
+                                block_m=BM, block_n=BN)
+
+
 @pytest.mark.parametrize("precision", TIERS)
 @pytest.mark.parametrize("n,m,d", SHAPES)
 def test_kde_plain_matches_pallas(n, m, d, precision):

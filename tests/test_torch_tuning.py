@@ -140,6 +140,9 @@ def test_shared_memory_mirror_matches_the_sources():
     assert tuning.kde_pass_smem(16, "f32")[1] == 4
     assert tuning.kde_pass_smem(16, "bf16")[1] == 5
     assert tuning.score_pass_smem(16, "f32")[1] == 3
+    assert tuning.score_pass_smem(32, "f32") == (75776, 2)
+    assert tuning.score_pass_smem(64, "f32") == (142336, 1)
+    assert all(tuning.score_groups(d, "f32") == 1 for d in (1, 16, 64))
     assert tuning.score_groups(16, "bf16x2") == 1
     assert tuning.score_groups(32, "bf16x2") == 2
     assert tuning.score_groups(64, "bf16x2") == 3
@@ -147,18 +150,51 @@ def test_shared_memory_mirror_matches_the_sources():
 
 
 @pytest.mark.parametrize("kind, tier, bound_ms", [
-    ("score", "f32", 1.1058), ("score", "bf16x2", 0.2866),
+    ("score", "f32", 0.4234), ("score", "bf16x2", 0.2866),
     ("score", "bf16", 0.2568), ("kde", "f32", 0.5769),
     ("kde", "bf16x2", 0.2568), ("laplace", "f32", 0.6090),
     ("sq_moment", "f32", 0.5930)])
 def test_one_bound_for_chip_smoke_and_the_tuner(kind, tier, bound_ms):
     """chip_smoke's bound is the tuner's, and it reproduces the kernel
-    table's bounds at 32768 x 32768 x 16 (PERF.md §6) to rounding."""
+    table's bounds at 32768 x 32768 x 16 (PERF.md §6) to rounding; the
+    f32 score pass's is its plane products at the tensor-core peak."""
     pairs, moved = 32768 * 32768, 10 << 20
     ms, by = chip_smoke.bound_ms(kind, tier, pairs, 16, moved)
     s, by2 = tuning.pair_bound(kind, tier, pairs, 16, moved)
     assert (ms, by) == (1e3 * s, by2)
     assert ms == pytest.approx(bound_ms, abs=5e-5) and by == "operations"
+
+
+def test_f32_score_pass_is_priced_on_the_tensor_cores():
+    """The f32 score pass runs its products as six bf16 products of three
+    exact planes on the tensor cores: tensor flops, no FP32 Gram, and
+    the split's instructions in the issue term; the f32 KDE pass stays on
+    FP32 FMAs."""
+    d, n = 16, 32768
+    assert tuning.pair_operations("score", "f32", d) == (24 * d + 6, 5)
+    assert tuning.pair_operations("kde", "f32", d) == (2 * d, 4)
+    c = tuning.pair_pass_cost(n, n, d, block_m=128, block_n=128,
+                              out_width=d + 1, precision="f32")
+    assert c.fp32_flops == 0.0
+    # the Gram over k = 16, phi.[X|1] over three n8 tiles (16 coordinates
+    # and the ones column), six products each
+    assert c.tensor_flops == c.pairs * 6 * 2 * (16 + 24)
+    assert c.instructions == pytest.approx(
+        c.pairs * (tuning.EPILOGUE_INSTR["score"] + tuning.SPLIT_INSTR
+                   + tuning.SPLIT_INSTR_PER_COORD * (16 + 24)))
+    assert c.bound == "issue" and c.step_time >= c.floor_s
+    # the fit: B1's measured CUDA-graph times at d = 1, 8, 16 and 24
+    # (H100 80GB HBM3, 700 W), each within 3%
+    for dd, ms in ((1, 1.2427), (8, 1.3326), (16, 1.4749), (24, 2.1009)):
+        got = tuning.pair_pass_cost(n, n, dd, block_m=128, block_n=128,
+                                    out_width=dd + 1, precision="f32")
+        assert got.step_time * 1e3 == pytest.approx(ms, rel=0.03)
+    assert c.floor_by == "operations"
+    assert c.floor_s == pytest.approx(
+        n * n * (24 * d + 6) / tuning.BF16_FLOPS, rel=1e-12)
+    k = tuning.pair_pass_cost(n, n, d, block_m=128, block_n=128,
+                              precision="f32")
+    assert k.tensor_flops == 0.0 and k.fp32_flops == k.pairs * 2 * d
 
 
 def test_sdkde_device_cost_and_the_sweep():
